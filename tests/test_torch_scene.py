@@ -1,0 +1,147 @@
+"""The port's jax-free scene build against the JAX package's, array by array,
+and the shading gathers on primary hits."""
+import dataclasses
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from spcbpt_tpu.scene import interior
+from spcbpt_tpu.scene import scene as jscene
+from spcbpt_tpu.scene.cornell import default_scene_path
+from spcbpt_tpu.scene.parser import load_scene
+from spcbpt_tpu_torch.render.common import camera_rays
+from spcbpt_tpu_torch.scene import scene as tscene
+
+# the tensors here are small: one thread per xdist worker avoids
+# oversubscribing the cores
+torch.set_num_threads(1)
+
+_GEOM = ("tri_p0", "tri_e1", "tri_e2", "tri_n", "tri_uv", "tri_mat",
+         "tri_light", "textures", "tex_h", "tex_w")
+_CLUSTERS = ("cmin", "cmax", "tri_block", "tri_begin")
+
+
+def _assert_scene_equal(ts, jts):
+    for f in _GEOM:
+        np.testing.assert_array_equal(getattr(ts, f).numpy(),
+                                      np.asarray(getattr(jts, f)), err_msg=f)
+    for group in ("mats", "lights"):
+        tg, jg = getattr(ts, group), getattr(jts, group)
+        for f in dataclasses.fields(tg):
+            np.testing.assert_array_equal(getattr(tg, f.name).numpy(),
+                                          np.asarray(getattr(jg, f.name)),
+                                          err_msg=f"{group}.{f.name}")
+    for f in ("num_lights", "num_quad_lights", "has_env", "mode",
+              "world_scale"):
+        assert getattr(ts, f) == getattr(jts, f), f
+    if ts.mode == "walk":
+        for f in _CLUSTERS:
+            x = getattr(ts.clusters_walk, f)   # tri_block lives on the host
+            np.testing.assert_array_equal(
+                x.numpy() if torch.is_tensor(x) else x,
+                np.asarray(getattr(jts.clusters_walk, f)), err_msg=f)
+
+
+@pytest.fixture(scope="module")
+def interior_path(tmp_path_factory):
+    return interior.generate(str(tmp_path_factory.mktemp("interior")),
+                             scale=1)
+
+
+@pytest.fixture(scope="module")
+def scenes(interior_path):
+    """(jax scene, port scene) pairs: Cornell in brute mode, the scale=1
+    interior (2,264 triangles) in walk mode."""
+    out = {}
+    for name, path, mode in (("cornell", default_scene_path(), "brute"),
+                             ("interior", interior_path, "walk")):
+        jts = jscene.build_scene(load_scene(path), mode=mode)
+        ts = tscene.build_scene(load_scene(path), "cpu")
+        out[name] = (jts, ts, path)
+    return out
+
+
+@pytest.mark.parametrize("name", ["cornell", "interior"])
+def test_build_scene_matches_jax(scenes, name):
+    jts, ts, _ = scenes[name]
+    assert ts.mode == {"cornell": "brute", "interior": "walk"}[name]
+    _assert_scene_equal(ts, jts)
+
+
+def test_interior_cluster_counts(scenes):
+    _, ts, _ = scenes["interior"]
+    assert ts.num_tris == 2264
+    assert ts.clusters_walk.num_clusters == 30
+
+
+@pytest.mark.parametrize("name", ["cornell", "interior"])
+def test_from_jax_scene_matches_build(scenes, name):
+    jts, ts, _ = scenes[name]
+    _assert_scene_equal(tscene.from_jax_scene(jts, "cpu"), jts)
+
+
+def test_mode_selection():
+    assert tscene.select_mode(512, "cuda") == "brute"
+    assert tscene.select_mode(513, "cuda") == "walk"
+    assert tscene.select_mode(1024, "cpu") == "brute"
+    assert tscene.select_mode(1025, "cpu") == "walk"
+
+
+def test_unported_modes_raise(scenes):
+    _, _, path = scenes["cornell"]
+    for mode in ("bvh", "tile"):
+        with pytest.raises(NotImplementedError):
+            tscene.build_scene(load_scene(path), "cpu", mode=mode)
+
+
+def test_envmap_raises(scenes):
+    _, _, path = scenes["cornell"]
+    desc = load_scene(path)
+    desc.env_file = "sky.hdr"
+    with pytest.raises(NotImplementedError, match="environment maps"):
+        tscene.build_scene(desc, "cpu")
+
+
+def test_load_trace_scene_camera(scenes):
+    _, _, path = scenes["interior"]
+    _, _, jcam = jscene.load_trace_scene(path, mode="walk")
+    _, _, tcam = tscene.load_trace_scene(path, "cpu")
+    for a, b in zip(tcam.uvw(), jcam.uvw()):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["cornell", "interior"])
+def test_primary_hit_shading_matches_jax(scenes, name):
+    """trace_closest + local_geometry + visibility on the same primary rays
+    (JAX in brute mode as the reference)."""
+    jts, ts, path = scenes[name]
+    jts_b = jscene.build_scene(load_scene(path), mode="brute")
+    _, _, cam = jscene.load_trace_scene(path, mode="brute")
+    cam.aspect = 1.0
+    o, d, _ = camera_rays(*cam.uvw(), 24, 24, 1)
+    jo, jd = jnp.asarray(o.numpy()), jnp.asarray(d.numpy())
+    jhit = jscene.trace_closest(jts_b, jo, jd, 1e-3, 1e16, False)
+    hit = tscene.trace_closest(ts, o, d, 1e-3, 1e16, False)
+    np.testing.assert_array_equal(hit.tri.numpy(), np.asarray(jhit.tri))
+    assert (hit.tri.numpy() >= 0).mean() > 0.8
+    jg = jscene.local_geometry(jts_b, jhit, jo, jd)
+    g = tscene.local_geometry(ts, hit, o, d)
+    for k in ("P", "Ns", "Ng", "uv", "base_color"):
+        np.testing.assert_allclose(g[k].numpy(), np.asarray(jg[k]),
+                                   rtol=1e-5, atol=1e-5, err_msg=k)
+    for k in ("mat_id", "light_id"):
+        np.testing.assert_array_equal(g[k].numpy(), np.asarray(jg[k]))
+    # visibility from the hits toward the first light's centre, a third of
+    # the lanes masked off (their value is unspecified)
+    target = ts.lights.corner[0] + 0.5 * (ts.lights.u[0] + ts.lights.v[0])
+    pa = g["P"] + 1e-3 * g["Ns"]
+    pb = target.expand(pa.shape)
+    mask = torch.arange(pa.shape[0]) % 3 != 0
+    jvis = jscene.visibility(jts_b, jnp.asarray(pa.numpy()),
+                             jnp.asarray(pb.numpy()))
+    vis = tscene.visibility(ts, pa, pb, mask=mask)
+    np.testing.assert_array_equal(vis.numpy()[mask.numpy()],
+                                  np.asarray(jvis)[mask.numpy()])
+    assert 0 < np.asarray(jvis).mean() < 1
