@@ -57,10 +57,11 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def stage_breakdown(render, device: torch.device) -> dict:
+def stage_breakdown(render, device: torch.device, stages=STAGES) -> dict:
     """Run `render()` once with a synchronised timer around each stage of
-    STAGES. Returns {"total_ms", "stages": {stage: {"ms", "calls"}}}; the
-    stages' exclusive ms and REST add up to total_ms."""
+    `stages` ((module, attribute, stage) triples). Returns {"total_ms",
+    "stages": {stage: {"ms", "calls"}}}; the stages' exclusive ms and REST
+    add up to total_ms."""
     ms = collections.defaultdict(float)
     calls = collections.Counter()
     stack = []          # per open stage: ms spent in the stages it called
@@ -81,8 +82,8 @@ def stage_breakdown(render, device: torch.device) -> dict:
                     stack[-1] += dt
         return inner
 
-    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in STAGES]
-    for (mod, name, fn), (_, _, stage) in zip(saved, STAGES):
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in stages]
+    for (mod, name, fn), (_, _, stage) in zip(saved, stages):
         setattr(mod, name, timed(fn, stage))
     try:
         _sync(device)
@@ -93,10 +94,10 @@ def stage_breakdown(render, device: torch.device) -> dict:
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
-    stages = {s: {"ms": ms[s], "calls": calls[s]} for _, _, s in STAGES
-              if calls[s]}
-    stages[REST] = {"ms": total - sum(ms.values()), "calls": 1}
-    return {"total_ms": total, "stages": stages}
+    out = {s: {"ms": ms[s], "calls": calls[s]} for _, _, s in stages
+           if calls[s]}
+    out[REST] = {"ms": total - sum(ms.values()), "calls": 1}
+    return {"total_ms": total, "stages": out}
 
 
 def _device_profile(render, top: int) -> dict:

@@ -1,13 +1,22 @@
 """Renderer CLI — port of spcbpt_tpu/apps/render_cli.py.
 
 Same flags and output (PNG, --hdr-out, --stats-json, the `[render] ...
-Mpaths/s` line). `--alg` takes only `pt` so far; `--device` replaces the
-JAX `--platform` and defaults to `cuda`, which fails when no card is
-present.
+Mpaths/s` line, the per-frame `[frame]` lines of BDPT/SPCBPT). `--device`
+replaces the JAX `--platform` and defaults to `cuda`, which fails when no
+card is present. Subspace training is not ported yet: `--alg spcbpt` needs
+a trained state from `--resume` (a checkpoint of either package), and the
+training flags of the JAX CLI are absent.
+
+BDPT and SPCBPT render one light-vertex cache per frame, as the JAX CLI
+does: frame s traces `--light-paths` light sub-paths with seed
+s+seed+7919, builds the sampler, and renders one eye sample per pixel
+with subframe s+seed.
 
 Usage:
   python -m spcbpt_tpu_torch.apps.render_cli --scene interior --alg pt \
       --dim 1024x1024 --spp 4 --out out.png
+  python -m spcbpt_tpu_torch.apps.render_cli --scene cornell --alg spcbpt \
+      --resume state.npz --spp 4 --out out.png
 """
 from __future__ import annotations
 
@@ -25,7 +34,7 @@ def build_argparser():
     p.add_argument("--scene", default="cornell",
                    help=".scene path, or builtin: cornell | cornell_glossy |"
                         " interior | interior_lit | interior_cove")
-    p.add_argument("--alg", default="pt", choices=["pt"])
+    p.add_argument("--alg", default="pt", choices=["pt", "bdpt", "spcbpt"])
     p.add_argument("--spp", type=int, default=16)
     p.add_argument("--dim", default=None, help="WxH override, e.g. 512x512")
     p.add_argument("--max-depth", type=int, default=None)
@@ -34,6 +43,12 @@ def build_argparser():
     p.add_argument("--one-frame", action="store_true",
                    help="render a single sample (reference P key)")
     p.add_argument("--print-camera", action="store_true")
+    p.add_argument("--light-paths", type=int, default=100_000,
+                   help="light sub-paths per frame (reference M=100000)")
+    p.add_argument("--light-depth", type=int, default=16)
+    p.add_argument("--connection-n", type=int, default=3)
+    p.add_argument("--resume", default=None,
+                   help="load the trained subspace state (npz) for spcbpt")
     p.add_argument("--stats-json", default=None,
                    help="write render stats as JSON here")
     p.add_argument("--seed", type=int, default=0)
@@ -64,12 +79,17 @@ def main(argv=None):
     args = build_argparser().parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
+    if args.alg == "spcbpt" and not args.resume:
+        raise SystemExit("--alg spcbpt needs --resume <state.npz>: subspace "
+                         "training (pretrace, trees, Q, Gamma) is not ported "
+                         "yet")
     device = torch.device(args.device)
 
     from spcbpt_tpu.config import PT_MAX_DEPTH
-    from ..render import pt_pool
+    from .. import checkpoint
     from ..render.film import Film
     from ..scene.scene import load_trace_scene
+    from ..train import classify
 
     scene_path = resolve_scene(args.scene)
     t0 = time.time()
@@ -87,23 +107,62 @@ def main(argv=None):
               f"fov {desc.fov}")
 
     spp = 1 if args.one_frame else args.spp
-    max_depth = args.max_depth or PT_MAX_DEPTH
+    max_depth = args.max_depth or (PT_MAX_DEPTH if args.alg == "pt" else 16)
     film = Film(width, height, device)
     stats = {"alg": args.alg, "width": width, "height": height, "spp": spp,
              "device": str(device), "phases": {}}
-    if device.type == "cuda" and ts.mode == "walk":
+    if device.type == "cuda":
         # set-up, not render time: build (or load) the traversal kernels
         from ..kernels import build
+        name = "ray_walk" if ts.mode == "walk" else "brute_trace"
         t0 = time.time()
-        build.load("ray_walk")
+        build.load(name)
         stats["phases"]["kernel_build"] = time.time() - t0
-        print(f"[build] ray_walk kernels ready "
+        print(f"[build] {name} kernels ready "
               f"({stats['phases']['kernel_build']:.1f}s)", flush=True)
+        classify.use_fp32_matmul()
+
+    ss = classify.untrained_state(device)
+    if args.alg == "spcbpt":
+        ss = checkpoint.load_subspace_state(args.resume, device)
+        print(f"[train] resumed from {args.resume}", flush=True)
 
     _sync(device)
     t_render = time.time()
-    fsum, count = pt_pool.render_pool(ts, (eye, U, V, W), width, height, spp,
-                                      args.seed, max_depth=max_depth)
+    if args.alg == "pt":
+        from ..render import pt_pool
+        fsum, count = pt_pool.render_pool(ts, (eye, U, V, W), width, height,
+                                          spp, args.seed, max_depth=max_depth)
+    else:
+        from ..render import light_trace, lvc, spcbpt_pool
+        uniform = args.alg == "bdpt"
+        build_sampler = lvc.make_builder(None if uniform else ss)
+        fsum = torch.zeros((width * height, 3), device=device)
+        count = torch.zeros((width * height,), dtype=torch.int32,
+                            device=device)
+        if args.alg == "spcbpt" and ss.trained:
+            print(f"[render] second stage '{ss.second_stage}'", flush=True)
+        stats["frames"] = []
+        for s in range(spp):
+            t_lt = time.time()
+            lv = light_trace.trace_light_paths(
+                ts, ss, args.light_paths, s + args.seed + 7919,
+                max_depth=args.light_depth)
+            sampler = build_sampler(lv, s + args.seed)
+            _sync(device)
+            t_eye = time.time()
+            fs, ct = spcbpt_pool.render_pool(
+                ts, ss, sampler, (eye, U, V, W), width, height, 1,
+                s + args.seed, max_depth=max_depth,
+                connection_n=args.connection_n, uniform=uniform)
+            fsum += fs
+            count += ct
+            _sync(device)
+            light_ms = 1e3 * (t_eye - t_lt)
+            eye_ms = 1e3 * (time.time() - t_eye)
+            stats["frames"].append({"light_ms": light_ms, "eye_ms": eye_ms})
+            print(f"[frame {s+1}/{spp}] light {light_ms:.0f} ms "
+                  f"+ eye {eye_ms:.0f} ms", flush=True)
     film.accum = fsum / torch.clamp(count[:, None], min=1)
     film.subframe = spp
     _sync(device)

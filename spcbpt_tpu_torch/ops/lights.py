@@ -10,10 +10,13 @@ from __future__ import annotations
 
 import dataclasses
 
+import math
+
 import torch
 
 from spcbpt_tpu.config import NUM_SUBSPACE
 
+from ..utils import vec
 from ..utils.rng import next_float
 
 
@@ -71,3 +74,17 @@ def sample_light(ts, state):
     r2, state = next_float(state)
     qlid = torch.clamp(lid, max=max(ts.num_quad_lights - 1, 0))
     return reverse_sample_quad(ts, qlid, torch.stack([r1, r2], dim=-1)), state
+
+
+def trace_mode(ts, ls: LightSample, state):
+    """Draw the sub-path start direction (cuProg.h:648-664): cosine
+    hemisphere about the quad normal, dir_pdf = cos/pi. Returns (direction
+    (N,3), origin (N,3), dir_pdf (N,), new state)."""
+    if ts.has_env:
+        raise NotImplementedError("environment maps are not ported yet")
+    r1, state = next_float(state)
+    r2, state = next_float(state)
+    local = vec.cosine_sample_hemisphere(r1, r2)
+    d_quad = vec.onb_transform(ls.normal, local)
+    pdf_quad = torch.abs(vec.dot(d_quad, ls.normal)) / math.pi
+    return d_quad, ls.position, pdf_quad, state

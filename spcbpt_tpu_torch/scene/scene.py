@@ -4,8 +4,9 @@ Port of spcbpt_tpu/scene/scene.py. `build_scene` assembles the scene in
 numpy exactly as the JAX package does (triangle order, material table,
 quad lights, texture stack, cluster packing) and places the result on a
 given device; `from_jax_scene` carries a JAX TraceScene over, array by
-array. Traversal modes: `brute` (ops/intersect) and `walk` (ops/ray_walk);
-the `bvh` and `tile` modes and environment maps are not ported yet.
+array. Traversal modes: `brute` (ops/brute_trace, kernel K3 on the
+card) and `walk` (ops/ray_walk, kernels K1/K2 on the card); the `bvh` and
+`tile` modes and environment maps are not ported yet.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ from spcbpt_tpu.scene.camera import Camera
 from spcbpt_tpu.scene.parser import MaterialDesc, SceneDesc, load_scene
 
 from ..ops import clusters as clusters_mod
-from ..ops import intersect, ray_walk
+from ..ops import brute_trace, intersect, ray_walk
 from ..utils import vec
 
 # Textures are kept at native resolution in one (NT, Hmax, Wmax, 3) stack;
@@ -130,9 +131,8 @@ def trace_closest(ts: TraceScene, origins, dirs, tmin, tmax,
     tmin = _lanes(tmin, n, origins.device)
     tmax = _lanes(tmax, n, origins.device)
     if ts.mode == "brute":
-        return intersect.brute_force_closest(
-            origins, dirs, ts.tri_p0, ts.tri_e1, ts.tri_e2, tmin, tmax,
-            cull_backface, chunk=min(512, max(8, ts.num_tris)))
+        return brute_trace.brute_closest(origins, dirs, tmin, tmax, ts.tri_p0,
+                                         ts.tri_e1, ts.tri_e2, cull_backface)
     return ray_walk.walk_closest(ts.clusters_walk, origins, dirs, tmin, tmax,
                                  cull_backface, sort_rays=True)
 
@@ -142,9 +142,8 @@ def trace_any(ts: TraceScene, origins, dirs, tmin, tmax):
     tmin = _lanes(tmin, n, origins.device)
     tmax = _lanes(tmax, n, origins.device)
     if ts.mode == "brute":
-        return intersect.brute_force_any(
-            origins, dirs, ts.tri_p0, ts.tri_e1, ts.tri_e2, tmin, tmax,
-            chunk=min(512, max(8, ts.num_tris)))
+        return brute_trace.brute_any(origins, dirs, tmin, tmax, ts.tri_p0,
+                                     ts.tri_e1, ts.tri_e2)
     return ray_walk.walk_any(ts.clusters_walk, origins, dirs, tmin, tmax,
                              sort_rays=True)
 
