@@ -27,11 +27,27 @@ Phases, one status line each; any failure raises and exits non-zero:
   7. SPCBPT on interior_cove at 256x256, 1 spp, through K1/K2 (the walk
      under the masked connection wavefront);
   8. CPU vs card: the same 64x64 render on both, PT (2 spp, interior) and
-     SPCBPT (1 spp, Cornell, 10,000 light paths, the saved state).
-Each render phase sets every launch counter to 0 just before its
-render_cli call and reads them just after; its PNG, HDR and stats go to
-smoke_out/. The last three lines are the card as nvidia-smi names it, one
-JSON object with each kernel's numbers, and {"ok": true, "device": {...}}.
+     SPCBPT (1 spp, Cornell, 10,000 light paths, the saved state);
+  9. tile kernels vs plain: the interior in `tile` mode (1,370 clusters of
+     at most 32 triangles): the round kernel K4 (through the round walk of
+     tile_closest) and the fused walk K5 (closest and any hit) against their
+     plain versions on the camera, bounce and connection wavefronts, both
+     cull settings; against brute force on a subset and against the walk
+     mode; times per call, the round walk's rounds and host syncs;
+ 10. tile main path, PT on the interior in `tile` mode at 1024x1024, depth
+     30, 2^17 pool lanes, 4 spp, through `load_trace_scene` with mode
+     "tile" and `pt_pool.render_pool` (the library boundary: the CLI has no
+     mode flag): K4 closest hits, K5 any hits, the mean within
+     TILE_MEAN_PT of phase 5's walk-mode mean on the same seeds;
+ 11. cove SPCBPT 256x256, 1 spp in `tile` mode from the saved state: the
+     connection wavefront through K5's any hit, the mean within
+     TILE_MEAN_SPCBPT of phase 7's;
+ 12. CPU vs card in `tile` mode: PT 64x64, 2 spp, depth 8 on the scale=1
+     interior (the CPU runs JAX's matmul walk, the card K4/K5).
+Each render phase sets every launch counter to 0 just before it renders and
+reads them just after; the CLI renders' PNG, HDR and stats go to smoke_out/.
+The last three lines are the card as nvidia-smi names it, one JSON object
+with each kernel's numbers, and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -65,11 +81,23 @@ MEAN_VS_PT = 0.02
 # but transcendental ulps, atomic sums and label ties let some paths part;
 # the mean must agree within 1%.
 SPCBPT_CPU_CARD = 0.01
-KERNEL_SOURCES = ("ray_walk", "brute_trace")
+# Tile mode against walk mode on the card, same seeds: both run direct
+# Moller-Trumbore, so paths part only where an exact tie at a shared edge
+# goes to another cluster. PT means within 0.5%, SPCBPT means within 1%
+# (its LVC sums are atomics whose order changes from run to run).
+TILE_MEAN_PT = 0.005
+TILE_MEAN_SPCBPT = 0.01
+# CPU (JAX's matmul walk) against card (K4/K5) in tile mode: the two
+# formulations part at grazing edges; PT means within 0.5%.
+TILE_CPU_CARD = 0.005
+KERNEL_SOURCES = ("ray_walk", "brute_trace", "tile_walk")
+
+
+_T0 = time.perf_counter()
 
 
 def log(phase: str, msg: str) -> None:
-    print(f"[{phase}] {msg}", flush=True)
+    print(f"[{time.perf_counter() - _T0:7.1f} s] [{phase}] {msg}", flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -157,14 +185,13 @@ def wavefronts(ts, cam, dev):
     return camera, bounce
 
 
-def phase_kernels(ts, cam, dev):
+def phase_kernels(ts, waves, dev):
     from spcbpt_tpu_torch.kernels import ray_walk as kernels
     from spcbpt_tpu_torch.ops import intersect, ray_walk
 
     cs = ts.clusters_walk
-    camera, bounce = wavefronts(ts, cam, dev)
     results = {}
-    for name, o, d, tmax in (camera, bounce):
+    for name, o, d, tmax in waves:
         n = o.shape[0]
         tmin = torch.full((n,), 1e-3, device=dev)
         # K1, both cull settings: kernel wrapper vs plain version
@@ -251,14 +278,18 @@ def phase_kernels(ts, cam, dev):
 
 
 def reset_launches() -> None:
-    from spcbpt_tpu_torch.kernels import brute_trace, ray_walk
+    from spcbpt_tpu_torch.kernels import brute_trace, ray_walk, tile_walk
+    from spcbpt_tpu_torch.ops import tile_trace
     ray_walk.reset_launches()
     brute_trace.reset_launches()
+    tile_walk.reset_launches()
+    tile_trace.reset_walk_stats()
 
 
 def read_launches() -> dict:
-    from spcbpt_tpu_torch.kernels import brute_trace, ray_walk
-    return {**ray_walk.LAUNCHES, **brute_trace.LAUNCHES}
+    from spcbpt_tpu_torch.kernels import brute_trace, ray_walk, tile_walk
+    return {**ray_walk.LAUNCHES, **brute_trace.LAUNCHES,
+            **tile_walk.LAUNCHES}
 
 
 def run_cli(out_dir: str, tag: str, argv: list, spp: int):
@@ -291,8 +322,8 @@ def _frames(stats) -> str:
 
 
 def phase_main_path(out_dir: str, device: str = "cuda", dim: int = 1024,
-                    spp: int = 4) -> dict:
-    """PT on the interior through K1/K2."""
+                    spp: int = 4) -> tuple:
+    """PT on the interior through K1/K2; returns (launches, stats)."""
     stats, launches = run_cli(out_dir, "interior", [
         "--scene", "interior", "--alg", "pt", "--dim", f"{dim}x{dim}",
         "--device", device], spp)
@@ -301,7 +332,7 @@ def phase_main_path(out_dir: str, device: str = "cuda", dim: int = 1024,
                 f"{stats['samples_per_second'] / 1e6:.3f} Mpaths/s, mean "
                 f"radiance {stats['mean_radiance']:.6f}, launches {launches}")
     assert launches["walk_closest"] > 0 and launches["walk_any"] > 0, launches
-    return launches
+    return launches, stats
 
 
 def phase_cornell(out_dir: str, dev, spp: int = 4) -> tuple:
@@ -346,8 +377,9 @@ def phase_cornell(out_dir: str, dev, spp: int = 4) -> tuple:
     return launches["spcbpt"], state_path
 
 
-def phase_cove(out_dir: str, dev) -> None:
-    """SPCBPT through K1/K2 on interior_cove with a synthetic state."""
+def phase_cove(out_dir: str, dev) -> tuple:
+    """SPCBPT through K1/K2 on interior_cove with a synthetic state; returns
+    (stats, saved state path)."""
     from spcbpt_tpu_torch import checkpoint
     from spcbpt_tpu_torch.apps.render_cli import resolve_scene
     from spcbpt_tpu_torch.scene.scene import load_trace_scene
@@ -367,6 +399,7 @@ def phase_cove(out_dir: str, dev) -> None:
                 f"{_frames(stats)}")
     assert launches["walk_closest"] > 0 and launches["walk_any"] > 0, launches
     assert launches["brute_closest"] == launches["brute_any"] == 0, launches
+    return stats, state_path
 
 
 def connection_wavefront(ts, cam, dev):
@@ -518,6 +551,242 @@ def phase_cpu_vs_card_spcbpt(state_path: str) -> None:
     assert rel <= SPCBPT_CPU_CARD, (mean_a, mean_b)
 
 
+def phase_tile_kernels(tts, wts, waves, dev) -> dict:
+    """K4 (through the round walk) and K5 against their plain versions on the
+    tile-mode interior; against brute force and the walk mode."""
+    from spcbpt_tpu_torch.kernels import tile_walk as kernels
+    from spcbpt_tpu_torch.ops import intersect, pallas_tile, ray_walk
+    from spcbpt_tpu_torch.ops import tile_trace
+    from spcbpt_tpu_torch.scene.scene import TILE_LANES
+
+    cs = tts.clusters
+    tris = (tts.tri_p0, tts.tri_e1, tts.tri_e2)
+    sub = slice(0, BRUTE_SUBSET)
+    results = {}
+    for name, o, d, tmax in waves:
+        n = o.shape[0]
+        tmin = torch.full((n,), 1e-3, device=dev)
+        for cull in (True, False):
+            tile_trace.reset_walk_stats()
+            k4 = tile_trace.tile_closest(cs, o, d, tmin, tmax, cull,
+                                         tile=TILE_LANES, use_kernel=True,
+                                         sort_rays=True)
+            torch.cuda.synchronize()
+            stats = dict(tile_trace.WALK_STATS)
+            p4 = tile_trace.tile_closest_plain(cs, o, d, tmin, tmax, cull,
+                                               tile=TILE_LANES,
+                                               sort_rays=True)
+            k5 = pallas_tile.pallas_closest(cs, o, d, tmin, tmax, cull,
+                                            sort_rays=True)
+            p5 = pallas_tile.pallas_closest_plain(cs, o, d, tmin, tmax, cull,
+                                                  sort_rays=True)
+            torch.cuda.synchronize()
+            for tag, got, ref in (("K4", k4, p4), ("K5 closest", k5, p5)):
+                for f in ("tri", "t", "u", "v"):
+                    assert torch.equal(getattr(got, f), getattr(ref, f)), \
+                        f"{tag} {name} cull={cull}: {f} differs from plain"
+                assert (got.tri[tmax < tmin] == -1).all(), "dead lane hit"
+            walk = ray_walk.walk_closest(wts.clusters_walk, o, d, tmin, tmax,
+                                         cull, sort_rays=True)
+            bf = intersect.brute_force_closest(o[sub], d[sub], *tris,
+                                               tmin[sub], tmax[sub], cull)
+            agree = lambda a, b: (a == b).float().mean().item()
+            vs_bf = (agree(k4.tri[sub], bf.tri), agree(k5.tri[sub], bf.tri))
+            log("tile", f"{name} cull={cull}: K4 and K5 closest equal their "
+                        f"plain versions; hits "
+                        f"{(k4.tri >= 0).float().mean().item():.4f}; tri "
+                        f"agreement K4-K5 {agree(k4.tri, k5.tri):.6f}, "
+                        f"K4-walk {agree(k4.tri, walk.tri):.6f}, brute on "
+                        f"{BRUTE_SUBSET} rays {vs_bf[0]:.6f} / {vs_bf[1]:.6f}"
+                        f"; round walk {stats['buckets']} buckets, "
+                        f"{stats['rounds']} rounds (K4 launches), "
+                        f"{stats['syncs']} host syncs")
+            assert min(vs_bf) >= TRI_AGREE, (name, cull, vs_bf)
+            assert agree(k4.tri, walk.tri) >= TRI_AGREE
+            if name.startswith("bounce") and not cull:
+                err = (k4.t - p4.t).abs().max().item()
+                results["tile_round"] = dict(max_abs_err=err)
+                results["tile_walk_closest"] = dict(
+                    max_abs_err=(k5.t - p5.t).abs().max().item())
+        # any hit: the connection wavefront has its own segments, the others
+        # random ones (dead lanes stay dead)
+        if name.startswith("connection"):
+            tseg = tmax
+        else:
+            rs = np.random.RandomState(1)
+            seg = torch.from_numpy(rs.uniform(0.05, 4.0, n).astype(np.float32))
+            tseg = torch.where(tmax < 0, -1.0, seg.to(dev))
+        occ_k = pallas_tile.pallas_any(cs, o, d, tmin, tseg, sort_rays=True)
+        occ_p = pallas_tile.pallas_any_plain(cs, o, d, tmin, tseg,
+                                             sort_rays=True)
+        torch.cuda.synchronize()
+        assert torch.equal(occ_k, occ_p), f"K5 any {name}: differs from plain"
+        occ_w = ray_walk.walk_any(wts.clusters_walk, o, d, tmin, tseg,
+                                  sort_rays=True)
+        bf = intersect.brute_force_any(o[sub], d[sub], *tris, tmin[sub],
+                                       tseg[sub])
+        bf_agree = (occ_k[sub] == bf).float().mean().item()
+        log("tile", f"{name}: K5 any equals its plain version (occluded "
+                    f"{occ_k.float().mean().item():.4f}); agreement with the "
+                    f"walk {(occ_k == occ_w).float().mean().item():.6f}, "
+                    f"brute {bf_agree:.6f}")
+        assert bf_agree >= OCC_AGREE, (name, bf_agree)
+        if name.startswith("connection"):
+            results["tile_walk_any"] = dict(
+                max_abs_err=(occ_k.int() - occ_p.int()).abs().max().item())
+
+        # times: one K4 round at round 0 of the whole wavefront in 256-ray
+        # tiles, each fused walk alone on its prepared rays, and the walks
+        po, pd, ptn, ptx, _ = tile_trace._pad_rays(o, d, tmin, tmax,
+                                                   TILE_LANES)
+        entries_s, ids_s, o_t, d_t, tmin_t, tmax_t, _, _ = \
+            tile_trace._prepare(cs, po, pd, ptn, ptx, TILE_LANES)
+        run0 = entries_s[0] < 1e30
+        r_args = (o_t, d_t, tmin_t, tmax_t, ids_s[0], run0)
+        k4_ms = cuda_ms(lambda: kernels.tile_round(
+            *r_args, cs.tri_block, cs.tri_k, False), 50)
+        p4_ms = cuda_ms(lambda: pallas_tile.mt_round_blocks_plain(
+            o_t, d_t, cs.tri_block, ids_s[0], run0, tmin_t, tmax_t, cs.tri_k,
+            False), 10)
+        walk4 = cuda_ms(lambda: tile_trace.tile_closest(
+            cs, o, d, tmin, tmax, False, tile=TILE_LANES, use_kernel=True,
+            sort_rays=True), 3)
+        walk4_p = cuda_ms(lambda: tile_trace.tile_closest_plain(
+            cs, o, d, tmin, tmax, False, tile=TILE_LANES, sort_rays=True), 1)
+        qo, qd, qtn, qtx, _, _ = pallas_tile.prepare(cs, o, d, tmin, tmax,
+                                                     True)
+        qseg = pallas_tile.prepare(cs, o, d, tmin, tseg, True)[3]
+        k5c = cuda_ms(lambda: kernels.walk_closest(
+            qo, qd, qtn, qtx, cs.cmin, cs.cmax, cs.tri_begin, cs.tri_block,
+            cs.tri_k, False), 20)
+        k5a = cuda_ms(lambda: kernels.walk_any(
+            qo, qd, qtn, qseg, cs.cmin, cs.cmax, cs.tri_block, cs.tri_k), 20)
+        p5c = cuda_ms(lambda: pallas_tile.closest_tiles_plain(
+            cs, qo, qd, qtn, qtx, False), 1)
+        p5a = cuda_ms(lambda: pallas_tile.any_tiles_plain(
+            cs, qo, qd, qtn, qseg), 1)
+        log("tile", f"{name} ({n} rays): K4 round 0 ({o_t.shape[0]} tiles) "
+                    f"{k4_ms:.4f} ms, plain {p4_ms:.4f} ms; tile_closest "
+                    f"with K4 {walk4:.2f} ms, with the plain round "
+                    f"{walk4_p:.2f} ms; K5 closest {k5c:.3f} ms, plain "
+                    f"{p5c:.2f} ms; K5 any {k5a:.3f} ms, plain {p5a:.2f} ms")
+        if name.startswith("bounce"):
+            results["tile_round"].update(ms=k4_ms, plain_ms=p4_ms)
+            results["tile_walk_closest"].update(ms=k5c, plain_ms=p5c)
+        if name.startswith("connection"):
+            results["tile_walk_any"].update(ms=k5a, plain_ms=p5a)
+    return results
+
+
+def phase_tile_main(tts, cam, walk_stats) -> dict:
+    """PT on the interior in tile mode (K4/K5) at the walk main path's size,
+    spp and seeds; returns the render's launch counts."""
+    from spcbpt_tpu_torch.ops import tile_trace
+    from spcbpt_tpu_torch.render import pt_pool
+
+    dim, spp = walk_stats["width"], walk_stats["spp"]
+    ref = walk_stats["mean_radiance"]
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    fsum, count = pt_pool.render_pool(tts, cam.uvw(), dim, dim, spp, 0)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / spp
+    launches = read_launches()
+    stats = dict(tile_trace.WALK_STATS)
+    img = fsum / torch.clamp(count[:, None], min=1)
+    assert (count == spp).all(), "per-pixel counts"
+    assert torch.isfinite(img).all()
+    mean = img.mean().item()
+    rel = abs(mean - ref) / ref
+    walks = max(stats["walks"], 1)
+    log("tile-main", f"interior {dim}x{dim} pt {spp} spp in tile mode: "
+                     f"{ms:.1f} ms/spp (walk mode "
+                     f"{walk_stats['render_seconds'] * 1e3 / spp:.1f}); mean "
+                     f"{mean:.6f} vs walk mode {ref:.6f} ({rel * 100:.4f}%, "
+                     f"bound {TILE_MEAN_PT * 100:.1f}%); launches {launches};"
+                     f" {stats['walks']} closest traces: "
+                     f"{stats['rounds'] / walks:.1f} rounds and "
+                     f"{stats['syncs'] / walks:.1f} host syncs per trace")
+    assert launches["tile_round"] > 0 and launches["tile_walk_any"] > 0
+    assert launches["walk_closest"] == launches["walk_any"] == 0, launches
+    assert rel <= TILE_MEAN_PT, (mean, ref)
+    return launches
+
+
+def phase_tile_cove(dev, state_path: str, walk_stats) -> None:
+    """Cove SPCBPT 256x256, 1 spp, in tile mode from the saved state, as
+    render_cli renders frame 0 (100,000 light paths, depth 16, 3
+    connections)."""
+    from spcbpt_tpu_torch import checkpoint
+    from spcbpt_tpu_torch.apps.render_cli import resolve_scene
+    from spcbpt_tpu_torch.render import light_trace, lvc, spcbpt_pool
+    from spcbpt_tpu_torch.scene.scene import load_trace_scene
+
+    ts, _, cam = load_trace_scene(resolve_scene("interior_cove"), dev,
+                                  mode="tile")
+    cam.aspect = 1.0
+    ss = checkpoint.load_subspace_state(state_path, dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    lv = light_trace.trace_light_paths(ts, ss, 100_000, 7919, max_depth=16)
+    sampler = lvc.make_builder(ss)(lv, 0)
+    fsum, count = spcbpt_pool.render_pool(ts, ss, sampler, cam.uvw(), 256,
+                                          256, 1, 0, max_depth=16,
+                                          connection_n=3)
+    img = fsum / torch.clamp(count[:, None], min=1)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    assert (count == 1).all() and torch.isfinite(img).all()
+    mean = img.mean().item()
+    ref = walk_stats["mean_radiance"]
+    rel = abs(mean - ref) / ref
+    log("tile-cove", f"spcbpt 256x256 1 spp in tile mode: "
+                     f"{(time.perf_counter() - t0) * 1e3:.1f} ms, mean "
+                     f"{mean:.6f} vs walk mode {ref:.6f} ({rel * 100:.4f}%, "
+                     f"bound {TILE_MEAN_SPCBPT * 100:.0f}%); launches "
+                     f"{launches}")
+    assert launches["tile_round"] > 0 and launches["tile_walk_any"] > 0
+    assert rel <= TILE_MEAN_SPCBPT, (mean, ref)
+
+
+def phase_tile_cpu_vs_card(out_dir: str) -> None:
+    """PT 64x64, 2 spp, depth 8 on the scale=1 interior in tile mode, CPU
+    (matmul walk) against card (K4/K5)."""
+    from spcbpt_tpu_torch.apps.render_cli import generate_interior
+    from spcbpt_tpu_torch.render import pt_pool
+    from spcbpt_tpu_torch.scene.scene import load_trace_scene
+
+    path = generate_interior(os.path.join(out_dir, "interior_scale1"), 1)
+    out = []
+    for dev in ("cpu", "cuda"):
+        ts, _, cam = load_trace_scene(path, dev, mode="tile")
+        cam.aspect = 1.0
+        reset_launches()
+        t0 = time.perf_counter()
+        fsum, count = pt_pool.render_pool(ts, cam.uvw(), 64, 64, 2, 0,
+                                          max_depth=8)
+        img = (fsum / torch.clamp(count[:, None], min=1)).cpu().numpy()
+        out.append((img, count.cpu().numpy(), time.perf_counter() - t0,
+                    read_launches()))
+    (a, ca, ta, la), (b, cb, tb, lb) = out
+    mean_a, mean_b = float(a.mean()), float(b.mean())
+    rel = abs(mean_b - mean_a) / abs(mean_a)
+    close = float((np.abs(a - b) <= 1e-3 * np.maximum(np.abs(a), 1e-20))
+                  .all(axis=-1).mean())
+    log("cpu-vs-card", f"tile mode, {ts.num_tris} tris, 64x64 2 spp depth 8:"
+                       f" cpu {ta:.1f} s, card {tb:.1f} s; mean {mean_a:.6f} "
+                       f"vs {mean_b:.6f} ({rel * 100:.4f}%, bound "
+                       f"{TILE_CPU_CARD * 100:.1f}%); pixels within 1e-3 "
+                       f"relative {close:.4f}")
+    assert not any(la.values()), la                    # plain on the CPU
+    assert lb["tile_round"] > 0 and lb["tile_walk_any"] > 0, lb
+    assert np.array_equal(ca, cb) and (ca == 2).all()
+    assert np.isfinite(b).all()
+    assert rel <= TILE_CPU_CARD, (mean_a, mean_b)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -537,27 +806,45 @@ def main() -> int:
     log("scene", f"interior: {ts.num_tris} tris, "
                  f"{ts.clusters_walk.num_clusters} clusters, mode {ts.mode}")
     assert ts.mode == "walk"
-    numbers = phase_kernels(ts, cam, dev)
+    waves = wavefronts(ts, cam, dev)
+    numbers = phase_kernels(ts, waves, dev)
     cts, _, ccam = load_trace_scene(resolve_scene("cornell"), dev)
     ccam.aspect = 1.0
     log("scene", f"cornell: {cts.num_tris} tris, mode {cts.mode}")
     numbers.update(phase_brute(cts, ccam, dev))
-    launches = phase_main_path(out_dir)
+    t0 = time.perf_counter()
+    tts, _, _ = load_trace_scene(scene_path, dev, mode="tile")
+    log("scene", f"interior in tile mode: {tts.clusters.num_clusters} "
+                 f"clusters of at most {tts.clusters.tri_k} triangles "
+                 f"({time.perf_counter() - t0:.1f} s)")
+    numbers.update(phase_tile_kernels(
+        tts, ts, waves + (connection_wavefront(ts, cam, dev),), dev))
+    launches, walk_stats = phase_main_path(out_dir)
     brute_launches, state_path = phase_cornell(out_dir, dev)
     launches.update({k: brute_launches[k]
                      for k in ("brute_closest", "brute_any")})
-    phase_cove(out_dir, dev)
+    cove_stats, cove_state = phase_cove(out_dir, dev)
+    tile_launches = phase_tile_main(tts, cam, walk_stats)
+    launches.update({k: tile_launches[k] for k in
+                     ("tile_round", "tile_walk_closest", "tile_walk_any")})
+    phase_tile_cove(dev, cove_state, cove_stats)
     phase_cpu_vs_card(scene_path)
     phase_cpu_vs_card_spcbpt(state_path)
+    phase_tile_cpu_vs_card(out_dir)
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     sources = {"walk_closest": "ray_walk.cu", "walk_any": "ray_walk.cu",
                "brute_closest": "brute_trace.cu",
-               "brute_any": "brute_trace.cu"}
+               "brute_any": "brute_trace.cu", "tile_round": "tile_walk.cu",
+               "tile_walk_closest": "tile_walk.cu",
+               "tile_walk_any": "tile_walk.cu"}
     replaces = {"walk_closest": "spcbpt_tpu/ops/ray_walk.py:144",
                 "walk_any": "spcbpt_tpu/ops/ray_walk.py:197",
                 "brute_closest": "spcbpt_tpu/ops/pallas_trace.py:28",
-                "brute_any": "spcbpt_tpu/ops/pallas_trace.py:108"}
+                "brute_any": "spcbpt_tpu/ops/pallas_trace.py:108",
+                "tile_round": "spcbpt_tpu/ops/pallas_tile.py:416",
+                "tile_walk_closest": "spcbpt_tpu/ops/pallas_tile.py:163",
+                "tile_walk_any": "spcbpt_tpu/ops/pallas_tile.py:236"}
     kernels = [dict(name=k, route="cuda",
                     source=f"spcbpt_tpu_torch/csrc/{sources[k]}",
                     replaces=replaces[k], launches=launches[k], **numbers[k])

@@ -1,10 +1,13 @@
 """Where the time of a PT render goes: the interior at 1024x1024, 1 spp.
 
     python -m spcbpt_tpu_torch.apps.profile_pt --out prof.json
+    python -m spcbpt_tpu_torch.apps.profile_pt --mode tile
 
+`--mode` picks the scene's traversal: the row walk (K1/K2, the default) or
+the tile walk (K4 rounds for closest hits, K5 for any hits).
 In one process, after one warm-up render:
-  1. an unprofiled render: wall ms, pool iterations (K1 launches), peak
-     device memory;
+  1. an unprofiled render: wall ms, the traversal kernels' launches (and the
+     tile walk's rounds and host syncs), peak device memory;
   2. the same render under torch.profiler: device busy ms (the union of the
      device's kernel and copy intervals), its share of the profiled wall,
      and the kernels that take the most device time;
@@ -27,12 +30,19 @@ import time
 import torch
 
 from ..kernels import ray_walk as kernels
-from ..ops import ray_walk
+from ..kernels import tile_walk as tile_kernels
+from ..ops import pallas_tile, ray_walk, tile_trace
 from ..render import pt_pool
 
 # (module, attribute, stage): the functions timed by stage_breakdown. Each is
 # looked up through its module at call time, so replacing the attribute
 # times every call the render makes.
+_PT_STAGES = (
+    (pt_pool, "local_geometry", "local_geometry"),
+    (pt_pool, "emitter_hit", "emitter_hit"),
+    (pt_pool, "_nee", "NEE without its shadow trace"),
+    (pt_pool, "bounce", "RR + BSDF bounce"),
+)
 STAGES = (
     (ray_walk, "row_entries", "row_entries"),
     (ray_walk, "prepare", "sort key + argsort + pad"),
@@ -42,11 +52,20 @@ STAGES = (
     (ray_walk, "any_rows_plain", "K2 plain version"),
     (ray_walk, "walk_closest", "walk_closest unsort + hit"),
     (ray_walk, "walk_any", "walk_any unsort"),
-    (pt_pool, "local_geometry", "local_geometry"),
-    (pt_pool, "emitter_hit", "emitter_hit"),
-    (pt_pool, "_nee", "NEE without its shadow trace"),
-    (pt_pool, "bounce", "RR + BSDF bounce"),
-)
+) + _PT_STAGES
+# the tile mode: K4 rounds and K5 on the card, the matmul walk on the CPU
+TILE_STAGES = (
+    (tile_trace, "tile_entries", "tile_entries"),
+    (tile_trace, "_prepare", "visit-order sort + tile order"),
+    (tile_kernels, "tile_round", "K4 round kernel"),
+    (tile_trace, "_round_walk", "round walk (host loop and syncs)"),
+    (tile_kernels, "walk_any", "K5 any-hit kernel"),
+    (tile_trace, "_closest_loop", "matmul closest walk"),
+    (tile_trace, "_any_loop", "matmul any walk"),
+    (tile_trace, "tile_closest", "tile_closest sort + pad + unsort"),
+    (pallas_tile, "pallas_any", "pallas_any sort + pad + unsort"),
+    (tile_trace, "tile_any", "tile_any sort + pad + unsort"),
+) + _PT_STAGES
 REST = "pool loop (the rest)"
 SCENE, DIM, SPP, SEED = "interior", 1024, 1, 0   # the PT ms/spp metric's render
 TOP = 15                                          # kernels listed by device ms
@@ -142,6 +161,8 @@ def _device_profile(render, top: int) -> dict:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--out", default=None, help="also write the JSON here")
+    p.add_argument("--mode", default="walk", choices=["walk", "tile"],
+                   help="the scene's traversal mode")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_pt: no CUDA device is available")
@@ -149,7 +170,10 @@ def main(argv=None) -> int:
     from .render_cli import resolve_scene
 
     device = torch.device("cuda", 0)
-    ts, _, cam = load_trace_scene(resolve_scene(SCENE), device)
+    ts, _, cam = load_trace_scene(resolve_scene(SCENE), device,
+                                  mode=args.mode)
+    tile = ts.mode == "tile"
+    launch_mod = tile_kernels if tile else kernels
     cam.aspect = 1.0
     uvw = cam.uvw()
 
@@ -159,18 +183,22 @@ def main(argv=None) -> int:
     render()                                     # warm-up, kernel build
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
+    launch_mod.reset_launches()
+    tile_trace.reset_walk_stats()
     t0 = time.perf_counter()
     render()
     torch.cuda.synchronize()
     out = {"card": torch.cuda.get_device_name(0), "scene": SCENE,
            "num_tris": ts.num_tris, "mode": ts.mode, "dim": DIM, "spp": SPP,
            "wall_ms": (time.perf_counter() - t0) * 1e3,
-           "launches": dict(kernels.LAUNCHES),
+           "launches": dict(launch_mod.LAUNCHES),
            "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if tile:
+        out["round_walk"] = dict(tile_trace.WALK_STATS)
     out.update(_device_profile(render, TOP))
     out["busy_share_of_wall"] = out["device_busy_ms"] / out["wall_ms"]
-    out["synchronised_stages"] = stage_breakdown(render, device)
+    out["synchronised_stages"] = stage_breakdown(
+        render, device, TILE_STAGES if tile else STAGES)
     text = json.dumps(out, indent=1)
     print(text)
     if args.out:

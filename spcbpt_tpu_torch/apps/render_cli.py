@@ -70,6 +70,13 @@ def resolve_scene(name: str) -> str:
     raise SystemExit(f"scene not found: {name}")
 
 
+def generate_interior(root: str, scale: int) -> str:
+    """The procedural interior at `scale` (1: 2,264 triangles; 4, the
+    builtin's: 32,576), generated under `root`; returns its scene path."""
+    from spcbpt_tpu.scene.interior import generate
+    return generate(root, scale=scale)
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -114,7 +121,8 @@ def main(argv=None):
     if device.type == "cuda":
         # set-up, not render time: build (or load) the traversal kernels
         from ..kernels import build
-        name = "ray_walk" if ts.mode == "walk" else "brute_trace"
+        name = {"walk": "ray_walk", "tile": "tile_walk"}.get(ts.mode,
+                                                             "brute_trace")
         t0 = time.time()
         build.load(name)
         stats["phases"]["kernel_build"] = time.time() - t0

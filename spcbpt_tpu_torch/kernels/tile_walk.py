@@ -1,0 +1,157 @@
+"""ctypes bindings of csrc/tile_walk.cu: the CUDA tile-walk kernels K4 (one
+round of the host-driven walk) and K5 (the fused walk, closest hit and any
+hit).
+
+Each function checks its tensors, allocates the outputs with torch.empty,
+launches on the current stream and raises on a launch error. LAUNCHES
+counts each kernel's launches and nothing else.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import build
+from .ray_walk import _check, _stream
+
+TILE = 128             # rays per tile (= threads per block) of K5
+MAX_ROUND_LANES = 256  # rays per tile of K4: one thread each
+SLOTS = 128
+# K5 keeps the tile's entry bound of every cluster in shared memory, beside
+# the staged 9 x 128 block and its 32 bytes of reduction scratch: at most
+# 227 KB on an H100
+MAX_CLUSTERS = (227 * 1024 - 32) // 4 - 9 * SLOTS
+LAUNCHES = {"tile_round": 0, "tile_walk_closest": 0, "tile_walk_any": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The built library with its C signatures, set once at first use."""
+    lib = build.load("tile_walk")
+    # pointers and the stream as c_void_p: ctypes would cut them to 32 bits
+    lib.tile_round.argtypes = [_P] * 7 + [_I] * 4 + [_P] * 6
+    lib.tile_round.restype = _I
+    lib.tile_walk_closest.argtypes = [_P] * 8 + [_I] * 4 + [_P] * 5
+    lib.tile_walk_closest.restype = _I
+    lib.tile_walk_any.argtypes = [_P] * 7 + [_I] * 3 + [_P] * 2
+    lib.tile_walk_any.restype = _I
+    return lib
+
+
+def _check_blocks(tri_block, tri_k, dev):
+    c = tri_block.shape[0]
+    _check("tri_block", tri_block, torch.float32, (c, 16, SLOTS), dev)
+    if not 0 < tri_k <= SLOTS:
+        raise ValueError(f"tri_k {tri_k} outside 1..{SLOTS}")
+    return c
+
+
+def _cuda_device(x):
+    if x.device.type != "cuda":
+        raise ValueError(f"tile_walk kernels take CUDA tensors, got "
+                         f"{x.device}")
+    return x.device
+
+
+def tile_round(o, d, tmin, tmax_eff, cid, run, tri_block, tri_k: int,
+               cull: bool):
+    """K4 on (nt, r) ray tiles -> (t, u, v, dn, slot), each (nt, r): tile
+    i against tri_block[cid[i]] where run[i], a miss (t 1e30, u = v = 0,
+    slot 128) where not."""
+    dev = _cuda_device(o)
+    nt, r = o.shape[0], o.shape[1]
+    if not 0 < r <= MAX_ROUND_LANES:
+        raise ValueError(f"tile of {r} rays outside 1..{MAX_ROUND_LANES}")
+    f32 = torch.float32
+    _check("origins", o, f32, (nt, r, 3), dev)
+    _check("dirs", d, f32, (nt, r, 3), dev)
+    _check("tmin", tmin, f32, (nt, r), dev)
+    _check("tmax_eff", tmax_eff, f32, (nt, r), dev)
+    _check("cid", cid, torch.int32, (nt,), dev)
+    _check("run", run, torch.bool, (nt,), dev)
+    _check_blocks(tri_block, tri_k, dev)
+    t = torch.empty((nt, r), dtype=f32, device=dev)
+    u, v, dn = torch.empty_like(t), torch.empty_like(t), torch.empty_like(t)
+    slot = torch.empty((nt, r), dtype=torch.int32, device=dev)
+    if nt == 0:
+        return t, u, v, dn, slot
+    with torch.cuda.device(dev):
+        err = _lib().tile_round(
+            o.data_ptr(), d.data_ptr(), tmin.data_ptr(), tmax_eff.data_ptr(),
+            cid.data_ptr(), run.data_ptr(), tri_block.data_ptr(), nt, r,
+            tri_k, int(bool(cull)), t.data_ptr(), u.data_ptr(), v.data_ptr(),
+            dn.data_ptr(), slot.data_ptr(), _stream(dev))
+    if err:
+        raise RuntimeError(f"tile_round launch failed: CUDA error {err}")
+    LAUNCHES["tile_round"] += 1
+    return t, u, v, dn, slot
+
+
+def _check_walk(o, d, tmin, tmax, cmin, cmax, tri_block, tri_k):
+    dev = _cuda_device(o)
+    n = o.shape[0]
+    if n % TILE:
+        raise ValueError(f"ray count {n} is not a multiple of {TILE}")
+    f32 = torch.float32
+    _check("origins", o, f32, (n, 3), dev)
+    _check("dirs", d, f32, (n, 3), dev)
+    _check("tmin", tmin, f32, (n,), dev)
+    _check("tmax", tmax, f32, (n,), dev)
+    c = _check_blocks(tri_block, tri_k, dev)
+    if not 0 < c <= MAX_CLUSTERS:
+        raise ValueError(f"{c} clusters outside 1..{MAX_CLUSTERS}")
+    _check("cmin", cmin, f32, (c, 3), dev)
+    _check("cmax", cmax, f32, (c, 3), dev)
+    return n, c, dev
+
+
+def walk_closest(o, d, tmin, tmax, cmin, cmax, tri_begin, tri_block,
+                 tri_k: int, cull: bool):
+    """K5 closest hit on (n,) padded rays -> (t, tri, u, v); misses keep
+    t=1e30, tri=-1, u=v=0."""
+    n, c, dev = _check_walk(o, d, tmin, tmax, cmin, cmax, tri_block, tri_k)
+    _check("tri_begin", tri_begin, torch.int32, (c,), dev)
+    t = torch.empty((n,), dtype=torch.float32, device=dev)
+    tri = torch.empty((n,), dtype=torch.int32, device=dev)
+    u, v = torch.empty_like(t), torch.empty_like(t)
+    if n == 0:
+        return t, tri, u, v
+    with torch.cuda.device(dev):
+        err = _lib().tile_walk_closest(
+            o.data_ptr(), d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(),
+            cmin.data_ptr(), cmax.data_ptr(), tri_begin.data_ptr(),
+            tri_block.data_ptr(), n, c, tri_k, int(bool(cull)), t.data_ptr(),
+            tri.data_ptr(), u.data_ptr(), v.data_ptr(), _stream(dev))
+    if err:
+        raise RuntimeError(f"tile_walk_closest launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES["tile_walk_closest"] += 1
+    return t, tri, u, v
+
+
+def walk_any(o, d, tmin, tmax, cmin, cmax, tri_block, tri_k: int):
+    """K5 any hit on (n,) padded rays -> int32 occlusion flags (1 =
+    occluded)."""
+    n, c, dev = _check_walk(o, d, tmin, tmax, cmin, cmax, tri_block, tri_k)
+    occ = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n == 0:
+        return occ
+    with torch.cuda.device(dev):
+        err = _lib().tile_walk_any(
+            o.data_ptr(), d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(),
+            cmin.data_ptr(), cmax.data_ptr(), tri_block.data_ptr(), n, c,
+            tri_k, occ.data_ptr(), _stream(dev))
+    if err:
+        raise RuntimeError(f"tile_walk_any launch failed: CUDA error {err}")
+    LAUNCHES["tile_walk_any"] += 1
+    return occ

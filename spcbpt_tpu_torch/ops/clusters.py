@@ -1,12 +1,22 @@
 """Two-level traversal clusters: cut the SAH BVH into contiguous triangle
 blocks of at most K triangles, one AABB each.
 
-Port of spcbpt_tpu/ops/clusters.py for the row walk (ops/ray_walk.py): the
-host build is numpy with the JAX package's float64 -> float32 casts, so the
-arrays equal JAX's exactly. The MXU coefficient blocks of the tile mode are
-not built (the walk uses `with_coeff=False`), and one cluster set takes a
-scene of any size: the JAX package's partitioning exists only for the TPU's
-VMEM.
+Port of spcbpt_tpu/ops/clusters.py: the host build is numpy with the JAX
+package's float64 -> float32 casts, so the arrays equal JAX's exactly. Two
+sets, as the JAX scene builds them:
+  * `ClusterSet`, K = 128, for the row walk (ops/ray_walk.py), without the
+    coefficient blocks (`with_coeff=False` in JAX);
+  * `TileClusterSet`, K = 32, for the tile mode (ops/tile_trace.py,
+    ops/pallas_tile.py), with the coefficient blocks of the matmul walk and
+    the raw (C, 16, 128) triangle blocks that kernels K4/K5 read.
+One cluster set takes a scene of any size: the JAX package's partitioning
+exists only for the TPU's VMEM.
+
+The coefficient trick (`pack_coefficients`): for a triangle (p0, e1, e2)
+with n = e1 x e2, the Moller-Trumbore numerators and determinant are linear
+in the 16 ray features F = [vec(o d^T), d, o, 1] (`ray_features`), so a
+cluster of K triangles is a (16, 4K) matrix and testing R rays one
+(R, 16) x (16, 4K) product.
 
 Triangle ids are tri_begin[cluster] + slot; clusters are contiguous ranges
 of the BVH-reordered triangle array.
@@ -21,6 +31,8 @@ import torch
 from spcbpt_tpu.ops.bvh import FlatBVH
 
 SLOTS = 128   # triangle slots per cluster
+FEAT_DIM = 16
+N_OUT = 4     # u_num, v_num, t_num, det
 
 
 @dataclasses.dataclass
@@ -57,6 +69,35 @@ class ClusterSet:
                    tri_block=tri_block)
 
 
+@dataclasses.dataclass
+class TileClusterSet:
+    """The tile mode's cluster set, every array as the JAX package packs it
+    (spcbpt_tpu/ops/clusters.py ClusterSet with with_coeff=True)."""
+    cmin: torch.Tensor       # (C, 3) cluster AABB min
+    cmax: torch.Tensor       # (C, 3)
+    coeff: torch.Tensor      # (C, 16, 4K) coefficient blocks of the matmul
+                             # walk: outputs grouped by kind, then slot
+    tri_block: torch.Tensor  # (C, 16, 128) rows 0..8 = [p0, e1, e2] xyz per
+                             # slot, zero-padded; read by K4/K5 and their
+                             # plain versions
+    tri_begin: torch.Tensor  # (C,) int32 first (reordered) triangle id
+    tri_k: int               # triangle slots in use per cluster (K)
+
+    @property
+    def num_clusters(self) -> int:
+        return self.cmin.shape[0]
+
+    @classmethod
+    def from_arrays(cls, cmin, cmax, coeff, tri_block, tri_begin, tri_k,
+                    device) -> "TileClusterSet":
+        """Device tile set from the host arrays of either package."""
+        t = lambda a, dt=torch.float32: torch.tensor(
+            np.asarray(a), dtype=dt, device=device)
+        return cls(cmin=t(cmin), cmax=t(cmax), coeff=t(coeff),
+                   tri_block=t(tri_block), tri_begin=t(tri_begin, torch.int32),
+                   tri_k=int(tri_k))
+
+
 def _cut_bvh(flat: FlatBVH, max_tris: int):
     """Walk the DFS-ordered skip-link BVH; emit the shallowest subtrees whose
     triangle range is <= max_tris. DFS order makes every subtree's triangles a
@@ -78,11 +119,41 @@ def _cut_bvh(flat: FlatBVH, max_tris: int):
     return clusters
 
 
-def build_clusters(flat: FlatBVH, p0: np.ndarray, e1: np.ndarray,
-                   e2: np.ndarray, max_tris: int = SLOTS,
-                   device="cpu") -> ClusterSet:
-    """Build a ClusterSet from a flattened BVH and the REORDERED triangle
-    arrays (p0/e1/e2 already permuted by flat.order)."""
+def pack_coefficients(p0: np.ndarray, e1: np.ndarray,
+                      e2: np.ndarray) -> np.ndarray:
+    """(T,3)x3 -> (T, 16, 4) coefficient blocks (see the module docstring).
+    Degenerate triangles (zero normal) give det == 0 and never hit."""
+    t = len(p0)
+    n = np.cross(e1, e2)
+    eps = np.zeros((3, 3, 3), np.float64)
+    eps[0, 1, 2] = eps[1, 2, 0] = eps[2, 0, 1] = 1.0
+    eps[0, 2, 1] = eps[2, 1, 0] = eps[1, 0, 2] = -1.0
+    coeff = np.zeros((t, FEAT_DIM, N_OUT), np.float64)
+    # u_num: o_i d_j block = sum_k eps_ijk e2_k ; d block = -(e2 x p0)
+    coeff[:, 0:9, 0] = np.einsum("ijk,tk->tij", eps, e2).reshape(t, 9)
+    coeff[:, 9:12, 0] = -np.cross(e2, p0)
+    # v_num: o_i d_j block = -eps_ijk e1_k ; d block = -(p0 x e1)
+    coeff[:, 0:9, 1] = -np.einsum("ijk,tk->tij", eps, e1).reshape(t, 9)
+    coeff[:, 9:12, 1] = -np.cross(p0, e1)
+    # t_num: o block = n ; const = -p0.n
+    coeff[:, 12:15, 2] = n
+    coeff[:, 15, 2] = -np.sum(p0 * n, axis=-1)
+    # det: d block = -n
+    coeff[:, 9:12, 3] = -n
+    return coeff.astype(np.float32)
+
+
+def ray_features(o, d):
+    """(..., 3) x 2 -> (..., 16) features F = [vec(o d^T), d, o, 1]."""
+    od = (o[..., :, None] * d[..., None, :]).reshape(o.shape[:-1] + (9,))
+    one = torch.ones(o.shape[:-1] + (1,), dtype=o.dtype, device=o.device)
+    return torch.cat([od, d, o, one], dim=-1)
+
+
+def _pack(flat: FlatBVH, p0, e1, e2, max_tris: int, with_coeff: bool):
+    """Host arrays (cmin, cmax, tri_block, tri_begin, coeff or None) of the
+    clusters of at most max_tris triangles, packed as the JAX package packs
+    them."""
     if max_tris > SLOTS:
         raise ValueError(f"cluster size {max_tris} above {SLOTS} slots")
     cl = _cut_bvh(flat, max_tris)
@@ -94,10 +165,40 @@ def build_clusters(flat: FlatBVH, p0: np.ndarray, e1: np.ndarray,
     cmin = np.zeros((c, 3), np.float32)
     cmax = np.zeros((c, 3), np.float32)
     begin = np.zeros((c,), np.int32)
+    coeff = (np.zeros((c, max_tris, FEAT_DIM, N_OUT), np.float32)
+             if with_coeff else None)
     for ci, (lo, hi, node) in enumerate(cl):
+        if with_coeff:
+            coeff[ci, :hi - lo] = pack_coefficients(p0[lo:hi], e1[lo:hi],
+                                                    e2[lo:hi])
         raw = np.concatenate([p0[lo:hi], e1[lo:hi], e2[lo:hi]], axis=1)
         tri_block[ci, :9, :hi - lo] = raw.T
         cmin[ci] = flat.bounds_min[node]
         cmax[ci] = flat.bounds_max[node]
         begin[ci] = lo
+    if with_coeff:
+        # (C, K, 16, 4) -> (C, 16, 4K): outputs grouped by kind, then slot
+        coeff = coeff.transpose(0, 2, 3, 1).reshape(c, FEAT_DIM,
+                                                    N_OUT * max_tris)
+    return cmin, cmax, tri_block, begin, coeff
+
+
+def build_clusters(flat: FlatBVH, p0: np.ndarray, e1: np.ndarray,
+                   e2: np.ndarray, max_tris: int = SLOTS,
+                   device="cpu") -> ClusterSet:
+    """The row walk's ClusterSet from a flattened BVH and the REORDERED
+    triangle arrays (p0/e1/e2 already permuted by flat.order)."""
+    cmin, cmax, tri_block, begin, _ = _pack(flat, p0, e1, e2, max_tris,
+                                            with_coeff=False)
     return ClusterSet.from_arrays(cmin, cmax, tri_block, begin, device)
+
+
+def build_tile_clusters(flat: FlatBVH, p0: np.ndarray, e1: np.ndarray,
+                        e2: np.ndarray, max_tris: int,
+                        device="cpu") -> TileClusterSet:
+    """The tile mode's TileClusterSet (K = max_tris) from a flattened BVH
+    and the REORDERED triangle arrays."""
+    cmin, cmax, tri_block, begin, coeff = _pack(flat, p0, e1, e2, max_tris,
+                                                with_coeff=True)
+    return TileClusterSet.from_arrays(cmin, cmax, coeff, tri_block, begin,
+                                      max_tris, device)

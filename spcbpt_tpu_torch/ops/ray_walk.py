@@ -23,7 +23,7 @@ import torch
 from ..kernels import ray_walk as kernels
 from .clusters import SLOTS, ClusterSet
 from .intersect import Hit
-from .tile_trace import ray_sort_key_live
+from .tile_trace import _as_lanes, _hit, _pad_rays, sort_rays_live, unsort
 
 _BIG = 1e30
 _EPS_DET = 1e-10
@@ -189,23 +189,6 @@ def _any_rows(cs, o, d, tmn, tmx, row_e):
 # wrappers
 # ---------------------------------------------------------------------------
 
-def _as_lanes(x, n, device):
-    return torch.as_tensor(x, dtype=torch.float32, device=device).expand(n)
-
-
-def _pad(origins, dirs, tmin, tmax, lanes):
-    n = origins.shape[0]
-    pad = (-n) % lanes
-    if pad:
-        origins = torch.cat([origins, origins.new_zeros((pad, 3))])
-        x_axis = dirs.new_tensor([1.0, 0.0, 0.0]).expand(pad, 3)
-        dirs = torch.cat([dirs, x_axis])
-        tmin = torch.cat([tmin, tmin.new_zeros((pad,))])
-        # tmax < tmin: padded lanes overlap nothing and never extend a walk
-        tmax = torch.cat([tmax, tmax.new_full((pad,), -1.0)])
-    return origins, dirs, tmin, tmax, n
-
-
 def prepare(cs, origins, dirs, tmin, tmax, sort_rays):
     """Sort (optional), pad and build the row table: the inputs of the row
     walk as the wrappers give them to it. Returns the padded contiguous
@@ -216,21 +199,12 @@ def prepare(cs, origins, dirs, tmin, tmax, sort_rays):
     tmax = _as_lanes(tmax, n, origins.device)
     perm = None
     if sort_rays:
-        key = ray_sort_key_live(cs.cmin, cs.cmax, origins, dirs, tmin, tmax)
-        perm = torch.argsort(key, stable=True)
-        origins, dirs, tmin, tmax = origins[perm], dirs[perm], tmin[perm], \
-            tmax[perm]
-    origins, dirs, tmin, tmax, n_orig = _pad(
-        origins.contiguous(), dirs.contiguous(), tmin.contiguous(),
-        tmax.contiguous(), LANES)
+        perm, origins, dirs, tmin, tmax = sort_rays_live(cs, origins, dirs,
+                                                         tmin, tmax)
+    origins, dirs, tmin, tmax, n_orig = _pad_rays(origins, dirs, tmin, tmax,
+                                                  LANES)
     row_e = row_entries(cs.cmin, cs.cmax, origins, dirs, tmin, tmax)
     return origins, dirs, tmin, tmax, row_e.contiguous(), n_orig, perm
-
-
-def _unsort(a, perm):
-    out = torch.empty_like(a)
-    out[perm] = a
-    return out
 
 
 def _closest(cs, origins, dirs, tmin, tmax, cull_backface, sort_rays, rows_fn):
@@ -238,18 +212,15 @@ def _closest(cs, origins, dirs, tmin, tmax, cull_backface, sort_rays, rows_fn):
                                               sort_rays)
     out = [a[:n] for a in rows_fn(cs, o, d, tmn, tmx, row_e, cull_backface)]
     if perm is not None:
-        out = [_unsort(a, perm) for a in out]
-    bt, bid, bu, bv = out
-    found = bid >= 0
-    return Hit(t=torch.where(found, bt, _BIG), tri=bid,
-               u=torch.where(found, bu, 0.0), v=torch.where(found, bv, 0.0))
+        out = [unsort(a, perm) for a in out]
+    return _hit(*out)
 
 
 def _any(cs, origins, dirs, tmin, tmax, sort_rays, rows_fn):
     o, d, tmn, tmx, row_e, n, perm = prepare(cs, origins, dirs, tmin, tmax,
                                               sort_rays)
     occ = rows_fn(cs, o, d, tmn, tmx, row_e)[:n] > 0
-    return _unsort(occ, perm) if perm is not None else occ
+    return unsort(occ, perm) if perm is not None else occ
 
 
 def walk_closest(cs: ClusterSet, origins, dirs, tmin, tmax,

@@ -5,8 +5,10 @@ numpy exactly as the JAX package does (triangle order, material table,
 quad lights, texture stack, cluster packing) and places the result on a
 given device; `from_jax_scene` carries a JAX TraceScene over, array by
 array. Traversal modes: `brute` (ops/brute_trace, kernel K3 on the
-card) and `walk` (ops/ray_walk, kernels K1/K2 on the card); the `bvh` and
-`tile` modes and environment maps are not ported yet.
+card), `walk` (ops/ray_walk, kernels K1/K2 on the card) and `tile`
+(ops/tile_trace and ops/pallas_tile, kernels K4/K5 on the card; chosen
+explicitly, as in JAX); the `bvh` mode and environment maps are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from spcbpt_tpu.scene.camera import Camera
 from spcbpt_tpu.scene.parser import MaterialDesc, SceneDesc, load_scene
 
 from ..ops import clusters as clusters_mod
-from ..ops import brute_trace, intersect, ray_walk
+from ..ops import brute_trace, intersect, pallas_tile, ray_walk, tile_trace
 from ..utils import vec
 
 # Textures are kept at native resolution in one (NT, Hmax, Wmax, 3) stack;
@@ -33,6 +35,10 @@ TEX_MAX = 2048
 # sizes, the row walk above them.
 BRUTE_FORCE_MAX_TRIS_CPU = 1024
 BRUTE_FORCE_MAX_TRIS_CUDA = 512
+# the tile mode's cluster size and ray tile (the JAX scene's CLUSTER_TRI_K,
+# TILE_LANES)
+CLUSTER_TRI_K = 32
+TILE_LANES = 256
 TARGET_DIAG = 10.0  # normalized scene bbox diagonal (house-like units)
 
 
@@ -95,6 +101,8 @@ class TraceScene:
     tex_h: torch.Tensor       # (NT,) int32 native extent in the stack
     tex_w: torch.Tensor       # (NT,) int32
     lights: QuadLights
+    # K=32 cluster set of the tile walk (mode "tile"; None otherwise)
+    clusters: Optional[clusters_mod.TileClusterSet] = None
     # K=128 cluster set of the row walk (mode "walk"; None otherwise)
     clusters_walk: Optional[clusters_mod.ClusterSet] = None
     num_lights: int = 0
@@ -121,8 +129,8 @@ def _lanes(x, n, device):
     return torch.as_tensor(x, dtype=torch.float32, device=device).expand(n)
 
 
-# The walk always sorts its rays by coherence key, the JAX package's default;
-# no caller with presorted rays is ported yet.
+# The walks always sort their rays by coherence key, the JAX package's
+# default; no caller with presorted rays is ported yet.
 
 
 def trace_closest(ts: TraceScene, origins, dirs, tmin, tmax,
@@ -133,6 +141,12 @@ def trace_closest(ts: TraceScene, origins, dirs, tmin, tmax,
     if ts.mode == "brute":
         return brute_trace.brute_closest(origins, dirs, tmin, tmax, ts.tri_p0,
                                          ts.tri_e1, ts.tri_e2, cull_backface)
+    if ts.mode == "tile":
+        # the round walk (K4) on the card; JAX's default matmul walk on CPU
+        return tile_trace.tile_closest(
+            ts.clusters, origins, dirs, tmin, tmax, cull_backface,
+            tile=TILE_LANES, use_kernel=origins.device.type != "cpu",
+            sort_rays=True)
     return ray_walk.walk_closest(ts.clusters_walk, origins, dirs, tmin, tmax,
                                  cull_backface, sort_rays=True)
 
@@ -144,6 +158,13 @@ def trace_any(ts: TraceScene, origins, dirs, tmin, tmax):
     if ts.mode == "brute":
         return brute_trace.brute_any(origins, dirs, tmin, tmax, ts.tri_p0,
                                      ts.tri_e1, ts.tri_e2)
+    if ts.mode == "tile":
+        # the fused walk (K5) on the card; JAX's matmul walk on CPU
+        if origins.device.type != "cpu":
+            return pallas_tile.pallas_any(ts.clusters, origins, dirs, tmin,
+                                          tmax, sort_rays=True)
+        return tile_trace.tile_any(ts.clusters, origins, dirs, tmin, tmax,
+                                   tile=TILE_LANES, sort_rays=True)
     return ray_walk.walk_any(ts.clusters_walk, origins, dirs, tmin, tmax,
                              sort_rays=True)
 
@@ -154,7 +175,8 @@ def visibility(ts: TraceScene, pos_a, pos_b, eps: float = 1e-3, mask=None):
 
     mask (optional, bool (N,)): lanes where mask is False are not traced —
     their tmax is set below tmin so the walk skips them (the dead-lane
-    convention of ops/ray_walk._pad); their returned value is unspecified."""
+    convention of ops/tile_trace._pad_rays); their returned value is
+    unspecified."""
     d = pos_b - pos_a
     dist = torch.sqrt(torch.clamp(vec.dot(d, d), min=1e-30))
     dirs = d / dist[..., None]
@@ -276,7 +298,7 @@ def select_mode(num_tris: int, device) -> str:
 
 
 def _check_mode(mode: str) -> None:
-    if mode not in ("brute", "walk"):
+    if mode not in ("brute", "walk", "tile"):
         raise NotImplementedError(f"traversal mode '{mode}' is not ported yet")
 
 
@@ -422,8 +444,12 @@ def build_scene(desc: SceneDesc, device, data_dir: Optional[str] = None,
 
     mode = mode or select_mode(len(p0), device)
     _check_mode(mode)
-    cset_walk = None
-    if mode == "walk":
+    cset = cset_walk = None
+    if mode == "tile":
+        cset = clusters_mod.build_tile_clusters(
+            flat, p0[order], e1[order], e2[order], max_tris=CLUSTER_TRI_K,
+            device=device)
+    elif mode == "walk":
         cset_walk = clusters_mod.build_clusters(
             flat, p0[order], e1[order], e2[order], max_tris=128,
             device=device)
@@ -441,7 +467,7 @@ def build_scene(desc: SceneDesc, device, data_dir: Optional[str] = None,
         tex_h=dev(tex_hw[:, 0], torch.int32),
         tex_w=dev(tex_hw[:, 1], torch.int32),
         lights=_tensors_of(QuadLights, lights, device),
-        clusters_walk=cset_walk,
+        clusters=cset, clusters_walk=cset_walk,
         num_lights=L, num_quad_lights=L, has_env=False, mode=mode,
         world_scale=float(world_scale),
     )
@@ -462,19 +488,24 @@ def load_trace_scene(scene_path: str, device, mode: Optional[str] = None):
 
 def from_jax_scene(jts, device) -> TraceScene:
     """The port's TraceScene from a JAX spcbpt_tpu TraceScene, whose arrays
-    are read as numpy (no jax import here). Modes brute and walk only; the
-    walk takes one cluster set."""
+    are read as numpy (no jax import here). Modes brute, walk and tile;
+    the walk takes one cluster set."""
     if jts.has_env:
         raise NotImplementedError("environment maps are not ported yet")
     _check_mode(jts.mode)
     a = np.asarray
-    cset = None
-    if jts.mode == "walk":
+    cset = cset_walk = None
+    if jts.mode == "tile":
+        c = jts.clusters
+        cset = clusters_mod.TileClusterSet.from_arrays(
+            a(c.cmin), a(c.cmax), a(c.coeff), a(c.tri_block), a(c.tri_begin),
+            c.tri_k, device)
+    elif jts.mode == "walk":
         cw = jts.clusters_walk
         if isinstance(cw, tuple):
             raise NotImplementedError("partitioned cluster sets are not "
                                       "ported: the port walks one set")
-        cset = clusters_mod.ClusterSet.from_arrays(
+        cset_walk = clusters_mod.ClusterSet.from_arrays(
             a(cw.cmin), a(cw.cmax), a(cw.tri_block), a(cw.tri_begin), device)
 
     def dev(x, dt=torch.float32):
@@ -491,7 +522,7 @@ def from_jax_scene(jts, device) -> TraceScene:
         textures=dev(jts.textures),
         tex_h=dev(jts.tex_h, torch.int32), tex_w=dev(jts.tex_w, torch.int32),
         lights=_tensors_of(QuadLights, fields(jts.lights, QuadLights), device),
-        clusters_walk=cset,
+        clusters=cset, clusters_walk=cset_walk,
         num_lights=jts.num_lights, num_quad_lights=jts.num_quad_lights,
         has_env=False, mode=jts.mode, world_scale=float(jts.world_scale),
     )

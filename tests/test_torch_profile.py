@@ -65,3 +65,31 @@ def test_spcbpt_stage_breakdown_adds_up_and_restores():
         st["eye bounce (the rest)"]["calls"]
     assert sum(v["ms"] for v in st.values()) == pytest.approx(
         out["total_ms"], rel=1e-9)
+
+
+def test_tile_stage_breakdown_adds_up_and_restores():
+    """The tile mode's stages (profile_pt.TILE_STAGES) on a 16x16 Cornell PT
+    render on the CPU: the matmul walks run (no kernel, no round walk), one
+    closest and one any trace per pool iteration, and the times add up."""
+    ts, _, cam = load_trace_scene(default_scene_path(), "cpu", mode="tile")
+    cam.aspect = 1.0
+    uvw = cam.uvw()
+    stages = profile_pt.TILE_STAGES
+    before = [getattr(m, n) for m, n, _ in stages]
+    out = profile_pt.stage_breakdown(
+        lambda: pt_pool.render_pool(ts, uvw, 16, 16, 1, 0),
+        torch.device("cpu"), stages)
+    assert [getattr(m, n) for m, n, _ in stages] == before
+    st = out["stages"]
+    for stage in ("K4 round kernel", "K5 any-hit kernel",
+                  "round walk (host loop and syncs)",
+                  "pallas_any sort + pad + unsort"):
+        assert stage not in st, stage
+    closest = st["tile_closest sort + pad + unsort"]["calls"]
+    assert closest > 0
+    assert st["tile_any sort + pad + unsort"]["calls"] == closest
+    assert st["visit-order sort + tile order"]["calls"] == 2 * closest
+    assert st["tile_entries"]["calls"] == 2 * closest
+    assert st["matmul closest walk"]["calls"] >= closest
+    assert sum(v["ms"] for v in st.values()) == pytest.approx(
+        out["total_ms"], rel=1e-9)
