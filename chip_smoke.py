@@ -6,7 +6,8 @@
 Phases, one status line each; any failure raises and exits non-zero:
   1. environment: torch, CUDA, nvcc release, card name and power limit;
   2. build: the CUDA kernels of csrc/ (one nvcc per source, all started
-     together), through the package's own loader;
+     together) and the native host library (g++), through the package's
+     own loaders;
   3. kernels vs plain: the row-walk kernels K1 (closest hit) and K2 (any
      hit) against their plain torch versions on the card, on the
      32,576-triangle interior, for a 512x512 camera wavefront and a 2^17-ray
@@ -34,20 +35,33 @@ Phases, one status line each; any failure raises and exits non-zero:
      plain versions on the camera, bounce and connection wavefronts, both
      cull settings; against brute force on a subset and against the walk
      mode; times per call, the round walk's rounds and host syncs;
- 10. tile main path, PT on the interior in `tile` mode at 1024x1024, depth
+ 10. list-walk kernels vs plain: the four forms of K6 (closest and any
+     hit, resident and streamed) on both cluster sets of one BVH (the tile
+     mode's K=32, the walk mode's K=128) for the camera, bounce and
+     connection wavefronts, both cull settings, tiles of 256 (and 128 for
+     the resident closest form), prune=False once; against brute force on
+     a subset; times per call;
+ 11. the list walk's path: the traversal profiler `python -m
+     spcbpt_tpu_torch.apps.prof_traversal` at its defaults (2^17 rays,
+     both sets, tiles 128 and 256, every form) in a process of its own;
+     every K6 entry point must launch there;
+ 12. tile main path, PT on the interior in `tile` mode at 1024x1024, depth
      30, 2^17 pool lanes, 4 spp, through `load_trace_scene` with mode
      "tile" and `pt_pool.render_pool` (the library boundary: the CLI has no
      mode flag): K4 closest hits, K5 any hits, the mean within
      TILE_MEAN_PT of phase 5's walk-mode mean on the same seeds;
- 11. cove SPCBPT 256x256, 1 spp in `tile` mode from the saved state: the
+ 13. cove SPCBPT 256x256, 1 spp in `tile` mode from the saved state: the
      connection wavefront through K5's any hit, the mean within
      TILE_MEAN_SPCBPT of phase 7's;
- 12. CPU vs card in `tile` mode: PT 64x64, 2 spp, depth 8 on the scale=1
+ 14. CPU vs card in `tile` mode: PT 64x64, 2 spp, depth 8 on the scale=1
      interior (the CPU runs JAX's matmul walk, the card K4/K5).
 Each render phase sets every launch counter to 0 just before it renders and
-reads them just after; the CLI renders' PNG, HDR and stats go to smoke_out/.
-The last three lines are the card as nvidia-smi names it, one JSON object
-with each kernel's numbers, and {"ok": true, "device": {...}}.
+reads them just after (the profiler's counters start at 0 in its own
+process and are read from its last line); the CLI renders' PNG, HDR and
+stats go to smoke_out/. The last three lines are the card as nvidia-smi
+names it, one JSON object with each kernel's numbers (its bound from the
+plain version's visits on the same inputs, see PEAK_F32_FLOPS), and
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -90,7 +104,21 @@ TILE_MEAN_SPCBPT = 0.01
 # CPU (JAX's matmul walk) against card (K4/K5) in tile mode: the two
 # formulations part at grazing edges; PT means within 0.5%.
 TILE_CPU_CARD = 0.005
-KERNEL_SOURCES = ("ray_walk", "brute_trace", "tile_walk")
+KERNEL_SOURCES = ("ray_walk", "brute_trace", "tile_walk", "list_walk")
+# The least time of a kernel's work on one H100 SXM (NVIDIA's data sheet, at
+# its 700 W limit): the larger of its operations over the f32 rate outside
+# the tensor cores and its bytes over the memory rate. Operations: about 45
+# f32 operations per ray-triangle test (Moller-Trumbore), counted from the
+# plain version's own cluster visits on the same inputs (every lane of the
+# visiting row or tile against the cluster's real triangles, not its zero
+# slots). Bytes: each ray read once, each hit written once, the triangles of
+# the clusters visited at least once, and the other inputs the kernel reads.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+FLOPS_PER_TEST = 45
+TRI_BYTES = 36           # p0, e1, e2 of one triangle, float32
+RAY_BYTES = 32           # origin, direction, tmin, tmax
+PROFILER_TIMEOUT = 900
 
 
 _T0 = time.perf_counter()
@@ -124,9 +152,14 @@ def phase_environment() -> str:
 
 def phase_build() -> None:
     from spcbpt_tpu_torch.kernels import build
+    from spcbpt_tpu_torch.native import loader
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+    with ThreadPoolExecutor(len(KERNEL_SOURCES) + 1) as pool:
+        native = pool.submit(loader.get_lib)
         list(pool.map(build.build, KERNEL_SOURCES))
+        lib = native.result()
+    log("build", f"native host library (BVH construction, OBJ parser): "
+                 f"{'built with ' + loader.compiler() if lib else 'no C++ compiler, numpy route'}")
     infos = {name: dict(build.BUILD_LOG[name]) for name in KERNEL_SOURCES}
     for name in KERNEL_SOURCES:
         build.load(name)
@@ -137,6 +170,35 @@ def phase_build() -> None:
             if "registers" in line or "spill" in line:
                 log("build", "ptxas: " + line.strip())
     log("build", f"all kernels ready in {time.perf_counter() - t0:.2f} s")
+
+
+def visits(fn, sizes) -> tuple:
+    """Runs a plain walk once with the cluster visit log on; returns (its
+    ray-triangle tests, the triangles of the clusters it visited, its
+    visits), with `sizes` the (C,) triangle count of each cluster."""
+    from spcbpt_tpu_torch.ops import clusters
+    clusters.VISIT_LOG = log = []
+    try:
+        fn()
+    finally:
+        clusters.VISIT_LOG = None
+    if not log:
+        return 0, 0, 0
+    cids = [cid.long() for _, cid in log]
+    tests = sum(lanes * int(sizes[cid].sum()) for (lanes, _), cid in
+                zip(log, cids))
+    seen = torch.unique(torch.cat(cids))
+    return tests, int(sizes[seen].sum()), sum(c.numel() for c in cids)
+
+
+def bound(tests: int, nbytes: int) -> dict:
+    """The JSON line's bound keys for `tests` ray-triangle tests moving
+    `nbytes` bytes; no single PyTorch call walks a BVH (library_ms)."""
+    ops_ms = tests * FLOPS_PER_TEST / PEAK_F32_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                library_ms=None)
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -187,9 +249,10 @@ def wavefronts(ts, cam, dev):
 
 def phase_kernels(ts, waves, dev):
     from spcbpt_tpu_torch.kernels import ray_walk as kernels
-    from spcbpt_tpu_torch.ops import intersect, ray_walk
+    from spcbpt_tpu_torch.ops import clusters, intersect, ray_walk
 
     cs = ts.clusters_walk
+    sizes = clusters.cluster_sizes(cs, ts.num_tris)
     results = {}
     for name, o, d, tmax in waves:
         n = o.shape[0]
@@ -272,24 +335,36 @@ def phase_kernels(ts, waves, dev):
                        f"{re_ms:.3f} ms; walk_closest wrapper (sort + "
                        f"row_entries + K1 + unsort) {wrap_ms:.3f} ms")
         if name.startswith("bounce"):
-            results["walk_closest"].update(ms=k1, plain_ms=p1)
-            results["walk_any"].update(ms=k2, plain_ms=p2)
+            # bytes: rays, the row entry table, tri_begin, the visited
+            # clusters' triangles, hits or flags
+            npad = po.shape[0]
+            rows = npad * RAY_BYTES + row_e.numel() * 4
+            t1, tri1, _ = visits(lambda: ray_walk.closest_rows_plain(
+                cs, po, pd, ptmn, ptmx, row_e, False), sizes)
+            t2, tri2, _ = visits(lambda: ray_walk.any_rows_plain(
+                cs, po, pd, ptmn, pseg, row_e_seg), sizes)
+            results["walk_closest"].update(ms=k1, plain_ms=p1, **bound(
+                t1, rows + cs.num_clusters * 4 + tri1 * TRI_BYTES
+                + npad * 16))
+            results["walk_any"].update(ms=k2, plain_ms=p2, **bound(
+                t2, rows + tri2 * TRI_BYTES + npad * 4))
     return results
 
 
 def reset_launches() -> None:
-    from spcbpt_tpu_torch.kernels import brute_trace, ray_walk, tile_walk
+    from spcbpt_tpu_torch.kernels import (brute_trace, list_walk, ray_walk,
+                                          tile_walk)
     from spcbpt_tpu_torch.ops import tile_trace
-    ray_walk.reset_launches()
-    brute_trace.reset_launches()
-    tile_walk.reset_launches()
+    for mod in (ray_walk, brute_trace, tile_walk, list_walk):
+        mod.reset_launches()
     tile_trace.reset_walk_stats()
 
 
 def read_launches() -> dict:
-    from spcbpt_tpu_torch.kernels import brute_trace, ray_walk, tile_walk
+    from spcbpt_tpu_torch.kernels import (brute_trace, list_walk, ray_walk,
+                                          tile_walk)
     return {**ray_walk.LAUNCHES, **brute_trace.LAUNCHES,
-            **tile_walk.LAUNCHES}
+            **tile_walk.LAUNCHES, **list_walk.LAUNCHES}
 
 
 def run_cli(out_dir: str, tag: str, argv: list, spp: int):
@@ -487,10 +562,14 @@ def phase_brute(ts, cam, dev) -> dict:
                      f"{k1:.4f} ms ({mr(k1):.1f} Mrays/s) plain {p1:.4f} ms; "
                      f"K3 any {k2:.4f} ms ({mr(k2):.1f} Mrays/s) plain "
                      f"{p2:.4f} ms")
+        # every lane against every triangle; rays, triangles, hits or flags
+        tests, fixed = n * ts.num_tris, n * RAY_BYTES + ts.num_tris * TRI_BYTES
         if name.startswith("bounce"):
-            results["brute_closest"].update(ms=k1, plain_ms=p1)
+            results["brute_closest"].update(ms=k1, plain_ms=p1,
+                                            **bound(tests, fixed + n * 16))
         if name.startswith("connection"):
-            results["brute_any"].update(ms=k2, plain_ms=p2)
+            results["brute_any"].update(ms=k2, plain_ms=p2,
+                                        **bound(tests, fixed + n * 4))
     return results
 
 
@@ -555,11 +634,12 @@ def phase_tile_kernels(tts, wts, waves, dev) -> dict:
     """K4 (through the round walk) and K5 against their plain versions on the
     tile-mode interior; against brute force and the walk mode."""
     from spcbpt_tpu_torch.kernels import tile_walk as kernels
-    from spcbpt_tpu_torch.ops import intersect, pallas_tile, ray_walk
-    from spcbpt_tpu_torch.ops import tile_trace
+    from spcbpt_tpu_torch.ops import clusters, intersect, pallas_tile
+    from spcbpt_tpu_torch.ops import ray_walk, tile_trace
     from spcbpt_tpu_torch.scene.scene import TILE_LANES
 
     cs = tts.clusters
+    sizes = clusters.cluster_sizes(cs, tts.num_tris)
     tris = (tts.tri_p0, tts.tri_e1, tts.tri_e2)
     sub = slice(0, BRUTE_SUBSET)
     results = {}
@@ -608,14 +688,7 @@ def phase_tile_kernels(tts, wts, waves, dev) -> dict:
                 results["tile_round"] = dict(max_abs_err=err)
                 results["tile_walk_closest"] = dict(
                     max_abs_err=(k5.t - p5.t).abs().max().item())
-        # any hit: the connection wavefront has its own segments, the others
-        # random ones (dead lanes stay dead)
-        if name.startswith("connection"):
-            tseg = tmax
-        else:
-            rs = np.random.RandomState(1)
-            seg = torch.from_numpy(rs.uniform(0.05, 4.0, n).astype(np.float32))
-            tseg = torch.where(tmax < 0, -1.0, seg.to(dev))
+        tseg = any_segments(name, tmax, n, dev)
         occ_k = pallas_tile.pallas_any(cs, o, d, tmin, tseg, sort_rays=True)
         occ_p = pallas_tile.pallas_any_plain(cs, o, d, tmin, tseg,
                                              sort_rays=True)
@@ -670,12 +743,196 @@ def phase_tile_kernels(tts, wts, waves, dev) -> dict:
                     f"with K4 {walk4:.2f} ms, with the plain round "
                     f"{walk4_p:.2f} ms; K5 closest {k5c:.3f} ms, plain "
                     f"{p5c:.2f} ms; K5 any {k5a:.3f} ms, plain {p5a:.2f} ms")
+        # bytes: rays (K4: per-tile run flag and cluster id; K5: the cluster
+        # boxes, and tri_begin for the closest hit), the visited clusters'
+        # triangles, hits (K4: t, u, v, dn, slot) or flags
+        nq, c = qo.shape[0], cs.num_clusters
         if name.startswith("bounce"):
-            results["tile_round"].update(ms=k4_ms, plain_ms=p4_ms)
-            results["tile_walk_closest"].update(ms=k5c, plain_ms=p5c)
+            lanes = o_t.shape[0] * o_t.shape[1]
+            t4, tri4, _ = visits(lambda: pallas_tile.mt_round_blocks_plain(
+                o_t, d_t, cs.tri_block, ids_s[0], run0, tmin_t, tmax_t,
+                cs.tri_k, False), sizes)
+            t5, tri5, _ = visits(lambda: pallas_tile.closest_tiles_plain(
+                cs, qo, qd, qtn, qtx, False), sizes)
+            results["tile_round"].update(ms=k4_ms, plain_ms=p4_ms, **bound(
+                t4, lanes * (RAY_BYTES + 20) + o_t.shape[0] * 5
+                + tri4 * TRI_BYTES))
+            results["tile_walk_closest"].update(ms=k5c, plain_ms=p5c, **bound(
+                t5, nq * (RAY_BYTES + 16) + c * 28 + tri5 * TRI_BYTES))
         if name.startswith("connection"):
-            results["tile_walk_any"].update(ms=k5a, plain_ms=p5a)
+            t5, tri5, _ = visits(lambda: pallas_tile.any_tiles_plain(
+                cs, qo, qd, qtn, qseg), sizes)
+            results["tile_walk_any"].update(ms=k5a, plain_ms=p5a, **bound(
+                t5, nq * (RAY_BYTES + 4) + c * 24 + tri5 * TRI_BYTES))
     return results
+
+
+def phase_list_walk(tts, wts, waves, dev) -> dict:
+    """K6, all four forms, against their plain versions on both cluster sets
+    of one BVH (K=32 of the tile mode, K=128 of the walk mode): the camera,
+    bounce and connection wavefronts, both cull settings, tiles of 256 (and
+    128 for the resident closest form), prune=False once; against brute
+    force on a subset; times on the bounce wavefront at K=128, tile 256."""
+    from spcbpt_tpu_torch.kernels import list_walk as kernels
+    from spcbpt_tpu_torch.ops import clusters, intersect, pallas_walk
+
+    assert torch.equal(tts.tri_p0, wts.tri_p0), "cluster sets disagree"
+    tris = (wts.tri_p0, wts.tri_e1, wts.tri_e2)
+    sub = slice(0, BRUTE_SUBSET)
+    fields = ("tri", "t", "u", "v")
+    for k, cs in ((32, tts.clusters), (128, wts.clusters_walk)):
+        for name, o, d, tmax in waves:
+            n = o.shape[0]
+            tmin = torch.full((n,), 1e-3, device=dev)
+            sort = not name.startswith("camera")
+            for cull in (True, False):
+                forms = [("resident", 256, True), ("streamed", 256, False)]
+                if cull:
+                    forms.append(("resident", 128, True))
+                for form, tile, resident in forms:
+                    got = pallas_walk.walk_closest(
+                        cs, o, d, tmin, tmax, cull, tile=tile,
+                        sort_rays=sort, vmem_resident=resident)
+                    ref = pallas_walk.walk_closest_plain(
+                        cs, o, d, tmin, tmax, cull, tile=tile,
+                        sort_rays=sort)
+                    torch.cuda.synchronize()
+                    for f in fields:
+                        assert torch.equal(getattr(got, f), getattr(ref, f)), \
+                            (f"K6 closest {form} K={k} tile={tile} {name} "
+                             f"cull={cull}: {f} differs from plain")
+                    assert (got.tri[tmax < tmin] == -1).all(), "dead lane hit"
+                bf = intersect.brute_force_closest(o[sub], d[sub], *tris,
+                                                   tmin[sub], tmax[sub], cull)
+                bf_agree = (got.tri[sub] == bf.tri).float().mean().item()
+                log("list", f"K={k} {name} cull={cull}: closest resident "
+                            f"(tiles 256, 128) and streamed equal the plain "
+                            f"version; hits {(got.tri >= 0).float().mean().item():.4f}"
+                            f", brute on {BRUTE_SUBSET} rays {bf_agree:.6f}")
+                assert bf_agree >= TRI_AGREE, (k, name, cull, bf_agree)
+            tseg = any_segments(name, tmax, n, dev)
+            occ_p = pallas_walk.walk_any_plain(cs, o, d, tmin, tseg,
+                                               sort_rays=sort)
+            for resident in (True, False):
+                occ_k = pallas_walk.walk_any(cs, o, d, tmin, tseg,
+                                             sort_rays=sort,
+                                             vmem_resident=resident)
+                torch.cuda.synchronize()
+                assert torch.equal(occ_k, occ_p), \
+                    f"K6 any resident={resident} K={k} {name}: differs"
+            bf = intersect.brute_force_any(o[sub], d[sub], *tris, tmin[sub],
+                                           tseg[sub])
+            bf_agree = (occ_k[sub] == bf).float().mean().item()
+            log("list", f"K={k} {name}: any resident and streamed equal the "
+                        f"plain version (occluded "
+                        f"{occ_k.float().mean().item():.4f}), brute "
+                        f"{bf_agree:.6f}")
+            assert bf_agree >= OCC_AGREE, (k, name, bf_agree)
+
+    # prune=False once: the whole list of every tile, the same hits
+    cs = wts.clusters_walk
+    name, o, d, tmax = waves[1]
+    tmin = torch.full((o.shape[0],), 1e-3, device=dev)
+    got = pallas_walk.walk_closest(cs, o, d, tmin, tmax, True,
+                                   sort_rays=True, prune=False)
+    ref = pallas_walk.walk_closest_plain(cs, o, d, tmin, tmax, True,
+                                         sort_rays=True, prune=False)
+    pruned = pallas_walk.walk_closest(cs, o, d, tmin, tmax, True,
+                                      sort_rays=True)
+    torch.cuda.synchronize()
+    for f in fields:
+        assert torch.equal(getattr(got, f), getattr(ref, f)), f"prune {f}"
+        assert torch.equal(getattr(got, f), getattr(pruned, f)), f
+    log("list", f"K=128 {name} prune=False: equals its plain version and "
+                f"the pruned walk")
+
+    # times: each form alone on the prepared lists of the bounce wavefront,
+    # K=128, tile 256 (closest with culling, any with segments up to 3, as
+    # the profiler walks them), against the plain version
+    sizes = clusters.cluster_sizes(cs, wts.num_tris)
+    blocks = cs.blocks()
+    t3 = torch.where(tmax < 0, -1.0, torch.full_like(tmax, 3.0))
+    prep_c = pallas_walk.prepare(cs, o, d, tmin, tmax, 256, True)
+    prep_a = pallas_walk.prepare(cs, o, d, tmin, t3, 256, True)
+    po, pd, ptn, ptx, _, entries, ids, bases, counts, _ = prep_c
+    qtx, q_entries, q_ids, q_counts = (prep_a[3], prep_a[5], prep_a[6],
+                                       prep_a[8])
+    npad, nt = po.shape[0], ids.shape[0]
+    closest = lambda stream: kernels.closest(
+        blocks, counts, ids, bases, entries, po, pd, ptn, ptx, True, True,
+        stream)
+    any_hit = lambda stream: kernels.any_hit(
+        blocks, q_counts, q_ids, q_entries, po, pd, ptn, qtx, stream)
+    plain_c = lambda: pallas_walk.list_walk_closest_plain(
+        blocks, counts, ids, bases, entries, po, pd, ptn, ptx, True)
+    plain_a = lambda: pallas_walk.list_walk_any_plain(
+        blocks, q_counts, q_ids, q_entries, po, pd, ptn, qtx)
+    ref_c, ref_a = plain_c(), plain_a()
+    results, err = {}, {}
+    for stream in (False, True):
+        got_c, got_a = closest(stream), any_hit(stream)
+        for f, a, b in zip(("t", "tri", "u", "v"), got_c, ref_c):
+            assert torch.equal(a, b), f"K6 closest stream={stream}: {f}"
+        assert torch.equal(got_a, ref_a), f"K6 any stream={stream}"
+        err[stream] = ((got_c[0] - ref_c[0]).abs().max().item(),
+                       (got_a - ref_a).abs().max().item())
+    pc, pa = cuda_ms(plain_c, 2), cuda_ms(plain_a, 2)
+    tc, tric, vc = visits(plain_c, sizes)
+    ta, tria, va = visits(plain_a, sizes)
+    # bytes: rays, counts, the list entries the walk reads (ids, entries
+    # and, closest, bases: one per round and the stopping one per tile),
+    # the visited clusters' triangles, hits or flags
+    byte_c = (npad * (RAY_BYTES + 16) + nt * 4 + (vc + nt) * 12
+              + tric * TRI_BYTES)
+    byte_a = (npad * (RAY_BYTES + 4) + nt * 4 + (va + nt) * 8
+              + tria * TRI_BYTES)
+    for stream, suffix in ((False, ""), (True, "_stream")):
+        kc = cuda_ms(lambda: closest(stream), 20)
+        ka = cuda_ms(lambda: any_hit(stream), 20)
+        results[f"list_walk_closest{suffix}"] = dict(
+            max_abs_err=err[stream][0], ms=kc, plain_ms=pc,
+            **bound(tc, byte_c))
+        results[f"list_walk_any{suffix}"] = dict(
+            max_abs_err=err[stream][1], ms=ka, plain_ms=pa,
+            **bound(ta, byte_a))
+        mr = lambda ms: o.shape[0] / ms / 1e3
+        log("list", f"{name} K=128 tile 256 ({nt} tiles, {vc} closest and "
+                    f"{va} any visits): {'streamed' if stream else 'resident'}"
+                    f" closest {kc:.3f} ms ({mr(kc):.1f} Mrays/s), plain "
+                    f"{pc:.2f} ms; any {ka:.3f} ms ({mr(ka):.1f} Mrays/s), "
+                    f"plain {pa:.2f} ms")
+    return results
+
+
+def any_segments(name, tmax, n, dev):
+    """Any-hit segment ends: the connection wavefront has its own, the
+    others random ones in [0.05, 4] (dead lanes stay dead)."""
+    if name.startswith("connection"):
+        return tmax
+    rs = np.random.RandomState(1)
+    seg = torch.from_numpy(rs.uniform(0.05, 4.0, n).astype(np.float32))
+    return torch.where(tmax < 0, -1.0, seg.to(dev))
+
+
+def phase_profiler() -> dict:
+    """The list walk's path: `python -m spcbpt_tpu_torch.apps.prof_traversal`
+    at its defaults in a process of its own (its launch counts start at 0
+    there and are read from its last line); returns them."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "spcbpt_tpu_torch.apps.prof_traversal"],
+        cwd=REPO, capture_output=True, text=True, timeout=PROFILER_TIMEOUT,
+        env=dict(os.environ, PYTHONPATH=REPO))
+    for line in out.stdout.splitlines()[:-1]:
+        log("profiler", line)
+    assert out.returncode == 0, out.stderr[-4000:]
+    res = json.loads(out.stdout.splitlines()[-1])
+    log("profiler", f"done in {time.perf_counter() - t0:.1f} s on "
+                    f"{res['device']}, BVH {res['bvh_route']}; launches "
+                    f"{res['launches']}")
+    assert all(v > 0 for v in res["launches"].values()), res["launches"]
+    assert min(res["tri_agree"].values()) >= TRI_AGREE, res["tri_agree"]
+    return res["launches"]
 
 
 def phase_tile_main(tts, cam, walk_stats) -> dict:
@@ -792,6 +1049,7 @@ def main() -> int:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this script needs an NVIDIA card")
     from spcbpt_tpu_torch.apps.render_cli import resolve_scene
+    from spcbpt_tpu_torch.ops import bvh
     from spcbpt_tpu_torch.scene.scene import load_trace_scene
 
     dev = torch.device("cuda", 0)
@@ -804,7 +1062,8 @@ def main() -> int:
     ts, _, cam = load_trace_scene(scene_path, dev)
     cam.aspect = 1.0
     log("scene", f"interior: {ts.num_tris} tris, "
-                 f"{ts.clusters_walk.num_clusters} clusters, mode {ts.mode}")
+                 f"{ts.clusters_walk.num_clusters} clusters, mode {ts.mode}, "
+                 f"BVH {bvh.BUILD_ROUTE}")
     assert ts.mode == "walk"
     waves = wavefronts(ts, cam, dev)
     numbers = phase_kernels(ts, waves, dev)
@@ -817,8 +1076,10 @@ def main() -> int:
     log("scene", f"interior in tile mode: {tts.clusters.num_clusters} "
                  f"clusters of at most {tts.clusters.tri_k} triangles "
                  f"({time.perf_counter() - t0:.1f} s)")
-    numbers.update(phase_tile_kernels(
-        tts, ts, waves + (connection_wavefront(ts, cam, dev),), dev))
+    waves = waves + (connection_wavefront(ts, cam, dev),)
+    numbers.update(phase_tile_kernels(tts, ts, waves, dev))
+    numbers.update(phase_list_walk(tts, ts, waves, dev))
+    list_launches = phase_profiler()
     launches, walk_stats = phase_main_path(out_dir)
     brute_launches, state_path = phase_cornell(out_dir, dev)
     launches.update({k: brute_launches[k]
@@ -828,6 +1089,7 @@ def main() -> int:
     launches.update({k: tile_launches[k] for k in
                      ("tile_round", "tile_walk_closest", "tile_walk_any")})
     phase_tile_cove(dev, cove_state, cove_stats)
+    launches.update(list_launches)
     phase_cpu_vs_card(scene_path)
     phase_cpu_vs_card_spcbpt(state_path)
     phase_tile_cpu_vs_card(out_dir)
@@ -837,14 +1099,22 @@ def main() -> int:
                "brute_closest": "brute_trace.cu",
                "brute_any": "brute_trace.cu", "tile_round": "tile_walk.cu",
                "tile_walk_closest": "tile_walk.cu",
-               "tile_walk_any": "tile_walk.cu"}
+               "tile_walk_any": "tile_walk.cu",
+               "list_walk_closest": "list_walk.cu",
+               "list_walk_closest_stream": "list_walk.cu",
+               "list_walk_any": "list_walk.cu",
+               "list_walk_any_stream": "list_walk.cu"}
     replaces = {"walk_closest": "spcbpt_tpu/ops/ray_walk.py:144",
                 "walk_any": "spcbpt_tpu/ops/ray_walk.py:197",
                 "brute_closest": "spcbpt_tpu/ops/pallas_trace.py:28",
                 "brute_any": "spcbpt_tpu/ops/pallas_trace.py:108",
                 "tile_round": "spcbpt_tpu/ops/pallas_tile.py:416",
                 "tile_walk_closest": "spcbpt_tpu/ops/pallas_tile.py:163",
-                "tile_walk_any": "spcbpt_tpu/ops/pallas_tile.py:236"}
+                "tile_walk_any": "spcbpt_tpu/ops/pallas_tile.py:236",
+                "list_walk_closest": "spcbpt_tpu/ops/pallas_walk.py:156",
+                "list_walk_closest_stream": "spcbpt_tpu/ops/pallas_walk.py:97",
+                "list_walk_any": "spcbpt_tpu/ops/pallas_walk.py:207",
+                "list_walk_any_stream": "spcbpt_tpu/ops/pallas_walk.py:235"}
     kernels = [dict(name=k, route="cuda",
                     source=f"spcbpt_tpu_torch/csrc/{sources[k]}",
                     replaces=replaces[k], launches=launches[k], **numbers[k])

@@ -60,10 +60,10 @@ def resolve_scene(name: str) -> str:
     if os.path.exists(name):
         return name
     if name in ("cornell", "cornell_glossy"):
-        from spcbpt_tpu.scene.cornell import default_scene_path
+        from ..scene.cornell import default_scene_path
         return default_scene_path(glossy=name == "cornell_glossy")
     if name in ("interior", "interior_lit", "interior_cove"):
-        from spcbpt_tpu.scene.interior import default_scene_path
+        from ..scene.interior import default_scene_path
         mode = {"interior": "interior", "interior_lit": "lit",
                 "interior_cove": "cove"}[name]
         return default_scene_path(mode=mode)
@@ -73,7 +73,7 @@ def resolve_scene(name: str) -> str:
 def generate_interior(root: str, scale: int) -> str:
     """The procedural interior at `scale` (1: 2,264 triangles; 4, the
     builtin's: 32,576), generated under `root`; returns its scene path."""
-    from spcbpt_tpu.scene.interior import generate
+    from ..scene.interior import generate
     return generate(root, scale=scale)
 
 
@@ -92,7 +92,7 @@ def main(argv=None):
                          "yet")
     device = torch.device(args.device)
 
-    from spcbpt_tpu.config import PT_MAX_DEPTH
+    from ..config import PT_MAX_DEPTH
     from .. import checkpoint
     from ..render.film import Film
     from ..scene.scene import load_trace_scene

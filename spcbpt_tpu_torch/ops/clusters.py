@@ -9,6 +9,8 @@ sets, as the JAX scene builds them:
   * `TileClusterSet`, K = 32, for the tile mode (ops/tile_trace.py,
     ops/pallas_tile.py), with the coefficient blocks of the matmul walk and
     the raw (C, 16, 128) triangle blocks that kernels K4/K5 read.
+The list walk (ops/pallas_walk.py, kernel K6) takes either set and reads
+its (C, 16, 128) blocks on the device (`blocks()`).
 One cluster set takes a scene of any size: the JAX package's partitioning
 exists only for the TPU's VMEM.
 
@@ -24,15 +26,36 @@ of the BVH-reordered triangle array.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
-from spcbpt_tpu.ops.bvh import FlatBVH
+from .bvh import FlatBVH
 
 SLOTS = 128   # triangle slots per cluster
 FEAT_DIM = 16
 N_OUT = 4     # u_num, v_num, t_num, det
+# The cluster visits of the plain walks, while a caller collects them: a
+# list of (lanes of the visiting row or tile, cluster ids visited in one
+# round), or None. chip_smoke.py counts a kernel's ray-triangle tests from
+# it (the work term of the kernel's bound).
+VISIT_LOG: Optional[list] = None
+
+
+def log_visits(lanes: int, cid) -> None:
+    """Record one round of a plain walk: each cluster id in `cid` tested
+    against `lanes` rays."""
+    if VISIT_LOG is not None:
+        VISIT_LOG.append((lanes, cid))
+
+
+def cluster_sizes(cs, num_tris: int) -> torch.Tensor:
+    """(C,) int64 triangles per cluster of either set (clusters are
+    contiguous ranges of the reordered triangle array)."""
+    begin = cs.tri_begin.long()
+    end = torch.cat([begin[1:], begin.new_tensor([num_tris])])
+    return end - begin
 
 
 @dataclasses.dataclass
@@ -44,13 +67,24 @@ class ClusterSet:
                              # [p0, 0, e1, 0, e2, 0], zero-padded: three
                              # 16-byte loads per slot; read by the kernels
                              # and by their plain versions
-    tri_block: np.ndarray    # host only: (C, 16, 128) rows 0..8 = [p0, e1,
-                             # e2] xyz per slot, the JAX package's layout,
-                             # kept for parity checks against it
+    tri_block: np.ndarray    # host: (C, 16, 128) rows 0..8 = [p0, e1, e2]
+                             # xyz per slot, the JAX package's layout; the
+                             # list walk (K6) reads it on the device,
+                             # through blocks()
+    _blocks: Optional[torch.Tensor] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     @property
     def num_clusters(self) -> int:
         return self.cmin.shape[0]
+
+    def blocks(self) -> torch.Tensor:
+        """tri_block on the set's device, copied at first use (368 x 8 KB
+        at the scale-4 interior)."""
+        if self._blocks is None:
+            self._blocks = torch.from_numpy(self.tri_block).to(
+                self.cmin.device)
+        return self._blocks
 
     @classmethod
     def from_arrays(cls, cmin, cmax, tri_block, tri_begin,
@@ -86,6 +120,10 @@ class TileClusterSet:
     @property
     def num_clusters(self) -> int:
         return self.cmin.shape[0]
+
+    def blocks(self) -> torch.Tensor:
+        """tri_block, already on the device (ClusterSet.blocks' contract)."""
+        return self.tri_block
 
     @classmethod
     def from_arrays(cls, cmin, cmax, coeff, tri_block, tri_begin, tri_k,

@@ -14,8 +14,7 @@ import math
 
 import torch
 
-from spcbpt_tpu.config import NUM_SUBSPACE
-
+from ..config import NUM_SUBSPACE
 from ..utils import vec
 from ..utils.rng import next_float
 

@@ -28,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import tile_walk as kernels
-from .clusters import SLOTS, TileClusterSet
+from .clusters import SLOTS, TileClusterSet, log_visits
 from .intersect import Hit
 from .ray_walk import _next_cluster
 from .tile_trace import (_as_lanes, _hit, _pad_rays, sort_rays_live,
@@ -103,6 +103,7 @@ def mt_round_blocks_plain(origins, dirs, tri_block, cid, run, tmn, tmax_eff,
     tri_block[cid[i]] where run[i], a miss (t 1e30, u = v = 0, slot 128)
     where not. tri_k is the kernel's slot bound; slots past it are zero and
     never hit, so the plain version tests all 128."""
+    log_visits(origins.shape[1], cid[run])
     tris = tri_block[torch.where(run, cid, 0).long()]
     t_min, u, v, dn, s_pick = mt_round_plain(origins, dirs, tris, tmn,
                                              tmax_eff, cull_backface)
@@ -155,6 +156,7 @@ def _walk_tiles_plain(cs: TileClusterSet, o, d, tmn, tmx, cull, any_hit):
         tiles, e, cid, tmax_eff = tiles[run], e[run], cid[run], tmax_eff[run]
         if not tiles.numel():
             break
+        log_visits(TILE, cid)
         tt, u, v = _mt_vpu(o3[tiles], d3[tiles], cs.tri_block[cid],
                            tmn2[tiles], tmax_eff, cull and not any_hit)
         if any_hit:

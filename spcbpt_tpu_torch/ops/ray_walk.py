@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import ray_walk as kernels
-from .clusters import SLOTS, ClusterSet
+from .clusters import SLOTS, ClusterSet, log_visits
 from .intersect import Hit
 from .tile_trace import _as_lanes, _hit, _pad_rays, sort_rays_live, unsort
 
@@ -134,6 +134,7 @@ def _walk_rows_plain(cs: ClusterSet, o, d, tmn, tmx, row_e, cull, any_hit):
         rows, e, cid, tmax_eff = rows[run], e[run], cid[run], tmax_eff[run]
         if not rows.numel():
             break
+        log_visits(ROW, cid)
         tt, u, v = _mt_rows3(o3[rows], d3[rows], cs.tri_slots[cid],
                              tmn2[rows], tmax_eff, cull and not any_hit)
         if any_hit:

@@ -16,8 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from spcbpt_tpu.config import CULL_BACKFACE, MIN_RR_RATE, SCENE_EPSILON
-
+from ..config import CULL_BACKFACE, MIN_RR_RATE, SCENE_EPSILON
 from ..ops import bsdf as bsdf_mod
 from ..ops import lights as lights_mod
 from ..scene.scene import TraceScene, local_geometry, trace_closest

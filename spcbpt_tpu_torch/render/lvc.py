@@ -22,8 +22,7 @@ import dataclasses
 
 import torch
 
-from spcbpt_tpu.config import NUM_SUBSPACE
-
+from ..config import NUM_SUBSPACE
 from ..ops.cmf import segment_pmf, segment_searchsorted
 from ..train import classify
 from ..utils import rng as rng_mod

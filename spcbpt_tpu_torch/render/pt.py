@@ -16,9 +16,8 @@ from __future__ import annotations
 
 import torch
 
-from spcbpt_tpu.config import (CULL_BACKFACE, MIN_RR_RATE, PT_MAX_DEPTH,
-                               SCENE_EPSILON)
-
+from ..config import (CULL_BACKFACE, MIN_RR_RATE, PT_MAX_DEPTH,
+                      SCENE_EPSILON)
 from ..ops import bsdf as bsdf_mod
 from ..ops import lights as lights_mod
 from ..scene.scene import TraceScene, local_geometry, trace_any, trace_closest

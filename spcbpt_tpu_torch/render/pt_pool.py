@@ -15,8 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from spcbpt_tpu.config import CULL_BACKFACE, PT_MAX_DEPTH, SCENE_EPSILON
-
+from ..config import CULL_BACKFACE, PT_MAX_DEPTH, SCENE_EPSILON
 from ..scene.scene import TraceScene, local_geometry, trace_closest
 from ..utils import rng as rng_mod
 from ..utils import vec

@@ -19,8 +19,7 @@ import math
 
 import torch
 
-from spcbpt_tpu.config import CONNECTION_N, MIN_RR_RATE, NUM_SUBSPACE
-
+from ..config import CONNECTION_N, MIN_RR_RATE, NUM_SUBSPACE
 from ..ops import bsdf as bsdf_mod
 from ..train import classify
 from ..utils import vec

@@ -21,9 +21,8 @@ import math
 
 import torch
 
-from spcbpt_tpu.config import (CONNECTION_N, CULL_BACKFACE, MIN_RR_RATE,
-                               NUM_SUBSPACE, SCENE_EPSILON, SUBPATH_MAX_DEPTH)
-
+from ..config import (CONNECTION_N, CULL_BACKFACE, MIN_RR_RATE,
+                      NUM_SUBSPACE, SCENE_EPSILON, SUBPATH_MAX_DEPTH)
 from ..ops import bsdf as bsdf_mod
 from ..ops import lights as lights_mod
 from ..scene.scene import TraceScene, local_geometry, trace_closest, visibility

@@ -16,8 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from spcbpt_tpu.config import CONNECTION_N
-
+from ..config import CONNECTION_N
 from ..scene.scene import TraceScene
 from ..train import classify
 from ..utils import rng as rng_mod

@@ -19,14 +19,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from spcbpt_tpu.ops import bvh as bvh_mod
-from spcbpt_tpu.scene import obj as obj_mod
-from spcbpt_tpu.scene.camera import Camera
-from spcbpt_tpu.scene.parser import MaterialDesc, SceneDesc, load_scene
-
+from ..ops import bvh as bvh_mod
 from ..ops import clusters as clusters_mod
 from ..ops import brute_trace, intersect, pallas_tile, ray_walk, tile_trace
 from ..utils import vec
+from . import obj as obj_mod
+from .camera import Camera
+from .parser import MaterialDesc, SceneDesc, load_scene
 
 # Textures are kept at native resolution in one (NT, Hmax, Wmax, 3) stack;
 # only textures whose longest edge exceeds TEX_MAX are area-downsampled.

@@ -22,9 +22,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from spcbpt_tpu.config import (CONSERVATIVE_RATE, NUM_SUBSPACE,
-                               NUM_SUBSPACE_LIGHTSOURCE)
-
+from ..config import (CONSERVATIVE_RATE, NUM_SUBSPACE,
+                      NUM_SUBSPACE_LIGHTSOURCE)
 from ..utils import vec
 
 NUM_LIGHT_TREE_SUBSPACE = NUM_SUBSPACE - NUM_SUBSPACE_LIGHTSOURCE  # 800

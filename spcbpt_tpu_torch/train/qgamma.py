@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from spcbpt_tpu.config import CONSERVATIVE_RATE, NUM_SUBSPACE
+from ..config import CONSERVATIVE_RATE, NUM_SUBSPACE
 
 
 def gamma_to_cmf(gamma: torch.Tensor) -> torch.Tensor:

@@ -11,8 +11,7 @@ import zlib
 import numpy as np
 import torch
 
-from spcbpt_tpu.config import TONEMAP_LIMIT
-
+from ..config import TONEMAP_LIMIT
 from .vec import luminance
 
 

@@ -1,0 +1,378 @@
+"""The port's list walk (ops/pallas_walk: kernel K6's plain versions on CPU
+tensors) against the JAX package's Pallas list walk (ops/pallas_walk.py,
+all four kernels in interpret mode), on random triangles and on the scale=1
+interior, for both cluster sets (K=32, the tile mode's; K=128, the walk
+mode's), tiles of 128 and 256 rays, with and without the ray sort, both
+cull settings and prune=False, with ray counts that are not a multiple of
+the tile and a fifth of the lanes dead.
+
+Tolerances:
+  * walk lists: counts and sorted entries exactly (the entry bounds are
+    single products, sums and min/max, which XLA does not contract); ids
+    exactly except inside runs of equal entries, where the (entry, id)
+    pairs must be the same;
+  * triangle ids on at least 99.9% of lanes (both run the same Moller-
+    Trumbore; a rounding difference could move a tie at a shared edge);
+  * t within 1e-5 relative where the ids agree, u and v within 1e-5: XLA's
+    CPU compiler contracts the multiply-adds of the interpreted kernels
+    into FMAs, torch rounds every product (up to 5.5e-6 relative seen in
+    the row walk);
+  * occlusion on at least 99.99% of lanes;
+  * against the port's brute force (intersect.brute_force_*, the same
+    arithmetic) on random triangles: every lane.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from spcbpt_tpu.ops import bvh as jbvh
+from spcbpt_tpu.ops import clusters as jclusters
+from spcbpt_tpu.ops import pallas_walk as jwalk
+from spcbpt_tpu.scene import interior
+from spcbpt_tpu.scene import scene as jscene
+from spcbpt_tpu_torch.kernels import list_walk as kernels
+from spcbpt_tpu_torch.ops import bvh as tbvh
+from spcbpt_tpu_torch.ops import clusters as tclusters
+from spcbpt_tpu_torch.ops import intersect as tint
+from spcbpt_tpu_torch.ops import pallas_walk
+from spcbpt_tpu_torch.ops.pallas_tile import _mt_vpu, _pick
+from spcbpt_tpu_torch.render.common import camera_rays
+from spcbpt_tpu_torch.scene import scene as tscene
+
+torch.set_num_threads(1)
+
+N_RAYS = 700          # not a multiple of the 128- or 256-ray tile
+TRI_AGREE = 0.999
+OCC_AGREE = 0.9999
+RTOL, ATOL = 1e-5, 1e-5
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _j(a):
+    return jnp.asarray(np.asarray(a))
+
+
+def _rays(rs, origins, dirs):
+    """N_RAYS rays with tmin 1e-3, tmax 1e16, a fifth of the lanes dead
+    (tmax -1), and segment ends in [0.05, 3] for the any hit."""
+    tmin = np.full(N_RAYS, 1e-3, np.float32)
+    tmax = np.full(N_RAYS, 1e16, np.float32)
+    tmax[rs.permutation(N_RAYS)[:N_RAYS // 5]] = -1.0
+    seg = np.where(tmax < 0, -1.0, rs.uniform(0.05, 3.0, N_RAYS))
+    return dict(rays=(origins.astype(np.float32), dirs.astype(np.float32),
+                      tmin, tmax), seg=seg.astype(np.float32))
+
+
+@pytest.fixture(scope="module")
+def random_case():
+    """1,200 random triangles in both packages' cluster sets built from one
+    BVH (the trees are equal, tests/test_torch_host_modules.py), rays from
+    random origins in random directions."""
+    rs = np.random.RandomState(0)
+    t = 1200
+    c = rs.uniform(-5, 5, (t, 3)).astype(np.float32)
+    p0 = c + rs.normal(0, 0.3, (t, 3)).astype(np.float32)
+    e1 = rs.normal(0, 0.4, (t, 3)).astype(np.float32)
+    e2 = rs.normal(0, 0.4, (t, 3)).astype(np.float32)
+    flat = tbvh.build_bvh(p0, e1, e2)
+    jflat = jbvh.build_bvh(p0, e1, e2)
+    np.testing.assert_array_equal(flat.order, jflat.order)
+    tris = [a[flat.order] for a in (p0, e1, e2)]
+    sets = {
+        32: (jclusters.build_clusters(jflat, *tris, max_tris=32),
+             tclusters.build_tile_clusters(flat, *tris, max_tris=32)),
+        128: (jclusters.build_clusters(jflat, *tris, max_tris=128,
+                                       with_coeff=False),
+              tclusters.build_clusters(flat, *tris, max_tris=128)),
+    }
+    o = rs.uniform(-6, 6, (N_RAYS, 3))
+    d = rs.normal(size=(N_RAYS, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return dict(sets=sets, tris=tuple(map(_t, tris)), **_rays(rs, o, d))
+
+
+@pytest.fixture(scope="module")
+def interior_case(tmp_path_factory):
+    """The scale=1 interior (2,264 triangles) in both packages: the K=32 set
+    of the tile mode and the K=128 set of the walk mode, one BVH; camera
+    rays, then rays from their hits in random directions."""
+    path = interior.generate(str(tmp_path_factory.mktemp("interior")),
+                             scale=1)
+    jtile, _, cam = jscene.load_trace_scene(path, mode="tile")
+    jwalk_ts, _, _ = jscene.load_trace_scene(path, mode="walk")
+    ttile, _, _ = tscene.load_trace_scene(path, "cpu", mode="tile")
+    twalk, _, _ = tscene.load_trace_scene(path, "cpu", mode="walk")
+    assert torch.equal(ttile.tri_p0, twalk.tri_p0)
+    cam.aspect = 1.0
+    o, d, _ = camera_rays(*cam.uvw(), 24, 24, 0, block=8)
+    n_cam = o.shape[0]
+    hit = tint.brute_force_closest(o, d, ttile.tri_p0, ttile.tri_e1,
+                                   ttile.tri_e2, torch.full((n_cam,), 1e-3),
+                                   torch.full((n_cam,), 1e16), False)
+    rs = np.random.RandomState(1)
+    p_hit = (o + torch.clamp(hit.t, max=10.0)[:, None] * d).numpy()
+    nd = rs.normal(size=(n_cam, 3))
+    nd /= np.linalg.norm(nd, axis=1, keepdims=True)
+    origins = np.concatenate([o.numpy(), p_hit[rs.permutation(n_cam)]])
+    dirs = np.concatenate([d.numpy(), nd])
+    sets = {32: (jtile.clusters, ttile.clusters),
+            128: (jwalk_ts.clusters_walk, twalk.clusters_walk)}
+    return dict(sets=sets, **_rays(rs, origins[:N_RAYS], dirs[:N_RAYS]))
+
+
+def _cases(request, name):
+    return request.getfixturevalue(f"{name}_case")
+
+
+def _assert_hits_match(got, ref):
+    tri, rtri = got.tri.numpy(), np.asarray(ref.tri)
+    assert (tri == rtri).mean() >= TRI_AGREE
+    same = (tri == rtri) & (tri >= 0)
+    np.testing.assert_allclose(got.t.numpy()[same], np.asarray(ref.t)[same],
+                               rtol=RTOL)
+    for f in ("u", "v"):
+        np.testing.assert_allclose(getattr(got, f).numpy()[same],
+                                   np.asarray(getattr(ref, f))[same],
+                                   rtol=RTOL, atol=ATOL)
+    miss = tri < 0
+    assert (got.t.numpy()[miss] == np.float32(1e30)).all()
+    assert (got.u.numpy()[miss] == 0).all() and (got.v.numpy()[miss] == 0).all()
+
+
+@pytest.mark.parametrize("name", ["random", "interior"])
+@pytest.mark.parametrize("k,tile", [(32, 128), (32, 256), (128, 128),
+                                    (128, 256)])
+def test_prepare_matches_jax(request, name, k, tile):
+    """Padding, per-tile entry bounds, the stable near-to-far sort, counts
+    and bases against JAX's `_prepare`."""
+    case = _cases(request, name)
+    jcs, tcs = case["sets"][k]
+    (po, pd, ptn, ptx, n, entries, ids, bases,
+     counts) = pallas_walk._prepare(tcs, *map(_t, case["rays"]), tile)
+    ref = jwalk._prepare(jcs, *map(_j, case["rays"]), tile)
+    jo, jd, jtn, jtx, jn, _, nt, c, jentries, jids, jcounts = ref
+    assert n == jn == N_RAYS and entries.shape == (nt, c) == ids.shape
+    for a, b in ((po, jo), (pd, jd), (ptn, jtn), (ptx, jtx)):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert (ptx.numpy()[N_RAYS:] == -1).all()
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(jcounts))
+    e, je = entries.numpy(), np.asarray(jentries)
+    np.testing.assert_array_equal(e, je)
+    i, ji = ids.numpy(), np.asarray(jids)
+    tied = np.zeros_like(e, dtype=bool)
+    tied[:, 1:] |= e[:, 1:] == e[:, :-1]
+    tied[:, :-1] |= e[:, :-1] == e[:, 1:]
+    np.testing.assert_array_equal(i[~tied], ji[~tied])
+    for row in range(nt):       # ties: the same (entry, id) pairs
+        a = np.lexsort((i[row], e[row]))
+        b = np.lexsort((ji[row], je[row]))
+        np.testing.assert_array_equal(i[row][a], ji[row][b])
+    np.testing.assert_array_equal(
+        bases.numpy(), tcs.tri_begin.numpy()[i])
+    assert bases.dtype == ids.dtype == counts.dtype == torch.int32
+    assert 0 < counts.numpy().mean() <= c
+
+
+# (k, tile, sort_rays, cull): each value of each option at least twice
+_CLOSEST = [(32, 128, False, True), (32, 256, True, False),
+            (128, 128, True, True), (128, 256, False, False)]
+
+
+@pytest.mark.parametrize("vmem_resident", [True, False])
+@pytest.mark.parametrize("k,tile,sort_rays,cull", _CLOSEST)
+def test_walk_closest_matches_jax(random_case, k, tile, sort_rays, cull,
+                                  vmem_resident):
+    jcs, tcs = random_case["sets"][k]
+    args = random_case["rays"]
+    ref = jwalk.walk_closest(jcs, *map(_j, args), cull, tile=tile,
+                             sort_rays=sort_rays, interpret=True,
+                             vmem_resident=vmem_resident)
+    got = pallas_walk.walk_closest(tcs, *map(_t, args), cull, tile=tile,
+                                   sort_rays=sort_rays,
+                                   vmem_resident=vmem_resident)
+    _assert_hits_match(got, ref)
+    tri = got.tri.numpy()
+    assert (tri[args[3] < 0] == -1).all()          # dead lanes never hit
+    assert 0.05 < (tri >= 0).mean() < 0.9
+
+
+@pytest.mark.parametrize("k,tile,sort_rays,cull",
+                         [(32, 256, False, False), (128, 128, True, True)])
+def test_walk_closest_interior_matches_jax(interior_case, k, tile, sort_rays,
+                                           cull):
+    """The resident form on the interior, and the streamed one on the other
+    set."""
+    jcs, tcs = interior_case["sets"][k]
+    args = interior_case["rays"]
+    for resident in (k == 128, k == 32):
+        ref = jwalk.walk_closest(jcs, *map(_j, args), cull, tile=tile,
+                                 sort_rays=sort_rays, interpret=True,
+                                 vmem_resident=resident)
+        got = pallas_walk.walk_closest(tcs, *map(_t, args), cull, tile=tile,
+                                       sort_rays=sort_rays,
+                                       vmem_resident=resident)
+        _assert_hits_match(got, ref)
+    assert (got.tri.numpy() >= 0).mean() > 0.5
+
+
+@pytest.mark.parametrize("name", ["random", "interior"])
+def test_walk_closest_without_prune_matches_jax(request, name):
+    """prune=False (resident only) walks every list to its end: JAX's
+    prune=False, and the same hits as with pruning."""
+    case = _cases(request, name)
+    jcs, tcs = case["sets"][128]
+    args = case["rays"]
+    ref = jwalk.walk_closest(jcs, *map(_j, args), False, tile=128,
+                             interpret=True, prune=False)
+    got = pallas_walk.walk_closest(tcs, *map(_t, args), False, tile=128,
+                                   prune=False)
+    _assert_hits_match(got, ref)
+    pruned = pallas_walk.walk_closest(tcs, *map(_t, args), False, tile=128)
+    for f in ("t", "tri", "u", "v"):
+        assert torch.equal(getattr(got, f), getattr(pruned, f)), f
+
+
+@pytest.mark.parametrize("name", ["random", "interior"])
+@pytest.mark.parametrize("k,tile,sort_rays,vmem_resident",
+                         [(32, 128, False, True), (128, 256, True, False)])
+def test_walk_any_matches_jax(request, name, k, tile, sort_rays,
+                              vmem_resident):
+    case = _cases(request, name)
+    jcs, tcs = case["sets"][k]
+    o, d, tmin, tmax = case["rays"]
+    args = (o, d, tmin, case["seg"])
+    ref = np.asarray(jwalk.walk_any(jcs, *map(_j, args), tile=tile,
+                                    sort_rays=sort_rays, interpret=True,
+                                    vmem_resident=vmem_resident))
+    got = pallas_walk.walk_any(tcs, *map(_t, args), tile=tile,
+                               sort_rays=sort_rays,
+                               vmem_resident=vmem_resident)
+    assert got.dtype == torch.bool
+    assert (got.numpy() == ref).mean() >= OCC_AGREE
+    assert not got.numpy()[tmax < 0].any()
+    assert 0.05 < got.numpy().mean() < 0.8
+
+
+@pytest.mark.parametrize("k", [32, 128])
+def test_walks_match_brute_force(random_case, k):
+    """Every lane against brute force over all triangles, and the plain
+    entry points equal the wrappers on CPU tensors."""
+    _, tcs = random_case["sets"][k]
+    o, d, tmin, tmax = map(_t, random_case["rays"])
+    seg = _t(random_case["seg"])
+    tris = random_case["tris"]
+    for cull in (True, False):
+        ref = tint.brute_force_closest(o, d, *tris, tmin, tmax, cull)
+        got = pallas_walk.walk_closest(tcs, o, d, tmin, tmax, cull,
+                                       sort_rays=True)
+        np.testing.assert_array_equal(got.tri.numpy(), ref.tri.numpy())
+        assert torch.equal(got.t, ref.t)
+        plain = pallas_walk.walk_closest_plain(tcs, o, d, tmin, tmax, cull,
+                                               sort_rays=True)
+        assert torch.equal(plain.tri, got.tri) and torch.equal(plain.t, got.t)
+    occ = pallas_walk.walk_any(tcs, o, d, tmin, seg, tile=128)
+    np.testing.assert_array_equal(
+        occ.numpy(), tint.brute_force_any(o, d, *tris, tmin, seg).numpy())
+    assert torch.equal(pallas_walk.walk_any_plain(tcs, o, d, tmin, seg,
+                                                  tile=128), occ)
+
+
+def _rounds_per_tile(blocks, prep, cull, any_hit):
+    """Rounds each tile walks, one tile at a time (the plain versions run
+    all tiles in lock step): the stop rules of pallas_walk.py:142-146
+    (closest) and :226-229 (any)."""
+    o, d, tmn, tmx, _, entries, ids, bases, counts = prep
+    nt, _ = entries.shape
+    tile = o.shape[0] // nt
+    out = []
+    for i in range(nt):
+        sl = slice(i * tile, (i + 1) * tile)
+        oi, di, tn, tx = o[sl][None], d[sl][None], tmn[sl][None], tmx[sl][None]
+        best = torch.full((1, tile), 1e30)
+        occ = torch.zeros((1, tile), dtype=torch.bool)
+        r = 0
+        while r < int(counts[i]):
+            blk = blocks[ids[i, r].long()][None]
+            if any_hit:
+                tt, _, _ = _mt_vpu(oi, di, blk, tn, tx, False)
+                occ |= (tt < 1e30).any(dim=2)
+                bound = torch.where(occ, -1e30, tx).max()
+            else:
+                tt, u, v = _mt_vpu(oi, di, blk, tn, torch.minimum(best, tx),
+                                   cull)
+                t_min = _pick(tt, u, v, 128)[0]
+                best = torch.where(t_min < best, t_min, best)
+                bound = torch.minimum(best, tx).max()
+            r += 1
+            if r < int(counts[i]) and entries[i, r] > bound:
+                break
+        out.append(r)
+    return np.array(out)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_plain_walk_stops_like_jax(interior_case, any_hit):
+    """The lock-step plain walk visits, round by round, as many tiles as a
+    walk of each tile alone with JAX's stop rules; pruning saves rounds."""
+    _, tcs = interior_case["sets"][32]
+    o, d, tmin, tmax = map(_t, interior_case["rays"])
+    prep = pallas_walk._prepare(tcs, o, d, tmin, tmax, 128)
+    expected = _rounds_per_tile(tcs.blocks(), prep, True, any_hit)
+    counts = prep[-1].numpy()
+    assert (expected <= counts).all() and (expected < counts).any()
+    log = []
+    tclusters.VISIT_LOG = log
+    try:
+        if any_hit:
+            pallas_walk.walk_any(tcs, o, d, tmin, tmax, tile=128)
+        else:
+            pallas_walk.walk_closest(tcs, o, d, tmin, tmax, True, tile=128)
+    finally:
+        tclusters.VISIT_LOG = None
+    running = [len(cid) for lanes, cid in log]
+    assert all(lanes == 128 for lanes, _ in log)
+    assert running == [int((expected > r).sum())
+                       for r in range(expected.max())]
+
+
+def test_cpu_tensors_take_plain_versions(random_case):
+    """CPU tensors go through the plain versions: no launch is counted."""
+    _, tcs = random_case["sets"][128]
+    o, d, tmin, tmax = map(_t, random_case["rays"])
+    kernels.reset_launches()
+    for resident in (True, False):
+        pallas_walk.walk_closest(tcs, o, d, tmin, tmax,
+                                 vmem_resident=resident)
+        pallas_walk.walk_any(tcs, o, d, tmin, tmax, vmem_resident=resident)
+    assert kernels.LAUNCHES == {"list_walk_closest": 0,
+                                "list_walk_closest_stream": 0,
+                                "list_walk_any": 0, "list_walk_any_stream": 0}
+
+
+def test_streamed_closest_always_prunes(random_case):
+    _, tcs = random_case["sets"][128]
+    o, d, tmin, tmax = map(_t, random_case["rays"])
+    with pytest.raises(ValueError, match="prune=False"):
+        pallas_walk.walk_closest(tcs, o, d, tmin, tmax, vmem_resident=False,
+                                 prune=False)
+
+
+def test_kernel_bindings_refuse_cpu_tensors(random_case):
+    """No fallback: each binding raises on CPU tensors before anything is
+    built or launched."""
+    _, tcs = random_case["sets"][128]
+    o, d, tmin, tmax = map(_t, random_case["rays"])
+    prep = pallas_walk._prepare(tcs, o, d, tmin, tmax, 128)
+    po, pd, ptn, ptx, _, entries, ids, bases, counts = prep
+    for stream in (False, True):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            kernels.closest(tcs.blocks(), counts, ids, bases, entries, po, pd,
+                            ptn, ptx, True, True, stream)
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            kernels.any_hit(tcs.blocks(), counts, ids, entries, po, pd, ptn,
+                            ptx, stream)
+    assert not any(kernels.LAUNCHES.values())
