@@ -9,17 +9,21 @@ Phases, one status line each; any failure raises and exits non-zero:
      together) and the native host library (g++), through the package's
      own loaders;
   3. kernels vs plain: the row-walk kernels K1 (closest hit) and K2 (any
-     hit) against their plain torch versions on the card, on the
-     32,576-triangle interior, for a 512x512 camera wavefront and a 2^17-ray
-     incoherent bounce wavefront with a quarter of its lanes dead, and
-     against brute force on a 4096-ray subset; times per call;
+     hit), which compute their rows' cluster entries themselves, against
+     their plain torch versions on the card, on the 32,576-triangle
+     interior, for a 512x512 camera wavefront and a 2^17-ray incoherent
+     bounce wavefront with a quarter of its lanes dead, and against brute
+     force on a 4096-ray subset; the kernels' entry phase alone
+     (`ray_walk_entries`) against the plain `row_entries` table; times per
+     call;
   4. K3 vs plain: the brute-force kernel (closest and any hit) against its
      plain torch version on the 32-triangle Cornell box, for a 512x512
      camera wavefront, a 2^17-ray bounce wavefront with a quarter of its
      lanes dead and a 3 x 2^16-ray connection-shaped segment wavefront with
      masked lanes, both cull settings; times per call;
   5. main path, PT on the interior: `render_cli --scene interior --alg pt
-     --dim 1024x1024 --spp 4` through K1/K2;
+     --dim 1024x1024 --spp 4` through K1/K2, with no call of the plain
+     route's `row_entries` pass;
   6. main path, Cornell through K3: a synthetic trained subspace state
      saved with the port's checkpoint, then `render_cli --scene cornell`
      at 512x512, 4 spp with `--alg spcbpt --resume`, `--alg bdpt` (100,000
@@ -51,8 +55,11 @@ Phases, one status line each; any failure raises and exits non-zero:
      mode flag): K4 closest hits, K5 any hits, the mean within
      TILE_MEAN_PT of phase 5's walk-mode mean on the same seeds;
  13. cove SPCBPT 256x256, 1 spp in `tile` mode from the saved state: the
-     connection wavefront through K5's any hit, the mean within
-     TILE_MEAN_SPCBPT of phase 7's;
+     connection wavefront through K5's any hit; the mean of the image with
+     its pixels capped at COVE_CAP within TILE_MEAN_SPCBPT of phase 7's, the
+     plain mean within TILE_MEAN_SPCBPT_TAIL; a walk-mode render of the same
+     frame gives the spread, and frames with planted any-hit faults must
+     fall outside the bounds;
  14. CPU vs card in `tile` mode: PT 64x64, 2 spp, depth 8 on the scale=1
      interior (the CPU runs JAX's matmul walk, the card K4/K5).
 Each render phase sets every launch counter to 0 just before it renders and
@@ -98,9 +105,22 @@ SPCBPT_CPU_CARD = 0.01
 # Tile mode against walk mode on the card, same seeds: both run direct
 # Moller-Trumbore, so paths part only where an exact tie at a shared edge
 # goes to another cluster. PT means within 0.5%, SPCBPT means within 1%
-# (its LVC sums are atomics whose order changes from run to run).
+# (its LVC sums are atomics whose order changes from run to run). The cove
+# is lit indirectly only, and at 1 spp a few pixels above 100 carry a tenth
+# of its mean: where two renders of the same seeds part in a handful of such
+# paths, the plain mean moves by up to 1.3% (walk mode 0.708684 to 0.716390
+# between runs, tile mode 0.717581; one H100) and the mean of the pixels
+# capped at COVE_CAP by under 0.4%. So the 1% bound holds the capped mean,
+# and the plain mean, tail included, gets 2%. Phase 13 shows on every run
+# that the bounds can tell: a walk-mode frame whose any-hit traces report
+# one lane in 16 unoccluded must fall outside both (read: plain mean off by
+# 5.3%, capped mean by 7.9%), and with one lane in 64 outside the capped
+# mean's (1.0% and 2.1%).
 TILE_MEAN_PT = 0.005
 TILE_MEAN_SPCBPT = 0.01
+TILE_MEAN_SPCBPT_TAIL = 0.02
+COVE_CAP = 20.0          # radiance cap per pixel of the capped mean
+COVE_FAULT_STRIDES = (16, 64)    # planted faults: one any-hit lane in N
 # CPU (JAX's matmul walk) against card (K4/K5) in tile mode: the two
 # formulations part at grazing edges; PT means within 0.5%.
 TILE_CPU_CARD = 0.005
@@ -111,14 +131,20 @@ KERNEL_SOURCES = ("ray_walk", "brute_trace", "tile_walk", "list_walk")
 # f32 operations per ray-triangle test (Moller-Trumbore), counted from the
 # plain version's own cluster visits on the same inputs (every lane of the
 # visiting row or tile against the cluster's real triangles, not its zero
-# slots). Bytes: each ray read once, each hit written once, the triangles of
-# the clusters visited at least once, and the other inputs the kernel reads.
+# slots); for K1/K2, which compute their rows' entries, also the slab tests
+# that finding those entries needs on this run's rays (`slab_tests`): 6
+# subtractions, 6 products, 5 minima, 5 maxima and 3 comparisons each. Bytes:
+# each ray read once, each hit written once, the triangles of the clusters
+# visited at least once, and the other inputs the kernel reads.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 FLOPS_PER_TEST = 45
+FLOPS_PER_SLAB_TEST = 25
+SLAB_GROUP = 8           # clusters per group box of K1/K2's entry phase
 TRI_BYTES = 36           # p0, e1, e2 of one triangle, float32
 RAY_BYTES = 32           # origin, direction, tmin, tmax
 PROFILER_TIMEOUT = 900
+LAUNCH_PROBE = 5000      # launches timed for the [env] line's host reading
 
 
 _T0 = time.perf_counter()
@@ -142,11 +168,38 @@ def phase_environment() -> str:
                           check=True).stdout
     release = re.search(r"release ([\d.]+)", nvcc)
     smi = nvidia_smi_line()
+    try:
+        import cv2
+        cv2_version = cv2.__version__
+    except ImportError:
+        cv2_version = "missing (scenes with albedoTex textures cannot load)"
+    log("env", f"cv2 {cv2_version}")
     log("env", f"python {sys.version.split()[0]}, torch {torch.__version__}, "
                f"CUDA {torch.version.cuda}, nvcc "
                f"{release.group(1) if release else 'unknown'}, "
                f"{torch.cuda.device_count()} card(s)")
     log("env", f"nvidia-smi: {smi}")
+    # the host, which bounds the render loops: its CPU and what one small
+    # launch costs it, so that a slow run can be told from a slow program
+    info = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            info.setdefault(key.strip(), value.strip())
+    cpu = ", ".join(f"{k} {info.get(k, 'unknown')}" for k in
+                    ("vendor_id", "cpu family", "model", "model name",
+                     "cpu MHz"))
+    x = torch.zeros(1024, device="cuda")
+    for _ in range(200):
+        x.add_(1.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LAUNCH_PROBE):
+        x.add_(1.0)
+    torch.cuda.synchronize()
+    us = (time.perf_counter() - t0) / LAUNCH_PROBE * 1e6
+    log("env", f"host: {cpu}, {os.cpu_count()} cores; {us:.2f} us per launch "
+               f"of a 1024-element add ({LAUNCH_PROBE} in a row)")
     return smi
 
 
@@ -191,14 +244,33 @@ def visits(fn, sizes) -> tuple:
     return tests, int(sizes[seen].sum()), sum(c.numel() for c in cids)
 
 
-def bound(tests: int, nbytes: int) -> dict:
-    """The JSON line's bound keys for `tests` ray-triangle tests moving
-    `nbytes` bytes; no single PyTorch call walks a BVH (library_ms)."""
-    ops_ms = tests * FLOPS_PER_TEST / PEAK_F32_FLOPS * 1e3
+def bound(tests: int, nbytes: int, slab_tests: int = 0) -> dict:
+    """The JSON line's bound keys for `tests` ray-triangle tests and
+    `slab_tests` ray-box tests moving `nbytes` bytes; no single PyTorch call
+    walks a BVH (library_ms)."""
+    ops_ms = (tests * FLOPS_PER_TEST + slab_tests * FLOPS_PER_SLAB_TEST) \
+        / PEAK_F32_FLOPS * 1e3
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     return dict(bound_ms=max(ops_ms, bytes_ms),
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                 library_ms=None)
+
+
+def slab_tests(row_e, live) -> int:
+    """The ray-box tests that the (rows, C) table `row_e` of row entries
+    needs, counted from the table itself: every live ray against the box of
+    each group of SLAB_GROUP consecutive clusters, and against the clusters
+    of the groups in which its row has an entry below 1e30. Lanes with tmax <
+    tmin (`live` False: dead or padding) add nothing."""
+    rows, c = row_e.shape
+    groups = -(-c // SLAB_GROUP)
+    reach = torch.nn.functional.pad(row_e < 1e30,
+                                    (0, groups * SLAB_GROUP - c))
+    reach = reach.view(rows, groups, SLAB_GROUP).any(dim=-1)
+    sizes = torch.full((groups,), SLAB_GROUP, device=row_e.device)
+    sizes[-1] = c - SLAB_GROUP * (groups - 1)
+    per_ray = groups + (reach * sizes).sum(dim=1)
+    return int((live.view(rows, -1).sum(dim=1) * per_ray).sum())
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -309,45 +381,66 @@ def phase_kernels(ts, waves, dev):
             results["walk_any"] = dict(
                 max_abs_err=(occ_k.int() - occ_p.int()).abs().max().item())
 
-        # times: the row walk alone (kernel vs plain) on the prepared rays,
-        # and the stages around it
-        po, pd, ptmn, ptmx, row_e, _, _ = ray_walk.prepare(
-            cs, o, d, tmin, tmax, True)
-        pseg, row_e_seg = ray_walk.prepare(cs, o, d, tmin, tseg, True)[3:5]
-        k1 = cuda_ms(lambda: kernels.closest(po, pd, ptmn, ptmx, row_e,
-                                             cs.tri_begin, cs.tri_slots,
-                                             False), 20)
-        k2 = cuda_ms(lambda: kernels.any_hit(po, pd, ptmn, pseg, row_e_seg,
-                                             cs.tri_slots), 20)
+        # the kernels' entry phase alone against the plain table, on the
+        # prepared rays of both walks
+        po, pd, ptmn, ptmx, _, _ = ray_walk.prepare(cs, o, d, tmin, tmax,
+                                                    True)
+        pseg = ray_walk.prepare(cs, o, d, tmin, tseg, True)[3]
+        boxes = (cs.cmin, cs.cmax)
+        slabs = {}
+        for tag, tx in (("closest", ptmx), ("any", pseg)):
+            got_e = kernels.entries(po, pd, ptmn, tx, *boxes)
+            ref_e = ray_walk.row_entries(*boxes, po, pd, ptmn, tx)
+            torch.cuda.synchronize()
+            reach = (ref_e < 1e30).float().sum(dim=1).mean().item()
+            assert torch.equal(got_e, ref_e), \
+                f"ray_walk_entries {name} ({tag}): differs from row_entries"
+            slabs[tag] = slab_tests(ref_e, tx >= ptmn)
+            log("kernels", f"ray_walk_entries {name} ({tag} rays): equals "
+                           f"row_entries, {reach:.1f} of {cs.num_clusters} "
+                           f"clusters in reach of a row, "
+                           f"{slabs[tag] / po.shape[0]:.1f} slab tests a "
+                           f"padded ray")
+
+        # times: the row walk alone (kernel vs plain, entries included) on
+        # the prepared rays, the entry phase alone, and the whole wrapper
+        tris = (cs.tri_count, cs.tri_slots)
+        k1 = cuda_ms(lambda: kernels.closest(po, pd, ptmn, ptmx, *boxes,
+                                             cs.tri_begin, *tris, False), 20)
+        k2 = cuda_ms(lambda: kernels.any_hit(po, pd, ptmn, pseg, *boxes,
+                                             *tris), 20)
+        ke = cuda_ms(lambda: kernels.entries(po, pd, ptmn, ptmx, *boxes), 20)
         p1 = cuda_ms(lambda: ray_walk.closest_rows_plain(
-            cs, po, pd, ptmn, ptmx, row_e, False), 2)
+            cs, po, pd, ptmn, ptmx, False), 2)
         p2 = cuda_ms(lambda: ray_walk.any_rows_plain(
-            cs, po, pd, ptmn, pseg, row_e_seg), 2)
-        re_ms = cuda_ms(lambda: ray_walk.row_entries(cs.cmin, cs.cmax, po, pd,
-                                                     ptmn, ptmx), 10)
+            cs, po, pd, ptmn, pseg), 2)
+        re_ms = cuda_ms(lambda: ray_walk.row_entries(*boxes, po, pd, ptmn,
+                                                     ptmx), 10)
         wrap_ms = cuda_ms(lambda: ray_walk.walk_closest(
             cs, o, d, tmin, tmax, False, sort_rays=True), 10)
         mr = lambda ms: n / ms / 1e3
         log("kernels", f"{name} ({n} rays): K1 {k1:.3f} ms ({mr(k1):.1f} "
                        f"Mrays/s) plain {p1:.3f} ms ({mr(p1):.2f} Mrays/s); "
                        f"K2 {k2:.3f} ms ({mr(k2):.1f} Mrays/s) plain "
-                       f"{p2:.3f} ms ({mr(p2):.2f} Mrays/s); row_entries "
-                       f"{re_ms:.3f} ms; walk_closest wrapper (sort + "
-                       f"row_entries + K1 + unsort) {wrap_ms:.3f} ms")
+                       f"{p2:.3f} ms ({mr(p2):.2f} Mrays/s); entry phase "
+                       f"alone {ke:.3f} ms (with the table's write), plain "
+                       f"row_entries {re_ms:.3f} ms; walk_closest wrapper "
+                       f"(sort + K1 + unsort) {wrap_ms:.3f} ms")
         if name.startswith("bounce"):
-            # bytes: rays, the row entry table, tri_begin, the visited
-            # clusters' triangles, hits or flags
-            npad = po.shape[0]
-            rows = npad * RAY_BYTES + row_e.numel() * 4
+            # operations: the visits' ray-triangle tests and the entries'
+            # slab tests; bytes: rays, boxes, tri_count (K1:
+            # tri_begin), the visited clusters' triangles, hits or flags
+            npad, c = po.shape[0], cs.num_clusters
+            fixed = npad * RAY_BYTES + c * 28
             t1, tri1, _ = visits(lambda: ray_walk.closest_rows_plain(
-                cs, po, pd, ptmn, ptmx, row_e, False), sizes)
+                cs, po, pd, ptmn, ptmx, False), sizes)
             t2, tri2, _ = visits(lambda: ray_walk.any_rows_plain(
-                cs, po, pd, ptmn, pseg, row_e_seg), sizes)
+                cs, po, pd, ptmn, pseg), sizes)
             results["walk_closest"].update(ms=k1, plain_ms=p1, **bound(
-                t1, rows + cs.num_clusters * 4 + tri1 * TRI_BYTES
-                + npad * 16))
+                t1, fixed + c * 4 + tri1 * TRI_BYTES + npad * 16,
+                slabs["closest"]))
             results["walk_any"].update(ms=k2, plain_ms=p2, **bound(
-                t2, rows + tri2 * TRI_BYTES + npad * 4))
+                t2, fixed + tri2 * TRI_BYTES + npad * 4, slabs["any"]))
     return results
 
 
@@ -398,10 +491,15 @@ def _frames(stats) -> str:
 
 def phase_main_path(out_dir: str, device: str = "cuda", dim: int = 1024,
                     spp: int = 4) -> tuple:
-    """PT on the interior through K1/K2; returns (launches, stats)."""
+    """PT on the interior through K1/K2, with no call of the plain route's
+    `row_entries` pass; returns (launches, stats)."""
+    from spcbpt_tpu_torch.ops import ray_walk
+
+    ray_walk.PLAIN_CALLS["row_entries"] = 0
     stats, launches = run_cli(out_dir, "interior", [
         "--scene", "interior", "--alg", "pt", "--dim", f"{dim}x{dim}",
         "--device", device], spp)
+    assert ray_walk.PLAIN_CALLS["row_entries"] == 0, ray_walk.PLAIN_CALLS
     ms_spp = stats["render_seconds"] * 1e3 / spp
     log("main", f"interior {dim}x{dim} pt {spp} spp: {ms_spp:.1f} ms/spp, "
                 f"{stats['samples_per_second'] / 1e6:.3f} Mpaths/s, mean "
@@ -971,41 +1069,101 @@ def phase_tile_main(tts, cam, walk_stats) -> dict:
     return launches
 
 
-def phase_tile_cove(dev, state_path: str, walk_stats) -> None:
+def _capped_mean(img) -> float:
+    """Mean over the pixels of (..., 3) radiance, each capped at COVE_CAP."""
+    return torch.clamp(img.mean(dim=-1), max=COVE_CAP).mean().item()
+
+
+def phase_tile_cove(out_dir: str, dev, state_path: str, walk_stats) -> None:
     """Cove SPCBPT 256x256, 1 spp, in tile mode from the saved state, as
     render_cli renders frame 0 (100,000 light paths, depth 16, 3
-    connections)."""
+    connections), against the walk mode's render of phase 7. Before it, in
+    walk mode, the same frame once more (the spread between two renders of
+    the same seeds) and with planted any-hit faults, which the bounds must
+    refuse."""
     from spcbpt_tpu_torch import checkpoint
     from spcbpt_tpu_torch.apps.render_cli import resolve_scene
     from spcbpt_tpu_torch.render import light_trace, lvc, spcbpt_pool
+    from spcbpt_tpu_torch.scene import scene
     from spcbpt_tpu_torch.scene.scene import load_trace_scene
 
-    ts, _, cam = load_trace_scene(resolve_scene("interior_cove"), dev,
-                                  mode="tile")
-    cam.aspect = 1.0
     ss = checkpoint.load_subspace_state(state_path, dev)
-    torch.cuda.synchronize()
-    reset_launches()
-    t0 = time.perf_counter()
-    lv = light_trace.trace_light_paths(ts, ss, 100_000, 7919, max_depth=16)
-    sampler = lvc.make_builder(ss)(lv, 0)
-    fsum, count = spcbpt_pool.render_pool(ts, ss, sampler, cam.uvw(), 256,
-                                          256, 1, 0, max_depth=16,
-                                          connection_n=3)
-    img = fsum / torch.clamp(count[:, None], min=1)
-    torch.cuda.synchronize()
-    launches = read_launches()
-    assert (count == 1).all() and torch.isfinite(img).all()
-    mean = img.mean().item()
+
+    def load(mode):
+        ts, _, cam = load_trace_scene(resolve_scene("interior_cove"), dev,
+                                      mode=mode)
+        cam.aspect = 1.0
+        return ts, cam
+
+    def frame(ts, cam):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        lv = light_trace.trace_light_paths(ts, ss, 100_000, 7919,
+                                           max_depth=16)
+        sampler = lvc.make_builder(ss)(lv, 0)
+        fsum, count = spcbpt_pool.render_pool(ts, ss, sampler, cam.uvw(),
+                                              256, 256, 1, 0, max_depth=16,
+                                              connection_n=3)
+        img = fsum / torch.clamp(count[:, None], min=1)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        assert (count == 1).all() and torch.isfinite(img).all()
+        return img, ms, read_launches()
+
+    def faulty_frame(ts, cam, stride):
+        """The frame with every `stride`-th lane of every any-hit trace
+        reported unoccluded, whatever the kernel found."""
+        sound = scene.trace_any
+
+        def faulty(*args):
+            occ = sound(*args).clone()
+            occ[::stride] = False
+            return occ
+        scene.trace_any = faulty
+        try:
+            return frame(ts, cam)[0]
+        finally:
+            scene.trace_any = sound
+
     ref = walk_stats["mean_radiance"]
-    rel = abs(mean - ref) / ref
-    log("tile-cove", f"spcbpt 256x256 1 spp in tile mode: "
-                     f"{(time.perf_counter() - t0) * 1e3:.1f} ms, mean "
-                     f"{mean:.6f} vs walk mode {ref:.6f} ({rel * 100:.4f}%, "
-                     f"bound {TILE_MEAN_SPCBPT * 100:.0f}%); launches "
-                     f"{launches}")
+    ref_cap = _capped_mean(torch.from_numpy(
+        np.load(os.path.join(out_dir, "cove_spcbpt.npz"))["radiance"]))
+    rel = lambda x, r: abs(x - r) / r
+    walk = load("walk")
+    again = frame(*walk)[0]
+    log("tile-cove", f"walk mode, the same frame again, against phase 7's "
+                     f"render: mean off by "
+                     f"{rel(again.mean().item(), ref) * 100:.4f}%, mean of "
+                     f"pixels capped at {COVE_CAP:g} by "
+                     f"{rel(_capped_mean(again), ref_cap) * 100:.4f}%")
+    for stride in COVE_FAULT_STRIDES:
+        bad = faulty_frame(*walk, stride)
+        bad_mean, bad_cap = rel(bad.mean().item(), ref), \
+            rel(_capped_mean(bad), ref_cap)
+        log("tile-cove", f"walk mode with one any-hit lane in {stride} "
+                         f"reported unoccluded: mean off by "
+                         f"{bad_mean * 100:.4f}%, capped mean by "
+                         f"{bad_cap * 100:.4f}%")
+        assert bad_cap > TILE_MEAN_SPCBPT, \
+            f"the capped mean's bound passes a planted fault ({stride})"
+        assert stride > COVE_FAULT_STRIDES[0] or \
+            bad_mean > TILE_MEAN_SPCBPT_TAIL, \
+            f"the plain mean's bound passes a planted fault ({stride})"
+
+    img, ms, launches = frame(*load("tile"))
+    mean, cap = img.mean().item(), _capped_mean(img)
+    log("tile-cove", f"spcbpt 256x256 1 spp in tile mode: {ms:.1f} ms, mean "
+                     f"{mean:.6f} vs walk mode {ref:.6f} "
+                     f"({rel(mean, ref) * 100:.4f}%, bound "
+                     f"{TILE_MEAN_SPCBPT_TAIL * 100:.0f}%); pixels capped at "
+                     f"{COVE_CAP:g}: {cap:.6f} vs {ref_cap:.6f} "
+                     f"({rel(cap, ref_cap) * 100:.4f}%, bound "
+                     f"{TILE_MEAN_SPCBPT * 100:.0f}%); launches {launches}")
     assert launches["tile_round"] > 0 and launches["tile_walk_any"] > 0
-    assert rel <= TILE_MEAN_SPCBPT, (mean, ref)
+    assert launches["walk_closest"] == launches["walk_any"] == 0, launches
+    assert rel(cap, ref_cap) <= TILE_MEAN_SPCBPT, (cap, ref_cap)
+    assert rel(mean, ref) <= TILE_MEAN_SPCBPT_TAIL, (mean, ref)
 
 
 def phase_tile_cpu_vs_card(out_dir: str) -> None:
@@ -1088,7 +1246,7 @@ def main() -> int:
     tile_launches = phase_tile_main(tts, cam, walk_stats)
     launches.update({k: tile_launches[k] for k in
                      ("tile_round", "tile_walk_closest", "tile_walk_any")})
-    phase_tile_cove(dev, cove_state, cove_stats)
+    phase_tile_cove(out_dir, dev, cove_state, cove_stats)
     launches.update(list_launches)
     phase_cpu_vs_card(scene_path)
     phase_cpu_vs_card_spcbpt(state_path)

@@ -24,6 +24,7 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import subprocess
 import sys
 import time
 
@@ -43,6 +44,8 @@ _PT_STAGES = (
     (pt_pool, "_nee", "NEE without its shadow trace"),
     (pt_pool, "bounce", "RR + BSDF bounce"),
 )
+# row_entries and the plain versions run only on CPU tensors: on the card
+# K1/K2 compute their rows' entries themselves
 STAGES = (
     (ray_walk, "row_entries", "row_entries"),
     (ray_walk, "prepare", "sort key + argsort + pad"),
@@ -185,13 +188,19 @@ def main(argv=None) -> int:
     torch.cuda.reset_peak_memory_stats()
     launch_mod.reset_launches()
     tile_trace.reset_walk_stats()
+    ray_walk.PLAIN_CALLS["row_entries"] = 0
     t0 = time.perf_counter()
     render()
     torch.cuda.synchronize()
-    out = {"card": torch.cuda.get_device_name(0), "scene": SCENE,
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout
+    out = {"card": torch.cuda.get_device_name(0),
+           "nvidia_smi": smi.strip().splitlines()[0], "scene": SCENE,
            "num_tris": ts.num_tris, "mode": ts.mode, "dim": DIM, "spp": SPP,
            "wall_ms": (time.perf_counter() - t0) * 1e3,
            "launches": dict(launch_mod.LAUNCHES),
+           "row_entries_calls": ray_walk.PLAIN_CALLS["row_entries"],
            "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
     if tile:
         out["round_walk"] = dict(tile_trace.WALK_STATS)

@@ -1,10 +1,12 @@
 """ctypes bindings of csrc/ray_walk.cu: the CUDA row-walk kernels K1 (closest
-hit) and K2 (any hit).
+hit) and K2 (any hit), which compute their rows' cluster entries themselves,
+and `entries`, that phase alone written out as a table.
 
-`closest` and `any_hit` take the padded, row-ordered tensors that
-ops/ray_walk.py prepares, check them, allocate the outputs with
-torch.empty, launch on the current stream and raise on a launch error.
-LAUNCHES counts each kernel's launches and nothing else.
+`closest` and `any_hit` take the padded, row-ordered rays that
+ops/ray_walk.py prepares and the cluster set's boxes, triangle counts and
+slot table, check them, allocate the outputs with torch.empty, launch on the
+current stream and raise on a launch error. LAUNCHES counts each walk
+kernel's launches and nothing else (`entries` is a check, not a walk).
 """
 from __future__ import annotations
 
@@ -16,7 +18,8 @@ import torch
 from . import build
 
 ROW = 8
-BLOCK = 128
+BLOCK_RAYS = 64            # 8 rows, one warp each
+MAX_SHARED = 232_448       # dynamic shared memory a Hopper block can take
 LAUNCHES = {"walk_closest": 0, "walk_any": 0}
 
 _P = ctypes.c_void_p
@@ -33,10 +36,13 @@ def _lib() -> ctypes.CDLL:
     """The built library with its C signatures, set once at first use."""
     lib = build.load("ray_walk")
     # pointers and the stream as c_void_p: ctypes would cut them to 32 bits
-    lib.ray_walk_closest.argtypes = [_P] * 7 + [_I, _I, _I] + [_P] * 5
-    lib.ray_walk_closest.restype = _I
-    lib.ray_walk_any.argtypes = [_P] * 6 + [_I, _I] + [_P] * 2
-    lib.ray_walk_any.restype = _I
+    lib.ray_walk_closest.argtypes = [_P] * 9 + [_I, _I, _I] + [_P] * 5
+    lib.ray_walk_any.argtypes = [_P] * 8 + [_I, _I] + [_P] * 2
+    lib.ray_walk_entries.argtypes = [_P] * 6 + [_I, _I] + [_P] * 2
+    lib.ray_walk_shared_bytes.argtypes = [_I]
+    for fn in (lib.ray_walk_closest, lib.ray_walk_any, lib.ray_walk_entries,
+               lib.ray_walk_shared_bytes):
+        fn.restype = _I
     return lib
 
 
@@ -51,62 +57,102 @@ def _check(name, x, dtype, shape, device):
         raise ValueError(f"{name}: not contiguous")
 
 
-def _check_inputs(o, d, tmin, tmax, row_e, tri_slots):
+def _check_inputs(o, d, tmin, tmax, cmin, cmax):
+    """Rays and boxes, as every entry point takes them -> (n, c, device)."""
     dev = o.device
     if dev.type != "cuda":
         raise ValueError(f"ray_walk kernels take CUDA tensors, got {dev}")
     n = o.shape[0]
-    if n % BLOCK:
-        raise ValueError(f"ray count {n} is not a multiple of {BLOCK}")
-    c = tri_slots.shape[0]
+    if n % BLOCK_RAYS:
+        raise ValueError(f"ray count {n} is not a multiple of {BLOCK_RAYS}")
+    c = cmin.shape[0]
     f32 = torch.float32
     _check("origins", o, f32, (n, 3), dev)
     _check("dirs", d, f32, (n, 3), dev)
     _check("tmin", tmin, f32, (n,), dev)
     _check("tmax", tmax, f32, (n,), dev)
-    _check("row_e", row_e, f32, (n // ROW, c), dev)
-    _check("tri_slots", tri_slots, f32, (c, 128, 12), dev)
+    _check("cmin", cmin, f32, (c, 3), dev)
+    _check("cmax", cmax, f32, (c, 3), dev)
     return n, c, dev
+
+
+def _check_triangles(tri_count, tri_slots, c, dev):
+    _check("tri_count", tri_count, torch.int32, (c,), dev)
+    _check("tri_slots", tri_slots, torch.float32, (c, 128, 12), dev)
+
+
+def _check_shared(c) -> None:
+    """A block keeps the C boxes and a C-entry list per row in shared
+    memory: a cluster set too large for one block raises."""
+    need = _lib().ray_walk_shared_bytes(c)
+    if need > MAX_SHARED:
+        raise ValueError(f"a cluster set of C = {c} clusters needs {need} "
+                         f"bytes of shared memory a block, above the "
+                         f"{MAX_SHARED} a block can take")
 
 
 def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def closest(o, d, tmin, tmax, row_e, tri_begin, tri_slots, cull: bool):
+def closest(o, d, tmin, tmax, cmin, cmax, tri_begin, tri_count, tri_slots,
+            cull: bool):
     """K1 on (n,) rays -> (t, tri, u, v); misses keep t=1e30, tri=-1."""
-    n, c, dev = _check_inputs(o, d, tmin, tmax, row_e, tri_slots)
+    n, c, dev = _check_inputs(o, d, tmin, tmax, cmin, cmax)
     _check("tri_begin", tri_begin, torch.int32, (c,), dev)
+    _check_triangles(tri_count, tri_slots, c, dev)
     t = torch.empty((n,), dtype=torch.float32, device=dev)
     tri = torch.empty((n,), dtype=torch.int32, device=dev)
     u = torch.empty_like(t)
     v = torch.empty_like(t)
     if n == 0:
         return t, tri, u, v
+    _check_shared(c)
     with torch.cuda.device(dev):
         err = _lib().ray_walk_closest(
             o.data_ptr(), d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(),
-            row_e.data_ptr(), tri_begin.data_ptr(), tri_slots.data_ptr(),
-            n, c, int(bool(cull)), t.data_ptr(), tri.data_ptr(),
-            u.data_ptr(), v.data_ptr(), _stream(dev))
+            cmin.data_ptr(), cmax.data_ptr(), tri_begin.data_ptr(),
+            tri_count.data_ptr(), tri_slots.data_ptr(), n, c,
+            int(bool(cull)), t.data_ptr(), tri.data_ptr(), u.data_ptr(),
+            v.data_ptr(), _stream(dev))
     if err:
         raise RuntimeError(f"ray_walk_closest launch failed: CUDA error {err}")
     LAUNCHES["walk_closest"] += 1
     return t, tri, u, v
 
 
-def any_hit(o, d, tmin, tmax, row_e, tri_slots):
+def any_hit(o, d, tmin, tmax, cmin, cmax, tri_count, tri_slots):
     """K2 on (n,) rays -> int32 occlusion flags (1 = occluded)."""
-    n, c, dev = _check_inputs(o, d, tmin, tmax, row_e, tri_slots)
+    n, c, dev = _check_inputs(o, d, tmin, tmax, cmin, cmax)
+    _check_triangles(tri_count, tri_slots, c, dev)
     occ = torch.empty((n,), dtype=torch.int32, device=dev)
     if n == 0:
         return occ
+    _check_shared(c)
     with torch.cuda.device(dev):
         err = _lib().ray_walk_any(
             o.data_ptr(), d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(),
-            row_e.data_ptr(), tri_slots.data_ptr(), n, c, occ.data_ptr(),
-            _stream(dev))
+            cmin.data_ptr(), cmax.data_ptr(), tri_count.data_ptr(),
+            tri_slots.data_ptr(), n, c, occ.data_ptr(), _stream(dev))
     if err:
         raise RuntimeError(f"ray_walk_any launch failed: CUDA error {err}")
     LAUNCHES["walk_any"] += 1
     return occ
+
+
+def entries(o, d, tmin, tmax, cmin, cmax):
+    """The kernels' entry phase alone -> the (n/8, c) table that
+    ops/ray_walk.row_entries builds in torch. On no render path."""
+    n, c, dev = _check_inputs(o, d, tmin, tmax, cmin, cmax)
+    out = torch.empty((n // ROW, c), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    _check_shared(c)
+    with torch.cuda.device(dev):
+        err = _lib().ray_walk_entries(
+            o.data_ptr(), d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(),
+            cmin.data_ptr(), cmax.data_ptr(), n, c, out.data_ptr(),
+            _stream(dev))
+    if err:
+        raise RuntimeError(f"ray_walk_entries launch failed: CUDA error {err}")
+    return out

@@ -52,7 +52,8 @@ def log_visits(lanes: int, cid) -> None:
 
 def cluster_sizes(cs, num_tris: int) -> torch.Tensor:
     """(C,) int64 triangles per cluster of either set (clusters are
-    contiguous ranges of the reordered triangle array)."""
+    contiguous ranges of the reordered triangle array). The row walk's set
+    keeps them as `tri_count`, made once with the set."""
     begin = cs.tri_begin.long()
     end = torch.cat([begin[1:], begin.new_tensor([num_tris])])
     return end - begin
@@ -63,6 +64,8 @@ class ClusterSet:
     cmin: torch.Tensor       # (C, 3) cluster AABB min
     cmax: torch.Tensor       # (C, 3)
     tri_begin: torch.Tensor  # (C,) int32 first (reordered) triangle id
+    tri_count: torch.Tensor  # (C,) int32 triangles of the cluster: the
+                             # slots the row-walk kernels test
     tri_slots: torch.Tensor  # (C, 128, 12) triangles slot-major,
                              # [p0, 0, e1, 0, e2, 0], zero-padded: three
                              # 16-byte loads per slot; read by the kernels
@@ -87,11 +90,14 @@ class ClusterSet:
         return self._blocks
 
     @classmethod
-    def from_arrays(cls, cmin, cmax, tri_block, tri_begin,
+    def from_arrays(cls, cmin, cmax, tri_block, tri_begin, num_tris: int,
                     device) -> "ClusterSet":
-        """Device cluster set from the host arrays of either package."""
+        """Device cluster set from the host arrays of either package and
+        the scene's triangle count."""
         tri_block = np.asarray(tri_block, np.float32)
         c = tri_block.shape[0]
+        begin = np.asarray(tri_begin, np.int64)
+        count = np.append(begin[1:], num_tris) - begin
         slots = np.zeros((c, SLOTS, 3, 4), np.float32)
         slots[..., :3] = tri_block[:, :9, :].transpose(0, 2, 1).reshape(
             c, SLOTS, 3, 3)
@@ -99,6 +105,7 @@ class ClusterSet:
             np.asarray(a), dtype=dt, device=device)
         return cls(cmin=t(cmin), cmax=t(cmax),
                    tri_begin=t(tri_begin, torch.int32),
+                   tri_count=t(count, torch.int32),
                    tri_slots=t(slots.reshape(c, SLOTS, 12)),
                    tri_block=tri_block)
 
@@ -228,7 +235,8 @@ def build_clusters(flat: FlatBVH, p0: np.ndarray, e1: np.ndarray,
     triangle arrays (p0/e1/e2 already permuted by flat.order)."""
     cmin, cmax, tri_block, begin, _ = _pack(flat, p0, e1, e2, max_tris,
                                             with_coeff=False)
-    return ClusterSet.from_arrays(cmin, cmax, tri_block, begin, device)
+    return ClusterSet.from_arrays(cmin, cmax, tri_block, begin, len(p0),
+                                  device)
 
 
 def build_tile_clusters(flat: FlatBVH, p0: np.ndarray, e1: np.ndarray,

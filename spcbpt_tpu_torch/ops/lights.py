@@ -4,7 +4,8 @@ Port of the quad part of spcbpt_tpu/ops/lights.py (reference lightSample,
 src/OptiXPathTracer/cuProg.h:554-666): quad sampling is uniform over the
 parallelogram with pdf 1/(area*num_lights); the sample's subspace id comes
 from a divLevel x divLevel uv grid mapped to the reserved light-source block.
-Environment lights and `trace_mode` (light sub-paths) are not ported yet.
+`trace_mode` starts the light sub-paths on the quads; environment lights are
+not ported yet.
 """
 from __future__ import annotations
 

@@ -4,17 +4,19 @@ granularity.
 Port of spcbpt_tpu/ops/ray_walk.py. The wrappers `walk_closest` /
 `walk_any` keep the JAX contract: optional coherence sort (stable argsort of
 ray_sort_key_live, results scattered back), padding with dead lanes
-(tmax < tmin), the row-union entry table `row_entries` in plain torch, and
-the miss convention t=1e30, tri=-1, u=v=0.
+(tmax < tmin), and the miss convention t=1e30, tri=-1, u=v=0.
 
 The walk itself runs where its tensors live:
   * CUDA tensors launch the hand-written kernels of csrc/ray_walk.cu
-    (K1 closest / K2 any, kernels/ray_walk.py), or raise;
-  * CPU tensors run the plain version below, a lock-step torch
-    transcription of the Pallas kernels (`_next_cluster`, `_mt_rows3` and
-    the loop bodies of ray_walk.py:98-227) that reproduces their triangle
-    ids and tie-breaks. The card checks the kernels against it
-    (`walk_closest_plain` / `walk_any_plain` run it on any device).
+    (K1 closest / K2 any, kernels/ray_walk.py), or raise. The kernels take
+    the cluster boxes and compute each row's entries themselves: on this
+    route no (N, C) tensor is made and `row_entries` is not called;
+  * CPU tensors run the plain version below: the row-union entry table
+    `row_entries` in plain torch, then a lock-step torch transcription of
+    the Pallas kernels (`_next_cluster`, `_mt_rows3` and the loop bodies of
+    ray_walk.py:98-227) that reproduces their triangle ids and tie-breaks.
+    The card checks the kernels against it (`walk_closest_plain` /
+    `walk_any_plain` run it on any device).
 """
 from __future__ import annotations
 
@@ -28,14 +30,18 @@ from .tile_trace import _as_lanes, _hit, _pad_rays, sort_rays_live, unsort
 _BIG = 1e30
 _EPS_DET = 1e-10
 ROW = 8           # rays per row
-LANES = 128       # padding unit: 16 rows, one CUDA block
+LANES = 128       # padding unit: 16 rows, two CUDA blocks of K1/K2
+# calls of the plain route's passes; the kernels' route must make none
+PLAIN_CALLS = {"row_entries": 0}
 
 
 def row_entries(cmin, cmax, origins, dirs, tmin, tmax):
     """EXACT per-ray slab entries vs all C cluster AABBs, reduced to 8-ray
     row unions. origins (N, 3) with N a multiple of ROW. Returns (N/ROW, C):
     min over the row's rays of the exact entry distance, 1e30 where no ray
-    overlaps the cluster. Builds an (N, C) intermediate."""
+    overlaps the cluster. Builds an (N, C) intermediate. The plain route's
+    pass: the kernels compute the same values per row, in shared memory."""
+    PLAIN_CALLS["row_entries"] += 1
     ax_lo = None
     ax_hi = None
     for a in range(3):
@@ -161,29 +167,33 @@ def _walk_rows_plain(cs: ClusterSet, o, d, tmn, tmx, row_e, cull, any_hit):
             best_v.reshape(-1))
 
 
-def closest_rows_plain(cs, o, d, tmn, tmx, row_e, cull):
-    """Plain version of K1 on prepared rays -> (t, tri, u, v)."""
+def closest_rows_plain(cs, o, d, tmn, tmx, cull):
+    """Plain version of K1 on prepared rays (the entry table, then the
+    walk) -> (t, tri, u, v)."""
+    row_e = row_entries(cs.cmin, cs.cmax, o, d, tmn, tmx)
     return _walk_rows_plain(cs, o, d, tmn, tmx, row_e, cull, any_hit=False)
 
 
-def any_rows_plain(cs, o, d, tmn, tmx, row_e):
+def any_rows_plain(cs, o, d, tmn, tmx):
     """Plain version of K2 on prepared rays -> int32 occlusion flags."""
+    row_e = row_entries(cs.cmin, cs.cmax, o, d, tmn, tmx)
     return _walk_rows_plain(cs, o, d, tmn, tmx, row_e, False, any_hit=True)
 
 
-def _closest_rows(cs, o, d, tmn, tmx, row_e, cull):
+def _closest_rows(cs, o, d, tmn, tmx, cull):
     """K1 for CUDA tensors, its plain version for CPU tensors."""
     if o.device.type == "cpu":
-        return closest_rows_plain(cs, o, d, tmn, tmx, row_e, cull)
-    return kernels.closest(o, d, tmn, tmx, row_e, cs.tri_begin,
-                           cs.tri_slots, cull)
+        return closest_rows_plain(cs, o, d, tmn, tmx, cull)
+    return kernels.closest(o, d, tmn, tmx, cs.cmin, cs.cmax, cs.tri_begin,
+                           cs.tri_count, cs.tri_slots, cull)
 
 
-def _any_rows(cs, o, d, tmn, tmx, row_e):
+def _any_rows(cs, o, d, tmn, tmx):
     """K2 for CUDA tensors, its plain version for CPU tensors."""
     if o.device.type == "cpu":
-        return any_rows_plain(cs, o, d, tmn, tmx, row_e)
-    return kernels.any_hit(o, d, tmn, tmx, row_e, cs.tri_slots)
+        return any_rows_plain(cs, o, d, tmn, tmx)
+    return kernels.any_hit(o, d, tmn, tmx, cs.cmin, cs.cmax, cs.tri_count,
+                           cs.tri_slots)
 
 
 # ---------------------------------------------------------------------------
@@ -191,10 +201,10 @@ def _any_rows(cs, o, d, tmn, tmx, row_e):
 # ---------------------------------------------------------------------------
 
 def prepare(cs, origins, dirs, tmin, tmax, sort_rays):
-    """Sort (optional), pad and build the row table: the inputs of the row
-    walk as the wrappers give them to it. Returns the padded contiguous
-    (origins, dirs, tmin, tmax), row_e, the original count and the sort
-    permutation (None without sort)."""
+    """Sort (optional) and pad: the rays of the row walk as the wrappers
+    give them to either route. Returns the padded contiguous (origins, dirs,
+    tmin, tmax), the original count and the sort permutation (None without
+    sort)."""
     n = origins.shape[0]
     tmin = _as_lanes(tmin, n, origins.device)
     tmax = _as_lanes(tmax, n, origins.device)
@@ -204,23 +214,22 @@ def prepare(cs, origins, dirs, tmin, tmax, sort_rays):
                                                          tmin, tmax)
     origins, dirs, tmin, tmax, n_orig = _pad_rays(origins, dirs, tmin, tmax,
                                                   LANES)
-    row_e = row_entries(cs.cmin, cs.cmax, origins, dirs, tmin, tmax)
-    return origins, dirs, tmin, tmax, row_e.contiguous(), n_orig, perm
+    return origins, dirs, tmin, tmax, n_orig, perm
 
 
 def _closest(cs, origins, dirs, tmin, tmax, cull_backface, sort_rays, rows_fn):
-    o, d, tmn, tmx, row_e, n, perm = prepare(cs, origins, dirs, tmin, tmax,
-                                              sort_rays)
-    out = [a[:n] for a in rows_fn(cs, o, d, tmn, tmx, row_e, cull_backface)]
+    o, d, tmn, tmx, n, perm = prepare(cs, origins, dirs, tmin, tmax,
+                                       sort_rays)
+    out = [a[:n] for a in rows_fn(cs, o, d, tmn, tmx, cull_backface)]
     if perm is not None:
         out = [unsort(a, perm) for a in out]
     return _hit(*out)
 
 
 def _any(cs, origins, dirs, tmin, tmax, sort_rays, rows_fn):
-    o, d, tmn, tmx, row_e, n, perm = prepare(cs, origins, dirs, tmin, tmax,
-                                              sort_rays)
-    occ = rows_fn(cs, o, d, tmn, tmx, row_e)[:n] > 0
+    o, d, tmn, tmx, n, perm = prepare(cs, origins, dirs, tmin, tmax,
+                                       sort_rays)
+    occ = rows_fn(cs, o, d, tmn, tmx)[:n] > 0
     return unsort(occ, perm) if perm is not None else occ
 
 

@@ -505,7 +505,8 @@ def from_jax_scene(jts, device) -> TraceScene:
             raise NotImplementedError("partitioned cluster sets are not "
                                       "ported: the port walks one set")
         cset_walk = clusters_mod.ClusterSet.from_arrays(
-            a(cw.cmin), a(cw.cmax), a(cw.tri_block), a(cw.tri_begin), device)
+            a(cw.cmin), a(cw.cmax), a(cw.tri_block), a(cw.tri_begin),
+            jts.tri_p0.shape[0], device)
 
     def dev(x, dt=torch.float32):
         return torch.tensor(a(x), dtype=dt, device=device)

@@ -7,12 +7,13 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from spcbpt_tpu.scene import interior
+from spcbpt_tpu.scene import cornell, interior
 from spcbpt_tpu.scene import scene as jscene
 from spcbpt_tpu.scene.cornell import default_scene_path
 from spcbpt_tpu.scene.parser import load_scene
 from spcbpt_tpu_torch.render.common import camera_rays
 from spcbpt_tpu_torch.scene import scene as tscene
+from spcbpt_tpu_torch.utils.image import write_png
 
 # the tensors here are small: one thread per xdist worker avoids
 # oversubscribing the cores
@@ -144,3 +145,51 @@ def test_primary_hit_shading_matches_jax(scenes, name):
     np.testing.assert_array_equal(vis.numpy()[mask.numpy()],
                                   np.asarray(jvis)[mask.numpy()])
     assert 0 < np.asarray(jvis).mean() < 1
+
+
+def test_png_textures_match_jax(tmp_path):
+    """A generated Cornell scene whose White and Red materials reference
+    `albedoTex` PNGs of different sizes, written with the port's zlib PNG
+    writer: the decoded, linearised and padded texture stack, its per-texture
+    sizes and the materials' texture ids equal the JAX package's, and so do
+    the texture-modulated base colours at primary hits."""
+    path = cornell.generate(str(tmp_path), False)
+    rng = np.random.default_rng(3)
+    for name, (h, w) in (("white", (6, 4)), ("red", (3, 5))):
+        write_png(str(tmp_path / "cornell" / f"{name}.png"),
+                  rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+    with open(path) as f:
+        text = f.read()
+    for mat, name in (("White", "white"), ("Red", "red")):
+        block = f"material {mat}\n{{\n"
+        assert block in text
+        text = text.replace(
+            block, f"{block}    albedoTex cornell/{name}.png\n")
+    with open(path, "w") as f:
+        f.write(text)
+
+    jts = jscene.build_scene(load_scene(path), mode="brute")
+    ts = tscene.build_scene(load_scene(path), "cpu")
+    assert ts.textures.shape == (2, 6, 5, 3)
+    np.testing.assert_array_equal(ts.tex_h.numpy(), [6, 3])
+    np.testing.assert_array_equal(ts.tex_w.numpy(), [4, 5])
+    assert sorted(ts.mats.tex_id.numpy().tolist())[-2:] == [0, 1]
+    assert (ts.textures.numpy()[1, 3:] == 0).all()      # padding of the stack
+    _assert_scene_equal(ts, jts)
+    _assert_scene_equal(tscene.from_jax_scene(jts, "cpu"), jts)
+
+    _, _, cam = jscene.load_trace_scene(path, mode="brute")
+    cam.aspect = 1.0
+    o, d, _ = camera_rays(*cam.uvw(), 16, 16, 1)
+    jo, jd = jnp.asarray(o.numpy()), jnp.asarray(d.numpy())
+    jhit = jscene.trace_closest(jts, jo, jd, 1e-3, 1e16, False)
+    hit = tscene.trace_closest(ts, o, d, 1e-3, 1e16, False)
+    jg = jscene.local_geometry(jts, jhit, jo, jd)
+    g = tscene.local_geometry(ts, hit, o, d)
+    np.testing.assert_allclose(g["base_color"].numpy(),
+                               np.asarray(jg["base_color"]), rtol=1e-5,
+                               atol=1e-5)
+    # the textures modulate what the untextured scene shows
+    plain = tscene.build_scene(load_scene(default_scene_path()), "cpu")
+    g0 = tscene.local_geometry(plain, hit, o, d)
+    assert not np.allclose(g["base_color"].numpy(), g0["base_color"].numpy())
