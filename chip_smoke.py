@@ -34,11 +34,12 @@ Phases, one status line each; any failure raises and exits non-zero:
   8. CPU vs card: the same 64x64 render on both, PT (2 spp, interior) and
      SPCBPT (1 spp, Cornell, 10,000 light paths, the saved state);
   9. tile kernels vs plain: the interior in `tile` mode (1,370 clusters of
-     at most 32 triangles): the round kernel K4 (through the round walk of
-     tile_closest) and the fused walk K5 (closest and any hit) against their
-     plain versions on the camera, bounce and connection wavefronts, both
-     cull settings; against brute force on a subset and against the walk
-     mode; times per call, the round walk's rounds and host syncs;
+     at most 32 triangles): K4's round walk (tile_closest on the card: one
+     launch per trace, no host sync, each tile's rounds summing to the
+     plain host loop's visits), K4's single round, and the fused walk K5
+     (closest and any hit) against their plain versions on the camera,
+     bounce and connection wavefronts, both cull settings; against brute
+     force on a subset and against the walk mode; times per call;
  10. list-walk kernels vs plain: the four forms of K6 (closest and any
      hit, resident and streamed) on both cluster sets of one BVH (the tile
      mode's K=32, the walk mode's K=128) for the camera, bounce and
@@ -52,8 +53,9 @@ Phases, one status line each; any failure raises and exits non-zero:
  12. tile main path, PT on the interior in `tile` mode at 1024x1024, depth
      30, 2^17 pool lanes, 4 spp, through `load_trace_scene` with mode
      "tile" and `pt_pool.render_pool` (the library boundary: the CLI has no
-     mode flag): K4 closest hits, K5 any hits, the mean within
-     TILE_MEAN_PT of phase 5's walk-mode mean on the same seeds;
+     mode flag): K4 closest hits (one walk launch and no round-loop host
+     sync per trace), K5 any hits, the mean within TILE_MEAN_PT of phase
+     5's walk-mode mean on the same seeds;
  13. cove SPCBPT 256x256, 1 spp in `tile` mode from the saved state: the
      connection wavefront through K5's any hit; the mean of the image with
      its pixels capped at COVE_CAP within TILE_MEAN_SPCBPT of phase 7's, the
@@ -729,8 +731,9 @@ def phase_cpu_vs_card_spcbpt(state_path: str) -> None:
 
 
 def phase_tile_kernels(tts, wts, waves, dev) -> dict:
-    """K4 (through the round walk) and K5 against their plain versions on the
-    tile-mode interior; against brute force and the walk mode."""
+    """K4 (the round walk, and one round alone) and K5 against their plain
+    versions on the tile-mode interior; against brute force and the walk
+    mode."""
     from spcbpt_tpu_torch.kernels import tile_walk as kernels
     from spcbpt_tpu_torch.ops import clusters, intersect, pallas_tile
     from spcbpt_tpu_torch.ops import ray_walk, tile_trace
@@ -740,50 +743,69 @@ def phase_tile_kernels(tts, wts, waves, dev) -> dict:
     sizes = clusters.cluster_sizes(cs, tts.num_tris)
     tris = (tts.tri_p0, tts.tri_e1, tts.tri_e2)
     sub = slice(0, BRUTE_SUBSET)
+    plain_round = pallas_tile.mt_round_blocks_plain
     results = {}
     for name, o, d, tmax in waves:
         n = o.shape[0]
         tmin = torch.full((n,), 1e-3, device=dev)
         for cull in (True, False):
+            # the round walk on the card: one K4 launch, no host sync, its
+            # per-tile rounds against the plain walk's visits
             tile_trace.reset_walk_stats()
-            k4 = tile_trace.tile_closest(cs, o, d, tmin, tmax, cull,
-                                         tile=TILE_LANES, use_kernel=True,
-                                         sort_rays=True)
-            torch.cuda.synchronize()
+            kernels.reset_launches()
+            tile_trace.ROUND_LOG = rounds = []
+            try:
+                k4 = tile_trace.tile_closest(cs, o, d, tmin, tmax, cull,
+                                             tile=TILE_LANES, use_kernel=True,
+                                             sort_rays=True)
+            finally:
+                tile_trace.ROUND_LOG = None
             stats = dict(tile_trace.WALK_STATS)
-            p4 = tile_trace.tile_closest_plain(cs, o, d, tmin, tmax, cull,
-                                               tile=TILE_LANES,
-                                               sort_rays=True)
+            k4_launches = dict(kernels.LAUNCHES)
+            p4 = []
+            _, _, plain_visits = visits(
+                lambda: p4.append(tile_trace.tile_closest_plain(
+                    cs, o, d, tmin, tmax, cull, tile=TILE_LANES,
+                    sort_rays=True)), sizes)
+            p4 = p4[0]
             k5 = pallas_tile.pallas_closest(cs, o, d, tmin, tmax, cull,
                                             sort_rays=True)
             p5 = pallas_tile.pallas_closest_plain(cs, o, d, tmin, tmax, cull,
                                                   sort_rays=True)
             torch.cuda.synchronize()
-            for tag, got, ref in (("K4", k4, p4), ("K5 closest", k5, p5)):
+            for tag, got, ref in (("K4 walk", k4, p4), ("K5 closest", k5, p5)):
                 for f in ("tri", "t", "u", "v"):
                     assert torch.equal(getattr(got, f), getattr(ref, f)), \
                         f"{tag} {name} cull={cull}: {f} differs from plain"
                 assert (got.tri[tmax < tmin] == -1).all(), "dead lane hit"
+            assert k4_launches["tile_round_walk"] == stats["walks"] == 1, \
+                (k4_launches, stats)
+            assert k4_launches["tile_round"] == 0 and stats["syncs"] == 0, \
+                (k4_launches, stats)
+            tile_rounds = rounds[0]
+            assert int(tile_rounds.sum()) == plain_visits, \
+                (int(tile_rounds.sum()), plain_visits)
             walk = ray_walk.walk_closest(wts.clusters_walk, o, d, tmin, tmax,
                                          cull, sort_rays=True)
             bf = intersect.brute_force_closest(o[sub], d[sub], *tris,
                                                tmin[sub], tmax[sub], cull)
             agree = lambda a, b: (a == b).float().mean().item()
             vs_bf = (agree(k4.tri[sub], bf.tri), agree(k5.tri[sub], bf.tri))
-            log("tile", f"{name} cull={cull}: K4 and K5 closest equal their "
-                        f"plain versions; hits "
+            log("tile", f"{name} cull={cull}: the K4 walk and K5 closest "
+                        f"equal their plain versions; hits "
                         f"{(k4.tri >= 0).float().mean().item():.4f}; tri "
                         f"agreement K4-K5 {agree(k4.tri, k5.tri):.6f}, "
                         f"K4-walk {agree(k4.tri, walk.tri):.6f}, brute on "
                         f"{BRUTE_SUBSET} rays {vs_bf[0]:.6f} / {vs_bf[1]:.6f}"
-                        f"; round walk {stats['buckets']} buckets, "
-                        f"{stats['rounds']} rounds (K4 launches), "
-                        f"{stats['syncs']} host syncs")
+                        f"; K4 walk: {k4_launches['tile_round_walk']} launch,"
+                        f" {stats['syncs']} host syncs, rounds per tile max "
+                        f"{int(tile_rounds.max())}, sum "
+                        f"{int(tile_rounds.sum())} = the plain walk's visits")
             assert min(vs_bf) >= TRI_AGREE, (name, cull, vs_bf)
             assert agree(k4.tri, walk.tri) >= TRI_AGREE
             if name.startswith("bounce") and not cull:
-                err = (k4.t - p4.t).abs().max().item()
-                results["tile_round"] = dict(max_abs_err=err)
+                results["tile_round_walk"] = dict(
+                    max_abs_err=(k4.t - p4.t).abs().max().item())
                 results["tile_walk_closest"] = dict(
                     max_abs_err=(k5.t - p5.t).abs().max().item())
         tseg = any_segments(name, tmax, n, dev)
@@ -806,24 +828,43 @@ def phase_tile_kernels(tts, wts, waves, dev) -> dict:
             results["tile_walk_any"] = dict(
                 max_abs_err=(occ_k.int() - occ_p.int()).abs().max().item())
 
-        # times: one K4 round at round 0 of the whole wavefront in 256-ray
-        # tiles, each fused walk alone on its prepared rays, and the walks
-        po, pd, ptn, ptx, _ = tile_trace._pad_rays(o, d, tmin, tmax,
-                                                   TILE_LANES)
+        # K4's inputs as tile_closest prepares them (sorted, padded, tiles
+        # busiest first), and its first round alone against its plain
+        # version, both cull settings
+        po, pd, ptn, ptx, _ = tile_trace._pad_rays(
+            *tile_trace.sort_rays_live(cs, o, d, tmin, tmax)[1:], TILE_LANES)
         entries_s, ids_s, o_t, d_t, tmin_t, tmax_t, _, _ = \
             tile_trace._prepare(cs, po, pd, ptn, ptx, TILE_LANES)
-        run0 = entries_s[0] < 1e30
-        r_args = (o_t, d_t, tmin_t, tmax_t, ids_s[0], run0)
+        run0 = entries_s[:, 0] < 1e30
+        cid0 = ids_s[:, 0].contiguous()
+        r_args = (o_t, d_t, tmin_t, tmax_t, cid0, run0)
+        for cull in (True, False):
+            got = kernels.tile_round(*r_args, cs.tri_block, cs.tri_k, cull)
+            ref = plain_round(o_t, d_t, cs.tri_block, cid0, run0, tmin_t,
+                              tmax_t, cs.tri_k, cull)
+            torch.cuda.synchronize()
+            for f, a, b in zip(("t", "u", "v", "dn", "slot"), got, ref):
+                assert torch.equal(a, b), \
+                    f"K4 round {name} cull={cull}: {f} differs from plain"
+            if name.startswith("bounce") and not cull:
+                results["tile_round"] = dict(
+                    max_abs_err=(got[0] - ref[0]).abs().max().item())
+        w_args = (o_t, d_t, tmin_t, tmax_t, entries_s, ids_s, cs.tri_block,
+                  cs.tri_begin, cs.tri_count, cs.tri_k, False)
+        k4w = cuda_ms(lambda: kernels.round_walk(*w_args), 10)
         k4_ms = cuda_ms(lambda: kernels.tile_round(
             *r_args, cs.tri_block, cs.tri_k, False), 50)
-        p4_ms = cuda_ms(lambda: pallas_tile.mt_round_blocks_plain(
-            o_t, d_t, cs.tri_block, ids_s[0], run0, tmin_t, tmax_t, cs.tri_k,
+        p4_ms = cuda_ms(lambda: plain_round(
+            o_t, d_t, cs.tri_block, cid0, run0, tmin_t, tmax_t, cs.tri_k,
             False), 10)
+        plain_walk = lambda: tile_trace._in_buckets(
+            lambda *a: tile_trace._round_walk(*a, False, plain_round))(
+            cs, entries_s, ids_s, o_t, d_t, tmin_t, tmax_t)
         walk4 = cuda_ms(lambda: tile_trace.tile_closest(
             cs, o, d, tmin, tmax, False, tile=TILE_LANES, use_kernel=True,
-            sort_rays=True), 3)
-        walk4_p = cuda_ms(lambda: tile_trace.tile_closest_plain(
-            cs, o, d, tmin, tmax, False, tile=TILE_LANES, sort_rays=True), 1)
+            sort_rays=True), 5)
+        walk4_p = cuda_ms(plain_walk, 1) if name.startswith("bounce") \
+            else float("nan")
         qo, qd, qtn, qtx, _, _ = pallas_tile.prepare(cs, o, d, tmin, tmax,
                                                      True)
         qseg = pallas_tile.prepare(cs, o, d, tmin, tseg, True)[3]
@@ -831,37 +872,51 @@ def phase_tile_kernels(tts, wts, waves, dev) -> dict:
             qo, qd, qtn, qtx, cs.cmin, cs.cmax, cs.tri_begin, cs.tri_block,
             cs.tri_k, False), 20)
         k5a = cuda_ms(lambda: kernels.walk_any(
-            qo, qd, qtn, qseg, cs.cmin, cs.cmax, cs.tri_block, cs.tri_k), 20)
+            qo, qd, qtn, qseg, cs.cmin, cs.cmax, cs.tri_block, cs.tri_count,
+            cs.tri_k), 20)
         p5c = cuda_ms(lambda: pallas_tile.closest_tiles_plain(
             cs, qo, qd, qtn, qtx, False), 1)
         p5a = cuda_ms(lambda: pallas_tile.any_tiles_plain(
             cs, qo, qd, qtn, qseg), 1)
-        log("tile", f"{name} ({n} rays): K4 round 0 ({o_t.shape[0]} tiles) "
-                    f"{k4_ms:.4f} ms, plain {p4_ms:.4f} ms; tile_closest "
-                    f"with K4 {walk4:.2f} ms, with the plain round "
-                    f"{walk4_p:.2f} ms; K5 closest {k5c:.3f} ms, plain "
-                    f"{p5c:.2f} ms; K5 any {k5a:.3f} ms, plain {p5a:.2f} ms")
-        # bytes: rays (K4: per-tile run flag and cluster id; K5: the cluster
-        # boxes, and tri_begin for the closest hit), the visited clusters'
-        # triangles, hits (K4: t, u, v, dn, slot) or flags
-        nq, c = qo.shape[0], cs.num_clusters
+        log("tile", f"{name} ({n} rays, {o_t.shape[0]} tiles of "
+                    f"{TILE_LANES}): K4 walk {k4w:.3f} ms, plain (host loop,"
+                    f" bounce only) {walk4_p:.1f} ms; tile_closest with K4 "
+                    f"(sort + "
+                    f"prepare + walk + unsort) {walk4:.3f} ms; K4 round 0 "
+                    f"alone {k4_ms:.4f} ms, plain {p4_ms:.4f} ms; K5 closest"
+                    f" {k5c:.3f} ms, plain {p5c:.2f} ms; K5 any {k5a:.3f} "
+                    f"ms, plain {p5a:.2f} ms")
+        # bytes: rays (K4: the visit order it reads, one entry and id per
+        # round and the stopping one per tile, a round count per tile,
+        # tri_begin and tri_count; K5: the cluster boxes, and tri_begin for
+        # the closest hit or tri_count for the any hit), the visited
+        # clusters' triangles, hits or flags
+        nq, c, nt4 = qo.shape[0], cs.num_clusters, o_t.shape[0]
+        lanes = nt4 * o_t.shape[1]
         if name.startswith("bounce"):
-            lanes = o_t.shape[0] * o_t.shape[1]
-            t4, tri4, _ = visits(lambda: pallas_tile.mt_round_blocks_plain(
-                o_t, d_t, cs.tri_block, ids_s[0], run0, tmin_t, tmax_t,
-                cs.tri_k, False), sizes)
+            t4, tri4, v4 = visits(plain_walk, sizes)
+            r4, trir, _ = visits(lambda: plain_round(
+                o_t, d_t, cs.tri_block, cid0, run0, tmin_t, tmax_t, cs.tri_k,
+                False), sizes)
             t5, tri5, _ = visits(lambda: pallas_tile.closest_tiles_plain(
                 cs, qo, qd, qtn, qtx, False), sizes)
+            results["tile_round_walk"].update(ms=k4w, plain_ms=walk4_p,
+                                              **bound(
+                t4, lanes * (RAY_BYTES + 16) + (v4 + nt4) * 8 + nt4 * 4
+                + c * 8 + tri4 * TRI_BYTES))
             results["tile_round"].update(ms=k4_ms, plain_ms=p4_ms, **bound(
-                t4, lanes * (RAY_BYTES + 20) + o_t.shape[0] * 5
-                + tri4 * TRI_BYTES))
+                r4, lanes * (RAY_BYTES + 20) + nt4 * 5 + trir * TRI_BYTES))
             results["tile_walk_closest"].update(ms=k5c, plain_ms=p5c, **bound(
                 t5, nq * (RAY_BYTES + 16) + c * 28 + tri5 * TRI_BYTES))
+            log("tile", f"{name}: K4 walk {v4} visits of {TILE_LANES} rays "
+                        f"({t4} ray-triangle tests)")
         if name.startswith("connection"):
-            t5, tri5, _ = visits(lambda: pallas_tile.any_tiles_plain(
+            t5, tri5, v5 = visits(lambda: pallas_tile.any_tiles_plain(
                 cs, qo, qd, qtn, qseg), sizes)
             results["tile_walk_any"].update(ms=k5a, plain_ms=p5a, **bound(
-                t5, nq * (RAY_BYTES + 4) + c * 24 + tri5 * TRI_BYTES))
+                t5, nq * (RAY_BYTES + 4) + c * 28 + tri5 * TRI_BYTES))
+            log("tile", f"{name}: K5 any {v5} visits of {pallas_tile.TILE} "
+                        f"rays ({t5} ray-triangle tests)")
     return results
 
 
@@ -1035,7 +1090,8 @@ def phase_profiler() -> dict:
 
 def phase_tile_main(tts, cam, walk_stats) -> dict:
     """PT on the interior in tile mode (K4/K5) at the walk main path's size,
-    spp and seeds; returns the render's launch counts."""
+    spp and seeds; returns the render's launch counts. Each closest-hit
+    trace must be one K4 walk launch with no host sync of the round loop."""
     from spcbpt_tpu_torch.ops import tile_trace
     from spcbpt_tpu_torch.render import pt_pool
 
@@ -1043,9 +1099,13 @@ def phase_tile_main(tts, cam, walk_stats) -> dict:
     ref = walk_stats["mean_radiance"]
     torch.cuda.synchronize()
     reset_launches()
+    tile_trace.ROUND_LOG = rounds = []
     t0 = time.perf_counter()
-    fsum, count = pt_pool.render_pool(tts, cam.uvw(), dim, dim, spp, 0)
-    torch.cuda.synchronize()
+    try:
+        fsum, count = pt_pool.render_pool(tts, cam.uvw(), dim, dim, spp, 0)
+        torch.cuda.synchronize()
+    finally:
+        tile_trace.ROUND_LOG = None
     ms = (time.perf_counter() - t0) * 1e3 / spp
     launches = read_launches()
     stats = dict(tile_trace.WALK_STATS)
@@ -1055,15 +1115,23 @@ def phase_tile_main(tts, cam, walk_stats) -> dict:
     mean = img.mean().item()
     rel = abs(mean - ref) / ref
     walks = max(stats["walks"], 1)
+    per_trace = torch.stack([r.max() for r in rounds]).float()
     log("tile-main", f"interior {dim}x{dim} pt {spp} spp in tile mode: "
                      f"{ms:.1f} ms/spp (walk mode "
                      f"{walk_stats['render_seconds'] * 1e3 / spp:.1f}); mean "
                      f"{mean:.6f} vs walk mode {ref:.6f} ({rel * 100:.4f}%, "
                      f"bound {TILE_MEAN_PT * 100:.1f}%); launches {launches};"
-                     f" {stats['walks']} closest traces: "
-                     f"{stats['rounds'] / walks:.1f} rounds and "
-                     f"{stats['syncs'] / walks:.1f} host syncs per trace")
-    assert launches["tile_round"] > 0 and launches["tile_walk_any"] > 0
+                     f" {stats['walks']} closest traces, "
+                     f"{launches['tile_round_walk'] / walks:.1f} K4 walk "
+                     f"launches and {stats['syncs'] / walks:.1f} round-loop "
+                     f"host syncs per trace; rounds of a trace's longest "
+                     f"tile: mean {per_trace.mean().item():.1f}, max "
+                     f"{int(per_trace.max())}")
+    assert launches["tile_round_walk"] == stats["walks"] > 0, \
+        (launches, stats)
+    assert stats["syncs"] == 0 and launches["tile_round"] == 0, \
+        (launches, stats)
+    assert launches["tile_walk_any"] > 0, launches
     assert launches["walk_closest"] == launches["walk_any"] == 0, launches
     assert rel <= TILE_MEAN_PT, (mean, ref)
     return launches
@@ -1160,7 +1228,7 @@ def phase_tile_cove(out_dir: str, dev, state_path: str, walk_stats) -> None:
                      f"{COVE_CAP:g}: {cap:.6f} vs {ref_cap:.6f} "
                      f"({rel(cap, ref_cap) * 100:.4f}%, bound "
                      f"{TILE_MEAN_SPCBPT * 100:.0f}%); launches {launches}")
-    assert launches["tile_round"] > 0 and launches["tile_walk_any"] > 0
+    assert launches["tile_round_walk"] > 0 and launches["tile_walk_any"] > 0
     assert launches["walk_closest"] == launches["walk_any"] == 0, launches
     assert rel(cap, ref_cap) <= TILE_MEAN_SPCBPT, (cap, ref_cap)
     assert rel(mean, ref) <= TILE_MEAN_SPCBPT_TAIL, (mean, ref)
@@ -1196,7 +1264,7 @@ def phase_tile_cpu_vs_card(out_dir: str) -> None:
                        f"{TILE_CPU_CARD * 100:.1f}%); pixels within 1e-3 "
                        f"relative {close:.4f}")
     assert not any(la.values()), la                    # plain on the CPU
-    assert lb["tile_round"] > 0 and lb["tile_walk_any"] > 0, lb
+    assert lb["tile_round_walk"] > 0 and lb["tile_walk_any"] > 0, lb
     assert np.array_equal(ca, cb) and (ca == 2).all()
     assert np.isfinite(b).all()
     assert rel <= TILE_CPU_CARD, (mean_a, mean_b)
@@ -1245,7 +1313,8 @@ def main() -> int:
     cove_stats, cove_state = phase_cove(out_dir, dev)
     tile_launches = phase_tile_main(tts, cam, walk_stats)
     launches.update({k: tile_launches[k] for k in
-                     ("tile_round", "tile_walk_closest", "tile_walk_any")})
+                     ("tile_round_walk", "tile_round", "tile_walk_closest",
+                      "tile_walk_any")})
     phase_tile_cove(out_dir, dev, cove_state, cove_stats)
     launches.update(list_launches)
     phase_cpu_vs_card(scene_path)
@@ -1255,7 +1324,8 @@ def main() -> int:
 
     sources = {"walk_closest": "ray_walk.cu", "walk_any": "ray_walk.cu",
                "brute_closest": "brute_trace.cu",
-               "brute_any": "brute_trace.cu", "tile_round": "tile_walk.cu",
+               "brute_any": "brute_trace.cu",
+               "tile_round_walk": "tile_walk.cu", "tile_round": "tile_walk.cu",
                "tile_walk_closest": "tile_walk.cu",
                "tile_walk_any": "tile_walk.cu",
                "list_walk_closest": "list_walk.cu",
@@ -1266,6 +1336,7 @@ def main() -> int:
                 "walk_any": "spcbpt_tpu/ops/ray_walk.py:197",
                 "brute_closest": "spcbpt_tpu/ops/pallas_trace.py:28",
                 "brute_any": "spcbpt_tpu/ops/pallas_trace.py:108",
+                "tile_round_walk": "spcbpt_tpu/ops/pallas_tile.py:416",
                 "tile_round": "spcbpt_tpu/ops/pallas_tile.py:416",
                 "tile_walk_closest": "spcbpt_tpu/ops/pallas_tile.py:163",
                 "tile_walk_any": "spcbpt_tpu/ops/pallas_tile.py:236",

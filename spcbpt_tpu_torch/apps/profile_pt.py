@@ -56,12 +56,12 @@ STAGES = (
     (ray_walk, "walk_closest", "walk_closest unsort + hit"),
     (ray_walk, "walk_any", "walk_any unsort"),
 ) + _PT_STAGES
-# the tile mode: K4 rounds and K5 on the card, the matmul walk on the CPU
+# the tile mode: K4's round walk and K5 on the card, the matmul walk on the
+# CPU
 TILE_STAGES = (
     (tile_trace, "tile_entries", "tile_entries"),
     (tile_trace, "_prepare", "visit-order sort + tile order"),
-    (tile_kernels, "tile_round", "K4 round kernel"),
-    (tile_trace, "_round_walk", "round walk (host loop and syncs)"),
+    (tile_kernels, "round_walk", "K4 round-walk kernel"),
     (tile_kernels, "walk_any", "K5 any-hit kernel"),
     (tile_trace, "_closest_loop", "matmul closest walk"),
     (tile_trace, "_any_loop", "matmul any walk"),

@@ -123,6 +123,9 @@ class TileClusterSet:
                              # plain versions
     tri_begin: torch.Tensor  # (C,) int32 first (reordered) triangle id
     tri_k: int               # triangle slots in use per cluster (K)
+    tri_count: torch.Tensor  # (C,) int32 slots up to the cluster's last
+                             # nonzero one (the rest are zero and never
+                             # hit): the slots kernels K4/K5 test
 
     @property
     def num_clusters(self) -> int:
@@ -138,9 +141,12 @@ class TileClusterSet:
         """Device tile set from the host arrays of either package."""
         t = lambda a, dt=torch.float32: torch.tensor(
             np.asarray(a), dtype=dt, device=device)
+        used = np.any(np.asarray(tri_block)[:, :9, :] != 0, axis=1)
+        count = np.where(used.any(axis=1),
+                         SLOTS - np.argmax(used[:, ::-1], axis=1), 0)
         return cls(cmin=t(cmin), cmax=t(cmax), coeff=t(coeff),
                    tri_block=t(tri_block), tri_begin=t(tri_begin, torch.int32),
-                   tri_k=int(tri_k))
+                   tri_k=int(tri_k), tri_count=t(count, torch.int32))
 
 
 def _cut_bvh(flat: FlatBVH, max_tris: int):

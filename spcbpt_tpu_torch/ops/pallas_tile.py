@@ -201,7 +201,7 @@ def _any_tiles(cs, o, d, tmn, tmx):
     if o.device.type == "cpu":
         return any_tiles_plain(cs, o, d, tmn, tmx)
     return kernels.walk_any(o, d, tmn, tmx, cs.cmin, cs.cmax, cs.tri_block,
-                            cs.tri_k)
+                            cs.tri_count, cs.tri_k)
 
 
 # ---------------------------------------------------------------------------

@@ -17,25 +17,33 @@ the K=32 cluster set (ops/clusters.TileClusterSet):
    exceeds the largest min(best_t, tmax) of its lanes (closest) or when it
    has no cluster left (any).
 
-Two formulations of a round, as in the JAX package:
+Three formulations of the closest hit's walk:
   * the matmul walk (`use_kernel=False`, `_closest_loop` / `_any_loop`):
     ray features times coefficient blocks, hits tested on the numerators,
     u and v divided by det after the loop. It is the plain version the JAX
     tile mode runs on the CPU, and it runs only on CPU tensors: on the card
     it would go through TF32 tensor cores or cuBLAS, so a CUDA tensor
     raises.
-  * the round walk (`use_kernel=True`, `_round_walk`): direct
-    Moller-Trumbore per round through ops/pallas_tile.mt_round, which
-    launches kernel K4 on CUDA tensors and runs its plain version on CPU
-    tensors. The loop is driven from the host: one `alive.any()` sync per
-    round (WALK_STATS counts rounds and syncs).
+  * the round walk on the host (`use_kernel=True` on CPU tensors, and
+    `tile_closest_plain` on any device; `_round_walk`): direct
+    Moller-Trumbore per round through ops/pallas_tile (K4's round, plain
+    version), the busiest-first buckets of tiles walked in lock step, one
+    `alive.any()` host sync per round (WALK_STATS counts rounds and syncs).
+  * the round walk on the card (`use_kernel=True` on CUDA tensors): kernel
+    K4 (kernels/tile_walk.round_walk) walks every tile to its end in one
+    launch. Tiles are independent, so it equals the host form bit for bit;
+    it makes no host sync. WALK_STATS counts its walks; each tile's round
+    count goes to ROUND_LOG while a caller collects it.
 
 Misses keep t=1e30, tri=-1, u=v=0.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from ..kernels import tile_walk as kernels
 from .clusters import TileClusterSet, ray_features
 from .intersect import Hit
 
@@ -43,8 +51,13 @@ _BIG = 1e30
 _EPS_DET = 1e-10
 # bucket divisors of the tile count, busiest tiles first
 _BUCKETS = (16, 16, 8, 4, 2)
-# round walks, buckets, rounds and host syncs of the round walk
+# round walks (either form), and the host form's buckets, rounds and host
+# syncs
 WALK_STATS = {"walks": 0, "buckets": 0, "rounds": 0, "syncs": 0}
+# The card's round walks, while a caller collects them: a list of (nt,)
+# int32 device tensors, each tile's rounds (visits) in one walk, or None.
+# Only the collecting caller reads them (a read is a host sync).
+ROUND_LOG: Optional[list] = None
 
 
 def reset_walk_stats() -> None:
@@ -180,8 +193,8 @@ def tile_entries(cs: TileClusterSet, origins, dirs, tmin, tmax, tile: int):
 def _prepare(cs, origins, dirs, tmin, tmax, tile):
     """Entries, per-tile visit order, busiest-first tile order and the
     permuted per-tile arrays. Returns (entries_s, ids_s, o_t, d_t, tmin_t,
-    tmax_t, inv_order, nt); entries_s / ids_s are (C, NT), so that a round
-    reads one contiguous row."""
+    tmax_t, inv_order, nt); entries_s / ids_s are (NT, C), each tile's
+    visit order (ascending entries, 1e30 past its reach)."""
     nt = origins.shape[0] // tile
     entries = tile_entries(cs, origins, dirs, tmin, tmax, tile)
     # stable sort keeps equal-entry clusters in id order (near-to-far walk)
@@ -189,8 +202,7 @@ def _prepare(cs, origins, dirs, tmin, tmax, tile):
     count = torch.sum(entries < _BIG, dim=1)
     order = torch.argsort(-count, stable=True)
     inv_order = torch.argsort(order)
-    return (entries_s[order].T.contiguous(),
-            ids_s[order].T.to(torch.int32).contiguous(),
+    return (entries_s[order], ids_s[order].to(torch.int32),
             origins.reshape(nt, tile, 3)[order],
             dirs.reshape(nt, tile, 3)[order],
             tmin.reshape(nt, tile)[order], tmax.reshape(nt, tile)[order],
@@ -314,13 +326,14 @@ def _any_loop(cs, entries_s, ids_s, o_t, d_t, tmin_t, tmax_t):
 
 
 # ---------------------------------------------------------------------------
-# the round walk (kernel K4 per round on CUDA tensors)
+# the round walk on the host (K4's round, plain version)
 # ---------------------------------------------------------------------------
 
 def _round_walk(cs, entries_s, ids_s, o_t, d_t, tmin_t, tmax_t,
                 cull_backface, round_fn):
     """Near-to-far cluster walk over one tile subset, one `round_fn` call
-    (K4 or its plain version) per round; the loop runs on the host."""
+    (K4's round or its plain version) per round; the loop runs on the
+    host."""
     nt, tile = o_t.shape[:2]
     n_cols = entries_s.shape[0]
     dev = o_t.device
@@ -355,9 +368,10 @@ def _round_walk(cs, entries_s, ids_s, o_t, d_t, tmin_t, tmax_t,
 # wrappers
 # ---------------------------------------------------------------------------
 
-def _walk(cs, origins, dirs, tmin, tmax, tile, sort_rays, loop, n_out):
-    """Sort (optional), pad, prepare, walk the buckets with `loop`, and
-    return `n_out` per-lane outputs in the caller's lane order."""
+def _walk(cs, origins, dirs, tmin, tmax, tile, sort_rays, walk):
+    """Sort (optional), pad, prepare, walk the prepared tiles with `walk`
+    (-> per-tile outputs, each (NT, tile), in the busiest-first order), and
+    return them per lane in the caller's lane order."""
     n = origins.shape[0]
     tmin = _as_lanes(tmin, n, origins.device)
     tmax = _as_lanes(tmax, n, origins.device)
@@ -367,22 +381,44 @@ def _walk(cs, origins, dirs, tmin, tmax, tile, sort_rays, loop, n_out):
                                                          tmin, tmax)
     origins, dirs, tmin, tmax, n_orig = _pad_rays(origins, dirs, tmin, tmax,
                                                   tile)
-    entries_s, ids_s, o_t, d_t, tmin_t, tmax_t, inv_order, nt = _prepare(
+    entries_s, ids_s, o_t, d_t, tmin_t, tmax_t, inv_order, _ = _prepare(
         cs, origins, dirs, tmin, tmax, tile)
-    parts = []
-    pos = 0
-    for sz in _bucket_sizes(nt):
-        sl = slice(pos, pos + sz)
-        out = loop(cs, entries_s[:, sl].contiguous(),
-                   ids_s[:, sl].contiguous(), o_t[sl], d_t[sl], tmin_t[sl],
-                   tmax_t[sl])
-        parts.append(out if n_out > 1 else (out,))
-        pos += sz
-    out = [torch.cat([p[i] for p in parts])[inv_order].reshape(-1)[:n_orig]
-           for i in range(n_out)]
+    out = walk(cs, entries_s, ids_s, o_t, d_t, tmin_t, tmax_t)
+    out = [a[inv_order].reshape(-1)[:n_orig] for a in out]
     if perm is not None:
         out = [unsort(a, perm) for a in out]
     return out
+
+
+def _in_buckets(loop):
+    """A host loop run over the busiest-first buckets of _bucket_sizes, one
+    after the other, each with its visit orders as (C, tiles) so that a
+    round reads one contiguous row."""
+    def walk(cs, entries_s, ids_s, o_t, d_t, tmin_t, tmax_t):
+        parts = []
+        pos = 0
+        for sz in _bucket_sizes(o_t.shape[0]):
+            sl = slice(pos, pos + sz)
+            out = loop(cs, entries_s[sl].T.contiguous(),
+                       ids_s[sl].T.contiguous(), o_t[sl], d_t[sl],
+                       tmin_t[sl], tmax_t[sl])
+            parts.append(out if isinstance(out, tuple) else (out,))
+            pos += sz
+        return [torch.cat(p) for p in zip(*parts)]
+    return walk
+
+
+def _kernel_walk(cull_backface):
+    """The card's round walk: every tile in one K4 launch, no host sync."""
+    def walk(cs, entries_s, ids_s, o_t, d_t, tmin_t, tmax_t):
+        WALK_STATS["walks"] += 1
+        t, tri, u, v, rounds = kernels.round_walk(
+            o_t, d_t, tmin_t, tmax_t, entries_s, ids_s, cs.tri_block,
+            cs.tri_begin, cs.tri_count, cs.tri_k, cull_backface)
+        if ROUND_LOG is not None:
+            ROUND_LOG.append(rounds)
+        return t, tri, u, v
+    return walk
 
 
 def _hit(best_t, best_id, best_u, best_v) -> Hit:
@@ -394,7 +430,7 @@ def _hit(best_t, best_id, best_u, best_v) -> Hit:
 
 def _round_loop(round_fn, cull_backface):
     WALK_STATS["walks"] += 1
-    return lambda *a: _round_walk(*a, cull_backface, round_fn)
+    return _in_buckets(lambda *a: _round_walk(*a, cull_backface, round_fn))
 
 
 def _require_cpu(origins, what: str) -> None:
@@ -410,29 +446,30 @@ def tile_closest(cs: TileClusterSet, origins, dirs, tmin, tmax,
                  use_kernel: bool = False, sort_rays: bool = False) -> Hit:
     """Closest-hit traversal; t=1e30 / tri=-1 on a miss. use_kernel=False
     runs the matmul walk (CPU tensors only); use_kernel=True the round walk
-    (K4 on CUDA tensors, its plain version on CPU tensors). sort_rays=True
-    re-orders the wavefront by ray_sort_key_live first."""
+    (K4's whole walk in one launch on CUDA tensors, the host loop over K4's
+    plain round on CPU tensors). sort_rays=True re-orders the wavefront by
+    ray_sort_key_live first."""
     from . import pallas_tile
 
-    if use_kernel:
-        loop = _round_loop(pallas_tile.mt_round, cull_backface)
-    else:
+    if not use_kernel:
         _require_cpu(origins, "tile_closest(use_kernel=False)")
-        loop = lambda *a: _closest_loop(*a, cull_backface)
-    return _hit(*_walk(cs, origins, dirs, tmin, tmax, tile, sort_rays, loop,
-                       4))
+        walk = _in_buckets(lambda *a: _closest_loop(*a, cull_backface))
+    elif origins.device.type == "cpu":
+        walk = _round_loop(pallas_tile.mt_round, cull_backface)
+    else:
+        walk = _kernel_walk(cull_backface)
+    return _hit(*_walk(cs, origins, dirs, tmin, tmax, tile, sort_rays, walk))
 
 
 def tile_closest_plain(cs: TileClusterSet, origins, dirs, tmin, tmax,
                        cull_backface: bool = True, tile: int = 64,
                        sort_rays: bool = False) -> Hit:
-    """tile_closest(use_kernel=True) through the plain round on any device
-    (K4's reference on the card)."""
+    """tile_closest(use_kernel=True) through the host loop over the plain
+    round on any device (K4's reference on the card)."""
     from . import pallas_tile
 
-    loop = _round_loop(pallas_tile.mt_round_blocks_plain, cull_backface)
-    return _hit(*_walk(cs, origins, dirs, tmin, tmax, tile, sort_rays, loop,
-                       4))
+    walk = _round_loop(pallas_tile.mt_round_blocks_plain, cull_backface)
+    return _hit(*_walk(cs, origins, dirs, tmin, tmax, tile, sort_rays, walk))
 
 
 def tile_any(cs: TileClusterSet, origins, dirs, tmin, tmax, tile: int = 64,
@@ -441,6 +478,6 @@ def tile_any(cs: TileClusterSet, origins, dirs, tmin, tmax, tile: int = 64,
     cuProg.h:478): the matmul walk, CPU tensors only (on the card the tile
     mode's any hit is pallas_tile.pallas_any, kernel K5). Returns bool."""
     _require_cpu(origins, "tile_any")
-    (occ,) = _walk(cs, origins, dirs, tmin, tmax, tile, sort_rays, _any_loop,
-                   1)
+    (occ,) = _walk(cs, origins, dirs, tmin, tmax, tile, sort_rays,
+                   _in_buckets(_any_loop))
     return occ

@@ -18,6 +18,8 @@ from spcbpt_tpu_torch.ops import brute_trace
 from spcbpt_tpu_torch.scene import scene as tscene
 from spcbpt_tpu_torch.scene.scene import from_jax_scene
 
+from jax_native import native_jax_route  # noqa: F401 (autouse)
+
 torch.set_num_threads(1)
 
 SIDE = 32            # 1024 camera rays

@@ -6,6 +6,7 @@ arrays and generated files must be equal, bit for bit and byte for byte."""
 import dataclasses
 import filecmp
 import os
+import shutil
 import subprocess
 import sys
 
@@ -29,6 +30,8 @@ from spcbpt_tpu_torch.scene import cornell as tcornell
 from spcbpt_tpu_torch.scene import interior as tinterior
 from spcbpt_tpu_torch.scene import obj as tobj
 from spcbpt_tpu_torch.scene import parser as tparser
+
+from jax_native import native_jax_route  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -178,6 +181,38 @@ def test_build_bvh_equals_jax(generated, case):
         np.testing.assert_array_equal(getattr(tn, f), getattr(jn, f),
                                       err_msg=f)
     assert sorted(t.order.tolist()) == list(range(len(tris[0])))
+
+
+def test_both_packages_take_the_native_route():
+    """In this process, after the module's native_jax_route fixture: where
+    g++ is on the PATH the JAX package's native library is loaded and the
+    port builds its trees natively (both take numpy's route without g++).
+    A regression of the parity fixtures fails here, naming the route,
+    rather than as parity failures on mismatched trees."""
+    tris = _random_tris(300, seed=11)
+    j, t = jbvh.build_bvh(*tris), tbvh.build_bvh(*tris)
+    native = shutil.which("g++") is not None
+    assert (jloader._LIB is not None) == native, \
+        f"JAX native library loaded: {jloader._LIB is not None}, g++: {native}"
+    assert tbvh.BUILD_ROUTE == ("native" if native else "numpy")
+    for f in _BVH_FIELDS:
+        np.testing.assert_array_equal(getattr(t, f), getattr(j, f),
+                                      err_msg=f)
+
+
+def test_native_route_guard_fails_legibly(monkeypatch):
+    """Where g++ exists and the JAX package's library never loads (a
+    failed in-place build), the parity fixture fails the test and names
+    the numpy route as the cause, after its wait."""
+    import jax_native
+
+    if shutil.which("g++") is None:
+        pytest.skip("no C++ compiler on this host: the numpy route is taken")
+    monkeypatch.setattr(jloader, "_TRIED", jloader._TRIED)
+    monkeypatch.setattr(jloader, "get_lib", lambda: None)
+    monkeypatch.setattr(jax_native, "WAIT_S", 1.0)
+    with pytest.raises(pytest.fail.Exception, match="numpy trees"):
+        jax_native.require_native_jax()
 
 
 def test_native_library_builds_outside_the_sources():

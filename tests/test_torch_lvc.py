@@ -25,6 +25,8 @@ from spcbpt_tpu_torch.render import vertex as tvertex
 from spcbpt_tpu_torch.train import classify as tcls
 from spcbpt_tpu_torch.utils import rng as trng
 
+from jax_native import native_jax_route  # noqa: F401 (autouse)
+
 torch.set_num_threads(1)
 
 N_PATHS = 2048

@@ -16,11 +16,15 @@ from spcbpt_tpu.scene import interior
 from spcbpt_tpu.scene import scene as jscene
 from spcbpt_tpu.scene.cornell import default_scene_path
 from spcbpt_tpu_torch.kernels import tile_walk as kernels
+from spcbpt_tpu_torch.ops import clusters as tclusters
 from spcbpt_tpu_torch.ops import intersect as tint
 from spcbpt_tpu_torch.ops import pallas_tile
 from spcbpt_tpu_torch.ops import tile_trace as ttt
 from spcbpt_tpu_torch.render.common import camera_rays
 from spcbpt_tpu_torch.scene import scene as tscene
+
+import tile_designs
+from jax_native import native_jax_route  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -106,8 +110,8 @@ def _round_inputs(case, r):
     args = ttt._pad_rays(o, d, tmin, tmax, 256)[:4]
     entries_s, ids_s, o_t, d_t, tmin_t, tmax_t, _, _ = ttt._prepare(
         cs, *args, 256)
-    run = entries_s[r] < 1e30
-    return o_t, d_t, tmin_t, tmax_t, ids_s[r], run
+    run = entries_s[:, r] < 1e30
+    return o_t, d_t, tmin_t, tmax_t, ids_s[:, r].contiguous(), run
 
 
 @pytest.mark.parametrize("cull", [True, False])
@@ -202,6 +206,42 @@ def test_pallas_walks_match_brute_force(cases, sort_rays):
         tint.brute_force_any(o, d, *tris, tmin, seg).numpy())
 
 
+@pytest.mark.parametrize("name", ["interior", "cornell"])
+@pytest.mark.parametrize("sort_rays", [False, True])
+def test_any_tile_design_matches_plain(cases, name, sort_rays):
+    """The transcription of K5 any's walk (tests/tile_designs.py), on the
+    rays as pallas_any prepares them, equals any_tiles_plain lane for lane;
+    each tile's candidate list is exactly the finite part of its row of
+    tile_trace.tile_entries, ids and entries; and its visits, tile by tile
+    and in order, are the plain walk's (clusters.VISIT_LOG)."""
+    case = cases[name]
+    cs = case["ts"].clusters
+    o, d, tmin, _ = map(_t, case["rays"])
+    qo, qd, qtn, qtx, n, _ = pallas_tile.prepare(cs, o, d, tmin,
+                                                 _t(case["seg"]), sort_rays)
+    rec = {}
+    got = tile_designs.any_tile_walk(cs, qo, qd, qtn, qtx, rec)
+    log = []
+    tclusters.VISIT_LOG = log
+    try:
+        ref = pallas_tile.any_tiles_plain(cs, qo, qd, qtn, qtx)
+    finally:
+        tclusters.VISIT_LOG = None
+    assert torch.equal(got, ref)
+    assert 0.05 < got.numpy()[:n].mean() < 0.6
+    rows = ttt.tile_entries(cs, qo, qd, qtn, qtx, pallas_tile.TILE).numpy()
+    assert len(rows) == len(rec["lists"])
+    for row, (ids, e) in zip(rows, rec["lists"]):
+        finite = np.nonzero(row < 1e30)[0]
+        np.testing.assert_array_equal(ids, finite)
+        np.testing.assert_array_equal(e, row[finite])
+    visits = rec["visits"]
+    expected = [[v[r] for v in visits if len(v) > r]
+                for r in range(max(map(len, visits)))]
+    assert all(lanes == pallas_tile.TILE for lanes, _ in log)
+    assert [cid.tolist() for _, cid in log] == expected
+
+
 def test_cpu_tensors_take_plain_versions(cases):
     """CPU tensors go through the plain versions: no launch is counted, and
     the scene's CPU route never reaches the fused walk."""
@@ -212,8 +252,8 @@ def test_cpu_tensors_take_plain_versions(cases):
     pallas_tile.pallas_closest(cs, o, d, tmin, tmax)
     pallas_tile.pallas_any(cs, o, d, tmin, _t(case["seg"]))
     ttt.tile_closest(cs, o, d, tmin, tmax, tile=256, use_kernel=True)
-    assert kernels.LAUNCHES == {"tile_round": 0, "tile_walk_closest": 0,
-                                "tile_walk_any": 0}
+    assert kernels.LAUNCHES == {"tile_round_walk": 0, "tile_round": 0,
+                                "tile_walk_closest": 0, "tile_walk_any": 0}
 
 
 def test_kernel_bindings_refuse_cpu_tensors(cases):
@@ -226,11 +266,19 @@ def test_kernel_bindings_refuse_cpu_tensors(cases):
         kernels.walk_closest(o, o, t, t, cs.cmin, cs.cmax, cs.tri_begin,
                              cs.tri_block, cs.tri_k, True)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        kernels.walk_any(o, o, t, t, cs.cmin, cs.cmax, cs.tri_block, cs.tri_k)
+        kernels.walk_any(o, o, t, t, cs.cmin, cs.cmax, cs.tri_block,
+                         cs.tri_count, cs.tri_k)
     with pytest.raises(ValueError, match="CUDA tensors"):
         kernels.tile_round(o[None], o[None], t[None], t[None],
                            torch.zeros((1,), dtype=torch.int32),
                            torch.ones((1,), dtype=torch.bool), cs.tri_block,
+                           cs.tri_k, True)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernels.round_walk(o[None], o[None], t[None], t[None],
+                           torch.zeros((1, cs.num_clusters)),
+                           torch.zeros((1, cs.num_clusters),
+                                       dtype=torch.int32),
+                           cs.tri_block, cs.tri_begin, cs.tri_count,
                            cs.tri_k, True)
     assert not any(kernels.LAUNCHES.values())
 

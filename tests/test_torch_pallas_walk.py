@@ -40,6 +40,8 @@ from spcbpt_tpu_torch.ops.pallas_tile import _mt_vpu, _pick
 from spcbpt_tpu_torch.render.common import camera_rays
 from spcbpt_tpu_torch.scene import scene as tscene
 
+from jax_native import native_jax_route  # noqa: F401 (autouse)
+
 torch.set_num_threads(1)
 
 N_RAYS = 700          # not a multiple of the 128- or 256-ray tile

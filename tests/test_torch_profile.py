@@ -9,6 +9,8 @@ from spcbpt_tpu_torch.apps import profile_pt
 from spcbpt_tpu_torch.render import pt_pool
 from spcbpt_tpu_torch.scene.scene import load_trace_scene
 
+from jax_native import native_jax_route  # noqa: F401 (autouse)
+
 torch.set_num_threads(1)
 
 
@@ -81,8 +83,7 @@ def test_tile_stage_breakdown_adds_up_and_restores():
         torch.device("cpu"), stages)
     assert [getattr(m, n) for m, n, _ in stages] == before
     st = out["stages"]
-    for stage in ("K4 round kernel", "K5 any-hit kernel",
-                  "round walk (host loop and syncs)",
+    for stage in ("K4 round-walk kernel", "K5 any-hit kernel",
                   "pallas_any sort + pad + unsort"):
         assert stage not in st, stage
     closest = st["tile_closest sort + pad + unsort"]["calls"]

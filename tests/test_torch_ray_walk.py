@@ -28,6 +28,9 @@ from spcbpt_tpu_torch.scene.scene import from_jax_scene
 
 # the tensors here are small: one thread per xdist worker avoids
 # oversubscribing the cores
+
+from jax_native import native_jax_route  # noqa: F401 (autouse)
+
 torch.set_num_threads(1)
 
 # t/u/v: XLA's CPU compiler contracts multiply-adds of the JAX

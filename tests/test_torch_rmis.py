@@ -28,6 +28,8 @@ from spcbpt_tpu_torch.render.common import camera_rays
 from spcbpt_tpu_torch.scene.scene import from_jax_scene
 from spcbpt_tpu_torch.train import classify as tcls
 
+from jax_native import native_jax_route  # noqa: F401 (autouse)
+
 torch.set_num_threads(1)
 
 N_LANES = 400

@@ -17,6 +17,9 @@ from spcbpt_tpu_torch.utils.image import write_png
 
 # the tensors here are small: one thread per xdist worker avoids
 # oversubscribing the cores
+
+from jax_native import native_jax_route  # noqa: F401 (autouse)
+
 torch.set_num_threads(1)
 
 _GEOM = ("tri_p0", "tri_e1", "tri_e2", "tri_n", "tri_uv", "tri_mat",

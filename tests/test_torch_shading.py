@@ -22,6 +22,9 @@ from spcbpt_tpu_torch.utils import rng as trng
 
 # the tensors here are small: one thread per xdist worker avoids
 # oversubscribing the cores
+
+from jax_native import native_jax_route  # noqa: F401 (autouse)
+
 torch.set_num_threads(1)
 
 RTOL, ATOL = 1e-5, 1e-6

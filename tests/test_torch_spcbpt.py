@@ -31,6 +31,8 @@ from spcbpt_tpu_torch.scene.scene import from_jax_scene
 from spcbpt_tpu_torch.train import classify as tcls
 from spcbpt_tpu_torch.utils import rng as trng
 
+from jax_native import native_jax_route  # noqa: F401 (autouse)
+
 torch.set_num_threads(1)
 
 N_PATHS = 2048

@@ -18,6 +18,8 @@ from spcbpt_tpu_torch.scene.scene import from_jax_scene
 from spcbpt_tpu_torch.train import classify as tcls
 from spcbpt_tpu_torch.train import qgamma as tqg
 
+from jax_native import native_jax_route  # noqa: F401 (autouse)
+
 torch.set_num_threads(1)
 
 # Row CMFs are float32 cumulative sums over 1000 columns; XLA and torch

@@ -19,11 +19,17 @@ from spcbpt_tpu.scene import interior
 from spcbpt_tpu.scene import scene as jscene
 from spcbpt_tpu.scene.cornell import default_scene_path
 from spcbpt_tpu.scene.parser import load_scene
+from spcbpt_tpu_torch.kernels import tile_walk as kernels
+from spcbpt_tpu_torch.ops import bvh as tbvh
+from spcbpt_tpu_torch.ops import clusters as tclusters
 from spcbpt_tpu_torch.ops import intersect as tint
 from spcbpt_tpu_torch.ops import tile_trace as ttt
 from spcbpt_tpu_torch.render import pt_pool as tpool
 from spcbpt_tpu_torch.render.common import camera_rays
 from spcbpt_tpu_torch.scene import scene as tscene
+
+import tile_designs
+from jax_native import native_jax_route  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -266,3 +272,94 @@ def test_pt_pool_tile_mode_matches_jax(case):
     b = np.asarray(jf) / np.asarray(jc)[:, None]
     assert np.isfinite(a).all() and b.mean() > 0
     assert abs(a.mean() - b.mean()) <= PT_MEAN_RTOL * b.mean()
+
+
+# ---------------------------------------------------------------------------
+# kernel K4's round walk (csrc/tile_walk.cu round_walk_kernel), transcribed
+# in tests/tile_designs.py
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def random_tile_case():
+    """1,200 random triangles in the port's K=32 tile set, 700 rays (padded
+    to 768 lanes) from random origins in random directions, a fifth dead."""
+    rs = np.random.default_rng(3)
+    t = 1200
+    c = rs.uniform(-5, 5, (t, 3)).astype(np.float32)
+    p0 = c + rs.normal(0, 0.3, (t, 3)).astype(np.float32)
+    e1 = rs.normal(0, 0.4, (t, 3)).astype(np.float32)
+    e2 = rs.normal(0, 0.4, (t, 3)).astype(np.float32)
+    flat = tbvh.build_bvh(p0, e1, e2)
+    cs = tclusters.build_tile_clusters(
+        flat, *(a[flat.order] for a in (p0, e1, e2)), max_tris=32)
+    n = 700
+    o = rs.uniform(-6, 6, (n, 3)).astype(np.float32)
+    d = rs.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmin = np.full(n, 1e-3, np.float32)
+    tmax = np.full(n, 1e16, np.float32)
+    tmax[rs.permutation(n)[:n // 5]] = -1.0
+    return cs, (o, d, tmin, tmax)
+
+
+@pytest.mark.parametrize("name", ["interior", "random"])
+@pytest.mark.parametrize("cull", [True, False])
+def test_k4_walk_design_matches_plain(case, random_tile_case, name, cull):
+    """The transcription of K4's whole walk, through the wrapper's own
+    sort, pad, prepare and unsort, equals tile_closest_plain (the host loop
+    over the plain round) bit for bit in t, tri, u and v, dead and padded
+    lanes included; and its per-tile round counts, tile by tile, are the
+    host loop's visits of clusters.VISIT_LOG, bucket by bucket."""
+    if name == "interior":
+        cs, rays = case["ts"].clusters, case["rays"]
+    else:
+        cs, rays = random_tile_case
+    args = tuple(map(_t, rays))
+    log = []
+    tclusters.VISIT_LOG = log
+    try:
+        ref = ttt.tile_closest_plain(cs, *args, cull, tile=TILE,
+                                     sort_rays=True)
+    finally:
+        tclusters.VISIT_LOG = None
+    rec = {}
+    got = ttt._hit(*ttt._walk(cs, *args, TILE, True,
+                              tile_designs.k4_walk(cull, rec)))
+    ids, rounds = rec["ids"], rec["rounds"]
+    for f in ("t", "tri", "u", "v"):
+        assert torch.equal(getattr(got, f), getattr(ref, f)), f
+    assert (got.tri.numpy()[rays[3] < 0] == -1).all()
+    assert 0.1 < (got.tri.numpy() >= 0).mean() < 0.95
+    # the visits: round r of a bucket tests the tiles (in tile order) whose
+    # walk is longer than r, against their r-th cluster
+    expected, pos = [], 0
+    for size in ttt._bucket_sizes(len(rounds)):
+        tiles = np.arange(pos, pos + size)
+        per = np.array(rounds[pos:pos + size])
+        for r in range(per.max()):
+            expected.append(ids[tiles[per > r], r].tolist())
+        pos += size
+    logged = [cid.tolist() for lanes, cid in log if len(cid)]
+    assert all(lanes == TILE for lanes, _ in log)
+    assert logged == expected
+    assert sum(rounds) == sum(map(len, logged)) and max(rounds) > 1
+
+
+def test_round_walk_binding_refuses_cpu_tensors(case):
+    """No fallback: K4's walk binding raises on CPU tensors (before anything
+    is built or launched), and tile_closest(use_kernel=True) takes the host
+    loop over the plain round on CPU tensors: no launch is counted."""
+    cs = case["ts"].clusters
+    o = torch.zeros((1, TILE, 3))
+    t = torch.zeros((1, TILE))
+    e = torch.zeros((1, cs.num_clusters))
+    i = torch.zeros((1, cs.num_clusters), dtype=torch.int32)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernels.round_walk(o, o, t, t, e, i, cs.tri_block, cs.tri_begin,
+                           cs.tri_count, cs.tri_k, True)
+    o, d, tmin, tmax = map(_t, case["rays"])
+    ttt.reset_walk_stats()
+    ttt.tile_closest(cs, o, d, tmin, tmax, tile=TILE, use_kernel=True)
+    assert not any(kernels.LAUNCHES.values())
+    assert ttt.WALK_STATS["walks"] == 1 and ttt.WALK_STATS["syncs"] > 0

@@ -1,0 +1,139 @@
+"""numpy transcriptions of the tile-walk kernels' designs
+(spcbpt_tpu_torch/csrc/tile_walk.cu), which run only on the card: the CPU
+tests hold them bit for bit to the plain versions of ops/tile_trace and
+ops/pallas_tile, and their visits to ops/clusters.VISIT_LOG."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def mt_slots(o, d, blk, k, tmn, tmx, cull):
+    """The kernel's branch-free slot test (`mt_test`) in numpy float32, every
+    product and sum rounded on its own as the kernel (built with
+    --fmad=false) rounds it: o/d (R, 3), blk (16, 128), slots [0, k) ->
+    (hit, t, u, v), each (R, k)."""
+    f32 = np.float32
+    ox, oy, oz = (o[:, a:a + 1] for a in range(3))
+    dx, dy, dz = (d[:, a:a + 1] for a in range(3))
+    p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z = (blk[j, :k][None]
+                                                   for j in range(9))
+    pvx = dy * e2z - dz * e2y
+    pvy = dz * e2x - dx * e2z
+    pvz = dx * e2y - dy * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz
+    det_ok = det > f32(1e-10) if cull else np.abs(det) > f32(1e-10)
+    inv = f32(1.0) / np.where(det_ok, det, f32(1.0))
+    tvx, tvy, tvz = ox - p0x, oy - p0y, oz - p0z
+    u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv
+    qvx = tvy * e1z - tvz * e1y
+    qvy = tvz * e1x - tvx * e1z
+    qvz = tvx * e1y - tvy * e1x
+    v = (dx * qvx + dy * qvy + dz * qvz) * inv
+    t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv
+    hit = det_ok & (u >= 0) & (v >= 0) & (u + v <= 1) \
+        & (t > tmn[:, None]) & (t < tmx[:, None])
+    return hit, t, u, v
+
+
+def k4_walk(cull, rec):
+    """The kernel's walk as ops/tile_trace._walk calls it: each tile alone,
+    round after round over its visit order; the bound is the exact max of
+    min(best_t, tmax) over the tile's lanes; the cluster's slots below
+    tri_count, strict < over ascending slots, improvement on strict <. The
+    visit orders it was given and each tile's round count go to `rec`."""
+    def walk(cs, entries, ids, o_t, d_t, tmin_t, tmax_t):
+        rec["ids"], rec["rounds"] = idn, rounds = ids.numpy(), []
+        blocks, begin = cs.tri_block.numpy(), cs.tri_begin.numpy()
+        count = cs.tri_count.numpy()
+        ent = entries.numpy()
+        o_n, d_n, tn, tx = (a.numpy() for a in (o_t, d_t, tmin_t, tmax_t))
+        nt, lanes = tn.shape
+        n_cols = ent.shape[1]
+        out_t = np.full((nt, lanes), 1e30, np.float32)
+        out_tri = np.full((nt, lanes), -1, np.int32)
+        out_u = np.zeros((nt, lanes), np.float32)
+        out_v = np.zeros((nt, lanes), np.float32)
+        for i in range(nt):
+            bt, bid, bu, bv = out_t[i], out_tri[i], out_u[i], out_v[i]
+            rnd = 0
+            while rnd < n_cols:
+                bound = np.minimum(bt, tx[i]).max()
+                e, cid = ent[i, rnd], idn[i, rnd]
+                if not (e < 1e30 and e <= bound):
+                    break
+                tmax_eff = np.minimum(bt, tx[i])
+                hit, t, u, v = mt_slots(o_n[i], d_n[i], blocks[cid],
+                                        count[cid], tn[i], tmax_eff, cull)
+                hit &= (tmax_eff > tn[i])[:, None]
+                tt = np.where(hit, t, np.inf)
+                slot = np.argmin(tt, axis=1)     # the first slot at the min
+                lane = np.arange(lanes)
+                cb = tt[lane, slot]
+                imp = cb < bt
+                bt[imp] = cb[imp]
+                bid[imp] = begin[cid] + slot[imp]
+                bu[imp] = u[lane, slot][imp]
+                bv[imp] = v[lane, slot][imp]
+                rnd += 1
+            rounds.append(rnd)
+        return [torch.from_numpy(a) for a in (out_t, out_tri, out_u, out_v)]
+    return walk
+
+
+def _group_entries(cs, o, d, tmn, tmx):
+    """The conservative entry bound of one group of rays into every
+    cluster, in the kernel's operation order (`hull_axis`, `hull_entry`:
+    tile_trace.tile_entries for one tile): (C,) float32, 1e30 out of
+    reach."""
+    f32 = np.float32
+    big, tiny = f32(1e30), f32(1e-12)
+    cmin, cmax = cs.cmin.numpy(), cs.cmax.numpy()
+    olo, ohi = o.min(axis=0), o.max(axis=0)
+    dlo, dhi = d.min(axis=0), d.max(axis=0)
+    straddle = (dlo <= 0) & (dhi >= 0)
+    safe = lambda x: np.where(np.abs(x) < tiny, np.where(x < 0, -tiny, tiny),
+                              x)
+    il = np.minimum(f32(1.0) / safe(dlo), f32(1.0) / safe(dhi))
+    ih = np.maximum(f32(1.0) / safe(dlo), f32(1.0) / safe(dhi))
+    lo_ab = np.minimum(cmin - ohi, cmax - ohi)
+    hi_ab = np.maximum(cmin - olo, cmax - olo)
+    p = (lo_ab * il, lo_ab * ih, hi_ab * il, hi_ab * ih)
+    ax_lo = np.minimum(np.minimum(p[0], p[1]), np.minimum(p[2], p[3]))
+    ax_hi = np.maximum(np.maximum(p[0], p[1]), np.maximum(p[2], p[3]))
+    ax_lo = np.where(straddle, -big, ax_lo)
+    ax_hi = np.where(straddle, big, ax_hi)
+    entry, exit_ = ax_lo.max(axis=1), ax_hi.min(axis=1)
+    overlap = (entry <= exit_) & (exit_ >= tmn.min()) & (entry <= tmx.max())
+    return np.where(overlap, entry, big)
+
+
+def any_tile_walk(cs, o, d, tmn, tmx, rec):
+    """K5 any (`any_tile_kernel`) on padded rays -> int32 flags: each
+    128-ray tile computes its entries, compacts those below 1e30 in id
+    order (a ballot per warp, a prefix over the warps), sorts them near to
+    far by (entry, id) once, and walks them until each of its lanes is
+    occluded or dead; only lanes neither occluded nor with tmax <= tmin
+    test the cluster's slots below tri_count. Each tile's candidate list
+    (ids, entries) and visit order go to `rec`."""
+    tile = 128
+    o_n, d_n, tn, tx = (a.numpy() for a in (o, d, tmn, tmx))
+    blocks, count = cs.tri_block.numpy(), cs.tri_count.numpy()
+    occ = np.zeros(tn.shape[0], bool)
+    rec["lists"], rec["visits"] = [], []
+    for g in range(tn.shape[0] // tile):
+        sl = slice(tile * g, tile * (g + 1))
+        e = _group_entries(cs, o_n[sl], d_n[sl], tn[sl], tx[sl])
+        ids = np.nonzero(e < np.float32(1e30))[0]
+        rec["lists"].append((ids, e[ids]))
+        visited = []
+        dead = tx[sl] < tn[sl]
+        for cid in ids[np.lexsort((ids, e[ids]))]:
+            if (occ[sl] | dead).all():
+                break
+            hit = mt_slots(o_n[sl], d_n[sl], blocks[cid], count[cid], tn[sl],
+                           tx[sl], False)[0].any(axis=1)
+            occ[sl] |= hit & ~occ[sl] & (tx[sl] > tn[sl])
+            visited.append(int(cid))
+        rec["visits"].append(visited)
+    return torch.from_numpy(occ.astype(np.int32))
