@@ -45,7 +45,9 @@ Phases, one status line each; any failure raises and exits non-zero:
      mode's K=32, the walk mode's K=128) for the camera, bounce and
      connection wavefronts, both cull settings, tiles of 256 (and 128 for
      the resident closest form), prune=False once; against brute force on
-     a subset; times per call;
+     a subset; times per call (the closest forms at K=128 and K=32), and
+     the rounds each closest group walked against the plain walk's tile
+     visits;
  11. the list walk's path: the traversal profiler `python -m
      spcbpt_tpu_torch.apps.prof_traversal` at its defaults (2^17 rays,
      both sets, tiles 128 and 256, every form) in a process of its own;
@@ -69,8 +71,10 @@ reads them just after (the profiler's counters start at 0 in its own
 process and are read from its last line); the CLI renders' PNG, HDR and
 stats go to smoke_out/. The last three lines are the card as nvidia-smi
 names it, one JSON object with each kernel's numbers (its bound from the
-plain version's visits on the same inputs, see PEAK_F32_FLOPS), and
-{"ok": true, "device": {...}}.
+plain version's visits on the same inputs, see PEAK_F32_FLOPS; the K6
+closest forms, which test fewer pairs than their plain version, carry the
+bound of their own tests beside it as own_bound_ms), and {"ok": true,
+"device": {...}}.
 """
 from __future__ import annotations
 
@@ -227,16 +231,28 @@ def phase_build() -> None:
     log("build", f"all kernels ready in {time.perf_counter() - t0:.2f} s")
 
 
-def visits(fn, sizes) -> tuple:
-    """Runs a plain walk once with the cluster visit log on; returns (its
-    ray-triangle tests, the triangles of the clusters it visited, its
-    visits), with `sizes` the (C,) triangle count of each cluster."""
+def visit_log(fn) -> list:
+    """Runs a plain walk once with the cluster visit log on; returns the log,
+    one (lanes, cluster ids) entry per round."""
     from spcbpt_tpu_torch.ops import clusters
     clusters.VISIT_LOG = log = []
     try:
         fn()
     finally:
         clusters.VISIT_LOG = None
+    return log
+
+
+def visits(fn, sizes) -> tuple:
+    """Runs a plain walk once with the cluster visit log on; returns (its
+    ray-triangle tests, the triangles of the clusters it visited, its
+    visits), with `sizes` the (C,) triangle count of each cluster."""
+    return tally(visit_log(fn), sizes)
+
+
+def tally(log, sizes) -> tuple:
+    """(ray-triangle tests, triangles of the clusters visited, visits) of a
+    visit log."""
     if not log:
         return 0, 0, 0
     cids = [cid.long() for _, cid in log]
@@ -925,7 +941,8 @@ def phase_list_walk(tts, wts, waves, dev) -> dict:
     of one BVH (K=32 of the tile mode, K=128 of the walk mode): the camera,
     bounce and connection wavefronts, both cull settings, tiles of 256 (and
     128 for the resident closest form), prune=False once; against brute
-    force on a subset; times on the bounce wavefront at K=128, tile 256."""
+    force on a subset; times on the bounce wavefront at tile 256, K=128
+    (and K=32 for the closest forms), with the closest groups' rounds."""
     from spcbpt_tpu_torch.kernels import list_walk as kernels
     from spcbpt_tpu_torch.ops import clusters, intersect, pallas_walk
 
@@ -1000,60 +1017,111 @@ def phase_list_walk(tts, wts, waves, dev) -> dict:
                 f"the pruned walk")
 
     # times: each form alone on the prepared lists of the bounce wavefront,
-    # K=128, tile 256 (closest with culling, any with segments up to 3, as
-    # the profiler walks them), against the plain version
+    # tile 256 (closest with culling, any with segments up to 3, as the
+    # profiler walks them), against the plain version; the JSON line takes
+    # K=128, the closest forms are timed at K=32 too. The closest groups'
+    # rounds and slots tested (the kernels' optional output) against the
+    # plain walk's tile rounds and tests: the kernels' own ray-triangle
+    # tests are each group's rays times the slots it tested
+    group = kernels.group_rays()
+    results, err = {}, {}
+    for k, cs in ((128, wts.clusters_walk), (32, tts.clusters)):
+        sizes = clusters.cluster_sizes(cs, wts.num_tris)
+        blocks = cs.blocks()
+        po, pd, ptn, ptx, _, entries, ids, bases, counts, _ = \
+            pallas_walk.prepare(cs, o, d, tmin, tmax, 256, True)
+        npad, nt = po.shape[0], ids.shape[0]
+        closest = lambda stream, rounds=None: kernels.closest(
+            blocks, cs.tri_count, counts, ids, bases, entries, po, pd, ptn,
+            ptx, True, True, stream, rounds)
+        plain_c = lambda: pallas_walk.list_walk_closest_plain(
+            blocks, counts, ids, bases, entries, po, pd, ptn, ptx, True)
+        ref_c = plain_c()
+        rounds = {}
+        for stream in (False, True):
+            rounds[stream] = torch.empty((npad // group, 2),
+                                         dtype=torch.int32, device=dev)
+            got_c = closest(stream, rounds[stream])
+            for f, a, b in zip(("t", "tri", "u", "v"), got_c, ref_c):
+                assert torch.equal(a, b), \
+                    f"K6 closest K={k} stream={stream}: {f}"
+            err[k, stream] = (got_c[0] - ref_c[0]).abs().max().item()
+        assert torch.equal(rounds[False], rounds[True]), "rounds differ"
+        plain_log = visit_log(plain_c)
+        tc, tric, vc = tally(plain_log, sizes)
+        walked = rounds[False][:, 0].long()
+        own_tests = group * int(rounds[False][:, 1].long().sum())
+        assert int(walked.max()) <= len(plain_log), \
+            (int(walked.max()), len(plain_log))
+        assert int(walked.sum()) <= vc * (256 // group)
+        # the plain walk's bound (the yardstick of every form), which the
+        # JSON line takes: its visits' tests; bytes: rays, counts, the list
+        # entries the walk reads (ids, entries and bases: one per round and
+        # the stopping one per tile), the visited clusters' triangles, hits
+        plain_bnd = bound(tc, npad * (RAY_BYTES + 16) + nt * 4
+                          + (vc + nt) * 12 + tric * TRI_BYTES)
+        # the kernels' own work beside it (own_bound_ms): the tests they
+        # make; bytes: rays, counts, each tile's list (id, entry, base) and
+        # the triangles of its clusters up to its longest group's stop, hits
+        reach = rounds[False][:, 0].view(nt, -1).amax(dim=1).long()
+        lists = int(reach.sum())
+        in_reach = (torch.arange(ids.shape[1], device=dev)[None, :]
+                    < reach[:, None])
+        reached = int((cs.tri_count[ids.long()] * in_reach).sum())
+        bnd = bound(own_tests, npad * (RAY_BYTES + 16) + nt * 4 + lists * 12
+                    + reached * TRI_BYTES)
+        ms = {stream: cuda_ms(lambda: closest(stream), 20)
+              for stream in (False, True)}
+        mr = lambda t: o.shape[0] / t / 1e3
+        log("list", f"{name} K={k} tile 256 ({nt} tiles, {npad // group} "
+                    f"groups of {group}): closest resident {ms[False]:.4f} ms,"
+                    f" streamed {ms[True]:.4f} ms ({mr(ms[False]):.1f} and "
+                    f"{mr(ms[True]):.1f} Mrays/s); bound "
+                    f"{plain_bnd['bound_ms']:.4f} ms "
+                    f"({plain_bnd['bound_by']}) from the plain walk's work, "
+                    f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) from the "
+                    f"kernels' own; groups "
+                    f"walked {int(walked.sum())} rounds, at most "
+                    f"{int(walked.max())}, against {vc} tile visits of the "
+                    f"plain walk (x {256 // group} groups a tile = "
+                    f"{vc * (256 // group)}), at most {len(plain_log)}; "
+                    f"ray-triangle tests: the plain walk's {tc}, the "
+                    f"groups' own {own_tests} ({own_tests / max(tc, 1):.3f}x)")
+        if k == 128:
+            pc = cuda_ms(plain_c, 2)
+            for stream, suffix in ((False, ""), (True, "_stream")):
+                results[f"list_walk_closest{suffix}"] = dict(
+                    max_abs_err=err[k, stream], ms=ms[stream], plain_ms=pc,
+                    **plain_bnd, own_bound_ms=bnd["bound_ms"])
+
+    cs = wts.clusters_walk
     sizes = clusters.cluster_sizes(cs, wts.num_tris)
     blocks = cs.blocks()
     t3 = torch.where(tmax < 0, -1.0, torch.full_like(tmax, 3.0))
-    prep_c = pallas_walk.prepare(cs, o, d, tmin, tmax, 256, True)
     prep_a = pallas_walk.prepare(cs, o, d, tmin, t3, 256, True)
-    po, pd, ptn, ptx, _, entries, ids, bases, counts, _ = prep_c
-    qtx, q_entries, q_ids, q_counts = (prep_a[3], prep_a[5], prep_a[6],
-                                       prep_a[8])
-    npad, nt = po.shape[0], ids.shape[0]
-    closest = lambda stream: kernels.closest(
-        blocks, counts, ids, bases, entries, po, pd, ptn, ptx, True, True,
-        stream)
+    po, pd, ptn, qtx, _, q_entries, q_ids, _, q_counts, _ = prep_a
+    npad, nt = po.shape[0], q_ids.shape[0]
     any_hit = lambda stream: kernels.any_hit(
         blocks, q_counts, q_ids, q_entries, po, pd, ptn, qtx, stream)
-    plain_c = lambda: pallas_walk.list_walk_closest_plain(
-        blocks, counts, ids, bases, entries, po, pd, ptn, ptx, True)
     plain_a = lambda: pallas_walk.list_walk_any_plain(
         blocks, q_counts, q_ids, q_entries, po, pd, ptn, qtx)
-    ref_c, ref_a = plain_c(), plain_a()
-    results, err = {}, {}
-    for stream in (False, True):
-        got_c, got_a = closest(stream), any_hit(stream)
-        for f, a, b in zip(("t", "tri", "u", "v"), got_c, ref_c):
-            assert torch.equal(a, b), f"K6 closest stream={stream}: {f}"
-        assert torch.equal(got_a, ref_a), f"K6 any stream={stream}"
-        err[stream] = ((got_c[0] - ref_c[0]).abs().max().item(),
-                       (got_a - ref_a).abs().max().item())
-    pc, pa = cuda_ms(plain_c, 2), cuda_ms(plain_a, 2)
-    tc, tric, vc = visits(plain_c, sizes)
+    ref_a = plain_a()
+    pa = cuda_ms(plain_a, 2)
     ta, tria, va = visits(plain_a, sizes)
-    # bytes: rays, counts, the list entries the walk reads (ids, entries
-    # and, closest, bases: one per round and the stopping one per tile),
-    # the visited clusters' triangles, hits or flags
-    byte_c = (npad * (RAY_BYTES + 16) + nt * 4 + (vc + nt) * 12
-              + tric * TRI_BYTES)
+    # bytes: rays, counts, ids and entries (one per round and the stopping
+    # one per tile), the visited clusters' triangles, flags
     byte_a = (npad * (RAY_BYTES + 4) + nt * 4 + (va + nt) * 8
               + tria * TRI_BYTES)
     for stream, suffix in ((False, ""), (True, "_stream")):
-        kc = cuda_ms(lambda: closest(stream), 20)
+        got_a = any_hit(stream)
+        assert torch.equal(got_a, ref_a), f"K6 any stream={stream}"
         ka = cuda_ms(lambda: any_hit(stream), 20)
-        results[f"list_walk_closest{suffix}"] = dict(
-            max_abs_err=err[stream][0], ms=kc, plain_ms=pc,
-            **bound(tc, byte_c))
         results[f"list_walk_any{suffix}"] = dict(
-            max_abs_err=err[stream][1], ms=ka, plain_ms=pa,
-            **bound(ta, byte_a))
-        mr = lambda ms: o.shape[0] / ms / 1e3
-        log("list", f"{name} K=128 tile 256 ({nt} tiles, {vc} closest and "
-                    f"{va} any visits): {'streamed' if stream else 'resident'}"
-                    f" closest {kc:.3f} ms ({mr(kc):.1f} Mrays/s), plain "
-                    f"{pc:.2f} ms; any {ka:.3f} ms ({mr(ka):.1f} Mrays/s), "
-                    f"plain {pa:.2f} ms")
+            max_abs_err=(got_a - ref_a).abs().max().item(), ms=ka,
+            plain_ms=pa, **bound(ta, byte_a))
+        log("list", f"{name} K=128 tile 256 ({nt} tiles, {va} any visits): "
+                    f"{'streamed' if stream else 'resident'} any {ka:.3f} ms "
+                    f"({mr(ka):.1f} Mrays/s), plain {pa:.2f} ms")
     return results
 
 

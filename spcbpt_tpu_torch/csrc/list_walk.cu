@@ -1,5 +1,5 @@
-// List-walk ray traversal for Hopper (sm_90a): one ray tile per block over
-// its presorted near-to-far cluster list, closest hit and any hit, each in a
+// List-walk ray traversal for Hopper (sm_90a): ray tiles over their
+// presorted near-to-far cluster lists, closest hit and any hit, each in a
 // resident and a streamed form.
 //
 // Replaces the Pallas TPU kernels of spcbpt_tpu/ops/pallas_walk.py:
@@ -8,39 +8,93 @@
 //   list_walk_any             <- _any_kernel_vmem     (pallas_walk.py:207)
 //   list_walk_any_stream      <- _any_kernel          (pallas_walk.py:235)
 // and computes what they compute, lane for lane: Moller-Trumbore of every
-// lane against all 128 slots of the cluster's block in the operation order
+// lane against the triangles of the cluster's block in the operation order
 // of `_mt_rows` (built with --fmad=false and IEEE division, so t/u/v round
 // like the plain torch versions of ops/pallas_walk.py), the minimum t with
 // the smallest slot on ties and improvement on strict <, and the stop rules:
-// closest stops when the next entry exceeds the tile's largest
-// min(best_t, tmax) (unless prune is off), any hit when it exceeds the
-// largest tmax of the tile's unoccluded lanes (-1e30 for an occluded lane).
+// closest stops when the next entry exceeds the largest min(best_t, tmax) of
+// the lanes that walk together (unless prune is off), any hit when it
+// exceeds the largest tmax of the tile's unoccluded lanes (-1e30 for an
+// occluded lane).
 //
 // The walk list (count, ids, bases, entries) is built outside the kernel
-// (ops/pallas_walk._prepare) and read uniformly by the block. Triangles come
-// as the JAX package's (C, 16, 128) float blocks: rows 0..8 hold p0, e1, e2
-// (x, y, z) per slot, the rest zero; a zero slot has det = 0 and never hits.
+// (ops/pallas_walk._prepare) and read uniformly by the lanes that walk it.
+// Triangles come as the JAX package's (C, 16, 128) float blocks: rows 0..8
+// hold p0, e1, e2 (x, y, z) per slot, the rest zero; a zero slot has
+// det = 0 and never hits.
 //
-// What bounds them on the card. A round costs each lane 128 slot tests of
-// ~45 f32 operations against a 4.6 KB block read once per tile, so on paper
-// the walks are bound by arithmetic (of which the zero slots of a K=32 set
-// are three quarters) and the bytes are small. In practice the chain of
-// rounds bounds them: a tile walks its list in series, each round ending in
-// a block-wide max reduction and barriers, and a tile of incoherent rays
-// overlaps many clusters.
+// The closest forms. What bounded them in their first form (one block per
+// tile walking in lock step): the chain of rounds. A tile ended every round
+// in a block-wide max and barriers, so each warp walked as many rounds as
+// the tile's farthest lane needed, and a lane that escapes the scene kept
+// the tile's bound at its tmax: the tile then walked its whole list. Each
+// thread tested all 128 slots of each cluster in series (the K=32 set has
+// 23.8 triangles a cluster), with 256 threads a tile and 512 tiles for 2^17
+// rays: few warps, long chains. What bounds them now: the ray-triangle tests
+// themselves (the groups make most of the plain walk's), and the chain of
+// the group that walks longest (a group holding a ray that escapes the
+// scene still walks its whole list). The design:
+//   * Groups of kRays rays that walk and stop on their own, one warp each.
+//     A group walks its tile's own list in the tile's order, tests every
+//     cluster of it up to its stop, and stops when the next entry exceeds
+//     the warp max of min(best_t, tmax) over its rays (shuffles; no barrier
+//     of any kind in the loop, blocks of kGroupWarps independent warps). A
+//     ray's slots are spread over kSplit = 32 / kRays threads, slot k on
+//     thread k % kSplit, so that neighbouring threads read neighbouring
+//     slots of a (16, 128) row. Eight rays and four threads a ray, measured
+//     against 1, 2, 4, 16 and 32 rays (list_walk_variants.py at the root of
+//     the repository rebuilds each; PERF.md has the times): smaller groups
+//     stop sooner and test fewer pairs, but read every slot for fewer rays,
+//     and shorter chains do not make up for it.
+//   * Each thread keeps the (t, slot)-smallest hit of its slots under the
+//     round's min(best_t, tmax) (a slot whose det fails leaves its test at
+//     once; a branch-free test was slower); xor shuffles over the kSplit
+//     threads keep the smallest t, the smallest slot on ties, and its u, v:
+//     the serial loop's "strict <, smallest slot first"; then best improves
+//     on strict <.
+//   * The slot loop stops at the cluster's triangle count (tri_count); the
+//     slots past it are zero and never hit, so no bit changes.
+//   * Why a group's result equals its tile's, bit for bit. Along the shared
+//     order a group's bound is never above its tile's bound at the same
+//     round, so it stops at a round R_g no later than the tile's R_tile.
+//     For any round r in [R_g, R_tile) and any lane of the group, entries[r]
+//     >= entries[R_g] > min(best_t, tmax) of that lane (the list is sorted),
+//     and the entry is a lower bound on the hit t of every lane of the tile
+//     in that cluster (tile_trace.tile_entries, the property the pruned
+//     plain walk rests on), so no hit in those rounds passes t < tmax_eff.
+//     Ties between clusters at equal t go to the earlier cluster of the same
+//     list in both walks. The same argument lets a group test its bound
+//     before round 0, where the tile walk does not: a group of dead lanes
+//     walks nothing. Before its stop a group skips no cluster: an entry of
+//     the group's own is a lower bound on its hits only up to rounding (a
+//     one-ray group that skipped the clusters its own entry did not reach
+//     parted from the plain walk on a hit 2 ulps below that entry), and
+//     Moller-Trumbore's t has no forward error bound that would give a
+//     proven margin, since it grows without limit as det falls to its
+//     floor.
+//   * Chunks, so that a round waits on no load of its list: the group loads
+//     its list 32 positions at a time, lane j position p0 + j (id, count,
+//     base, entry), and round r takes its position from lane r - p0 by
+//     shuffles.
+//   * The resident form reads a cluster's slots in place (the whole table,
+//     1,370 or 368 x 8 KB at the interior, sits in the 50 MB L2); the
+//     streamed form stages the cluster's first tri_count slots of rows 0..8
+//     into a per-warp double buffer with cp.async, the next position in
+//     flight while one is tested, published with __syncwarp.
+//   * Optionally, each group writes the rounds it walked and the slots it
+//     tested per ray (out_rounds).
 //
-// What the design does about it, kept simple (a later PR makes it fast):
+// The any forms keep their first design:
 //   * one block per tile (128 or 256 threads), one thread per lane, blocks
-//     independent, as Pallas' grid programs are;
-//   * resident forms read the cluster's rows 0..8 from global memory, where
-//     the whole table (1,370 x 8 KB or 368 x 8 KB at the interior) sits in
-//     the 50 MB L2; every thread of a warp reads the same slot, a broadcast;
-//   * streamed forms stage rows 0..8 through two shared-memory buffers with
-//     cp.async: round r+1's block is in flight while round r computes (the
-//     2-deep DMA of pallas_walk.py:114-124), and the last copy is drained
-//     when the walk stops early;
-//   * a lane whose interval is empty (tmax_eff <= tmin, or occluded) skips
-//     the slot loop; it cannot hit.
+//     independent, as Pallas' grid programs are, the tile's bound a
+//     block-wide max each round;
+//   * the resident form reads the cluster's rows 0..8 from global memory;
+//     every thread of a warp reads the same slot, a broadcast;
+//   * the streamed form stages rows 0..8 through two shared-memory buffers
+//     with cp.async: round r+1's block is in flight while round r computes
+//     (the 2-deep DMA of pallas_walk.py:114-124), and the last copy is
+//     drained when the walk stops early;
+//   * an occluded lane, or one whose interval is empty, skips the slot loop.
 #include <cuda_runtime.h>
 
 namespace {
@@ -51,7 +105,10 @@ constexpr int kSlots = 128;       // slot columns of a (16, 128) block
 constexpr int kBlockRows = 16;
 constexpr int kTriRows = 9;       // p0 | e1 | e2, x y z each
 constexpr int kStage = kTriRows * kSlots;  // floats staged per round
-constexpr int kMaxTile = 256;     // rays per tile = threads per block
+constexpr int kMaxTile = 256;     // rays per tile = threads per any block
+constexpr int kRays = 8;          // rays per closest group, one warp each
+constexpr int kSplit = 32 / kRays;  // threads per ray of a closest group
+constexpr int kGroupWarps = 8;    // groups per block of the closest forms
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Ray {
@@ -101,11 +158,16 @@ __device__ __forceinline__ bool mt_slot(const Ray& r, const float* s, int k,
   return (u >= 0.0f) & (v >= 0.0f) & (u + v <= 1.0f) & (t > tmn) & (t < tmx);
 }
 
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int m = 16; m >= 1; m >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, m));
+  return x;
+}
+
 // Block-wide max over the tile's warps; ends with a barrier, so the scratch
 // is free for the next call.
 __device__ __forceinline__ float block_max(float x, float* red) {
-#pragma unroll
-  for (int m = 16; m >= 1; m >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, m));
+  x = warp_max(x);
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
   __syncthreads();
   x = red[0];
@@ -115,19 +177,43 @@ __device__ __forceinline__ float block_max(float x, float* red) {
   return x;
 }
 
-// The streamed forms' staging: rows 0..8 of cluster `cid` (4,608 bytes) into
-// a shared buffer with 16-byte cp.async copies, one commit group per stage.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// The streamed any form's staging: rows 0..8 of cluster `cid` (4,608 bytes)
+// into a shared buffer with 16-byte cp.async copies, one commit group per
+// stage.
 __device__ __forceinline__ void stage_async(float* buf,
                                             const float* __restrict__ blocks,
                                             int cid) {
   const float* b = blocks + static_cast<size_t>(cid) * kBlockRows * kSlots;
-  for (int j = threadIdx.x; j < kStage / 4; j += blockDim.x) {
-    const unsigned dst =
-        static_cast<unsigned>(__cvta_generic_to_shared(buf + 4 * j));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-                 "l"(b + 4 * j));
+  for (int j = threadIdx.x; j < kStage / 4; j += blockDim.x)
+    cp_async16(buf + 4 * j, b + 4 * j);
+  commit();
+}
+
+// The streamed closest form's staging, by one warp: the first `cnt` slots of
+// rows 0..8 of cluster `cid`, rounded up to whole 16-byte copies (the
+// columns past the count are zero and never tested), at the block's row
+// stride; one commit group per stage.
+__device__ __forceinline__ void stage_warp(float* buf,
+                                           const float* __restrict__ blocks,
+                                           int cid, int cnt, int lane) {
+  const float* b = blocks + static_cast<size_t>(cid) * kBlockRows * kSlots;
+  const int chunks = (cnt + 3) >> 2;  // per row
+  for (int j = lane; j < kTriRows * chunks; j += 32) {
+    const int row = j / chunks;
+    const int at = row * kSlots + 4 * (j - row * chunks);
+    cp_async16(buf + at, b + at);
   }
-  asm volatile("cp.async.commit_group;\n" ::);
+  commit();
 }
 
 __device__ __forceinline__ void wait_all_but_newest() {
@@ -156,67 +242,141 @@ __device__ __forceinline__ const float* round_block(
   return buf[r & 1];
 }
 
+// Closest hit: group g (one warp) holds rays g * kRays ... of its tile; lane
+// = kRays * q + ray, thread q of its ray tests slots q, q + kSplit, ... The
+// group takes its list 32 positions at a time (lane j loads position p0 + j)
+// and each round shuffles its position's cluster, count and base from the
+// lane that holds it.
 template <bool kStream>
-__global__ void __launch_bounds__(kMaxTile)
+__global__ void __launch_bounds__(32 * kGroupWarps)
 closest_kernel(const int* __restrict__ counts, const int* __restrict__ ids,
                const int* __restrict__ bases,
                const float* __restrict__ entries, const float* __restrict__ o,
                const float* __restrict__ d, const float* __restrict__ tmin,
                const float* __restrict__ tmax,
-               const float* __restrict__ blocks, int c_total, int cull,
-               int prune, float* __restrict__ out_t, int* __restrict__ out_tri,
-               float* __restrict__ out_u, float* __restrict__ out_v) {
-  __shared__ __align__(16) float buf[kStream ? 2 : 1][kStage];
-  __shared__ float red[kMaxTile / 32];
-  const int tile = blockIdx.x;
-  const size_t i = static_cast<size_t>(tile) * blockDim.x + threadIdx.x;
-  const size_t row = static_cast<size_t>(tile) * c_total;
-  const int n = __ldg(counts + tile);
+               const float* __restrict__ blocks,
+               const int* __restrict__ tri_count, int groups, int tile,
+               int c_total, int cull, int prune, float* __restrict__ out_t,
+               int* __restrict__ out_tri, float* __restrict__ out_u,
+               float* __restrict__ out_v, int* __restrict__ out_rounds) {
+  extern __shared__ __align__(16) float stages[];  // streamed: 2 a warp
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = blockIdx.x * kGroupWarps + warp;
+  if (g >= groups) return;  // the whole warp
+  const int q = lane / kRays;
+  const size_t first = static_cast<size_t>(g) * kRays;
+  const size_t i = first + lane % kRays;
+  const size_t row = first / tile * c_total;
+  const int n = __ldg(counts + first / tile);
   const Ray ray = load_ray(o, d, i);
   const float tmn = __ldg(tmin + i);
   const float tmx = __ldg(tmax + i);
+  float* buf = stages + warp * 2 * kStage;
   float best_t = kBig, best_u = 0.0f, best_v = 0.0f;
   int best_id = -1;
-  if (kStream && n > 0) stage_async(buf[0], blocks, __ldg(ids + row));
-  bool go = n > 0;
-  int r = 0;
-  while (go) {  // uniform over the block
-    const float* s = round_block<kStream>(blocks, ids + row, r, n, buf);
-    const float tmax_eff = fminf(best_t, tmx);
-    if (tmax_eff > tmn) {
+  float bound = warp_max(fminf(best_t, tmx));
+  int r = 0, slots = 0;
+  int staged = -1;  // streamed: the position copied ahead
+  bool walking = n > 0;
+  for (int p0 = 0; walking; p0 += 32) {
+    const int pos = p0 + lane;
+    const bool valid = pos < n;
+    int cid = 0, cnt = 0, base = 0;
+    float te = kBig;
+    if (valid) {
+      cid = __ldg(ids + row + pos);
+      cnt = __ldg(tri_count + cid);
+      base = __ldg(bases + row + pos);
+      te = __ldg(entries + row + pos);
+    }
+    for (; r - p0 < 32; ++r) {
+      const int at = r - p0;
+      // the stop: the list's end, or (prune) an entry past the bound
+      const bool open = valid && !(prune && te > bound);
+      if (!__shfl_sync(kFull, open, at)) {
+        walking = false;
+        break;
+      }
+      const int c_id = __shfl_sync(kFull, cid, at);
+      const int c_cnt = __shfl_sync(kFull, cnt, at);
+      const int c_base = __shfl_sync(kFull, base, at);
+      const float* s;
+      if (kStream) {
+        // round r's slots in buffer r & 1, round r + 1's in the other
+        if (staged != r)  // not copied ahead: the first round of a chunk
+          stage_warp(buf + (r & 1) * kStage, blocks, c_id, c_cnt, lane);
+        // the next position, copied while this one tests, if the bound
+        // reaches it now (should the bound fall past it this round, the
+        // copy is drained unused)
+        const int nx = at < 31 ? at + 1 : 31;
+        if (__shfl_sync(kFull, open, nx) && at < 31) {
+          stage_warp(buf + ((r + 1) & 1) * kStage, blocks,
+                     __shfl_sync(kFull, cid, nx), __shfl_sync(kFull, cnt, nx),
+                     lane);
+          staged = r + 1;
+          wait_all_but_newest();
+        } else {
+          staged = -1;
+          wait_all();
+        }
+        __syncwarp();  // every lane's copies of this position are visible
+        s = buf + (r & 1) * kStage;
+      } else {
+        s = blocks + static_cast<size_t>(c_id) * kBlockRows * kSlots;
+      }
+      slots += c_cnt;
+      const float tmax_eff = fminf(best_t, tmx);
       float cb = kBig, cu = 0.0f, cv = 0.0f;
       int cs = kSlots;
-      for (int k = 0; k < kSlots; ++k) {
-        float t, u, v;
-        if (mt_slot(ray, s, k, cull != 0, tmn, tmax_eff, t, u, v) && t < cb) {
-          cb = t;
-          cu = u;
-          cv = v;
-          cs = k;
+      if (tmax_eff > tmn) {
+#pragma unroll 4
+        for (int k = q; k < c_cnt; k += kSplit) {
+          float t, u, v;
+          if (mt_slot(ray, s, k, cull != 0, tmn, tmax_eff, t, u, v) &&
+              t < cb) {
+            cb = t;
+            cu = u;
+            cv = v;
+            cs = k;
+          }
+        }
+      }
+      // the kSplit threads of a ray: smallest t, then smallest slot
+#pragma unroll
+      for (int m = kRays; m < 32; m <<= 1) {
+        const float ot = __shfl_xor_sync(kFull, cb, m);
+        const int os = __shfl_xor_sync(kFull, cs, m);
+        const float ou = __shfl_xor_sync(kFull, cu, m);
+        const float ov = __shfl_xor_sync(kFull, cv, m);
+        if (ot < cb || (ot == cb && os < cs)) {
+          cb = ot;
+          cs = os;
+          cu = ou;
+          cv = ov;
         }
       }
       if (cb < best_t) {
         best_t = cb;
-        best_id = __ldg(bases + row + r) + cs;
+        best_id = c_base + cs;
         best_u = cu;
         best_v = cv;
       }
+      bound = warp_max(fminf(best_t, tmx));
+      // every lane is done with this stage before it is refilled
+      if (kStream) __syncwarp();
     }
-    ++r;
-    if (kStream || prune) {
-      const float bound = block_max(fminf(best_t, tmx), red);
-      go = r < n && __ldg(entries + row + r) <= bound;
-    } else {
-      go = r < n;
-    }
-    // every thread is done with this round's buffer before it is refilled
-    if (kStream) __syncthreads();
   }
-  if (kStream) wait_all();  // drain the prefetch of a walk that stopped early
-  out_t[i] = best_t;
-  out_tri[i] = best_id;
-  out_u[i] = best_u;
-  out_v[i] = best_v;
+  if (kStream) wait_all();  // drain a copy ahead of a walk that stopped
+  if (q == 0) {
+    out_t[i] = best_t;
+    out_tri[i] = best_id;
+    out_u[i] = best_u;
+    out_v[i] = best_v;
+  }
+  if (out_rounds != nullptr && lane == 0) {
+    out_rounds[2 * g] = r;
+    out_rounds[2 * g + 1] = slots;
+  }
 }
 
 template <bool kStream>
@@ -257,44 +417,71 @@ any_kernel(const int* __restrict__ counts, const int* __restrict__ ids,
   out_occ[i] = occ ? 1 : 0;
 }
 
+template <bool kStream>
+int launch_closest(const int* counts, const int* ids, const int* bases,
+                   const float* entries, const float* o, const float* d,
+                   const float* tmin, const float* tmax, const float* blocks,
+                   const int* tri_count, int nt, int tile, int c_total,
+                   int cull, int prune, float* out_t, int* out_tri,
+                   float* out_u, float* out_v, int* out_rounds, void* stream) {
+  const int groups = nt * (tile / kRays);
+  const int grid = (groups + kGroupWarps - 1) / kGroupWarps;
+  const size_t bytes = kStream ? sizeof(float) * 2 * kStage * kGroupWarps : 0;
+  if (kStream) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        closest_kernel<kStream>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  closest_kernel<kStream><<<grid, 32 * kGroupWarps, bytes,
+                            static_cast<cudaStream_t>(stream)>>>(
+      counts, ids, bases, entries, o, d, tmin, tmax, blocks, tri_count, groups,
+      tile, c_total, cull, prune, out_t, out_tri, out_u, out_v, out_rounds);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C interface, loaded with ctypes. All pointers are device pointers to
 // contiguous arrays; each launch goes on `stream` and the function returns
-// the cudaGetLastError() after it (0 on success).
+// the first CUDA error of setting its shared memory size and launching (0 on
+// success).
 //
 // counts (nt,) int32; ids, bases (nt, c) int32; entries (nt, c) float32,
 // each row sorted near to far; o/d (nt * tile, 3), tmin/tmax (nt * tile,)
-// float32; blocks (c, 16, 128) float32; tile a multiple of 32 up to 256.
-// Outputs (nt * tile,): t, tri, u, v (closest) or occ int32 (any).
+// float32; blocks (c, 16, 128) float32; tri_count (c,) int32, every slot at
+// or past it zero; tile a multiple of 32 up to 256.
+// Outputs (nt * tile,): t, tri, u, v (closest) or occ int32 (any); out_rounds
+// (nt * tile / list_walk_group_rays(), 2) int32 or null: per closest group
+// the rounds it walked and the slots it tested per ray.
+
+extern "C" int list_walk_group_rays() { return kRays; }
 
 extern "C" int list_walk_closest(const int* counts, const int* ids,
                                  const int* bases, const float* entries,
                                  const float* o, const float* d,
                                  const float* tmin, const float* tmax,
-                                 const float* blocks, int nt, int tile,
-                                 int c_total, int cull, int prune,
-                                 float* out_t, int* out_tri, float* out_u,
-                                 float* out_v, void* stream) {
-  closest_kernel<false><<<nt, tile, 0, static_cast<cudaStream_t>(stream)>>>(
-      counts, ids, bases, entries, o, d, tmin, tmax, blocks, c_total, cull,
-      prune, out_t, out_tri, out_u, out_v);
-  return static_cast<int>(cudaGetLastError());
+                                 const float* blocks, const int* tri_count,
+                                 int nt, int tile, int c_total, int cull,
+                                 int prune, float* out_t, int* out_tri,
+                                 float* out_u, float* out_v, int* out_rounds,
+                                 void* stream) {
+  return launch_closest<false>(counts, ids, bases, entries, o, d, tmin, tmax,
+                               blocks, tri_count, nt, tile, c_total, cull,
+                               prune, out_t, out_tri, out_u, out_v, out_rounds,
+                               stream);
 }
 
-extern "C" int list_walk_closest_stream(const int* counts, const int* ids,
-                                        const int* bases,
-                                        const float* entries, const float* o,
-                                        const float* d, const float* tmin,
-                                        const float* tmax,
-                                        const float* blocks, int nt, int tile,
-                                        int c_total, int cull, float* out_t,
-                                        int* out_tri, float* out_u,
-                                        float* out_v, void* stream) {
-  closest_kernel<true><<<nt, tile, 0, static_cast<cudaStream_t>(stream)>>>(
-      counts, ids, bases, entries, o, d, tmin, tmax, blocks, c_total, cull, 1,
-      out_t, out_tri, out_u, out_v);
-  return static_cast<int>(cudaGetLastError());
+extern "C" int list_walk_closest_stream(
+    const int* counts, const int* ids, const int* bases, const float* entries,
+    const float* o, const float* d, const float* tmin, const float* tmax,
+    const float* blocks, const int* tri_count, int nt, int tile, int c_total,
+    int cull, float* out_t, int* out_tri, float* out_u, float* out_v,
+    int* out_rounds, void* stream) {
+  return launch_closest<true>(counts, ids, bases, entries, o, d, tmin, tmax,
+                              blocks, tri_count, nt, tile, c_total, cull, 1,
+                              out_t, out_tri, out_u, out_v, out_rounds,
+                              stream);
 }
 
 extern "C" int list_walk_any(const int* counts, const int* ids,

@@ -3,7 +3,9 @@ their resident and streamed forms, closest hit and any hit.
 
 Each function checks its tensors, allocates the outputs with torch.empty,
 launches on the current stream and raises on a launch error. LAUNCHES
-counts each entry point's launches and nothing else.
+counts each entry point's launches and nothing else. The closest forms walk
+in groups of `group_rays()` rays, a warp each; they take the cluster set's
+`tri_count` (the slots they test).
 """
 from __future__ import annotations
 
@@ -34,13 +36,19 @@ def _lib() -> ctypes.CDLL:
     """The built library with its C signatures, set once at first use."""
     lib = build.load("list_walk")
     # pointers and the stream as c_void_p: ctypes would cut them to 32 bits
-    lib.list_walk_closest.argtypes = [_P] * 9 + [_I] * 5 + [_P] * 5
-    lib.list_walk_closest_stream.argtypes = [_P] * 9 + [_I] * 4 + [_P] * 5
+    lib.list_walk_closest.argtypes = [_P] * 10 + [_I] * 5 + [_P] * 6
+    lib.list_walk_closest_stream.argtypes = [_P] * 10 + [_I] * 4 + [_P] * 6
     lib.list_walk_any.argtypes = [_P] * 8 + [_I] * 3 + [_P] * 2
     lib.list_walk_any_stream.argtypes = [_P] * 8 + [_I] * 3 + [_P] * 2
-    for name in LAUNCHES:
+    lib.list_walk_group_rays.argtypes = []
+    for name in (*LAUNCHES, "list_walk_group_rays"):
         getattr(lib, name).restype = _I
     return lib
+
+
+def group_rays() -> int:
+    """Rays per group (one warp) of the closest kernels."""
+    return _lib().list_walk_group_rays()
 
 
 def _check_lists(blocks, counts, ids, entries, o, d, tmn, tmx):
@@ -67,17 +75,23 @@ def _check_lists(blocks, counts, ids, entries, o, d, tmn, tmx):
     return nt, tile, c, dev
 
 
-def closest(blocks, counts, ids, bases, entries, o, d, tmn, tmx, cull: bool,
-            prune: bool, stream: bool):
+def closest(blocks, tri_count, counts, ids, bases, entries, o, d, tmn, tmx,
+            cull: bool, prune: bool, stream: bool, rounds=None):
     """K6 closest hit on prepared rays -> (t, tri, u, v), each (n,); misses
-    keep t=1e30, tri=-1, u=v=0. stream=True launches the streamed form,
-    which always prunes."""
+    keep t=1e30, tri=-1, u=v=0. tri_count: the (C,) int32 slots to test per
+    cluster (every slot at or past it zero). stream=True launches the
+    streamed form, which always prunes. rounds: None, or an
+    (n / group_rays(), 2) int32 tensor that receives, per group, the rounds
+    it walked and the slots it tested per ray."""
     nt, tile, c, dev = _check_lists(blocks, counts, ids, entries, o, d, tmn,
                                     tmx)
     _check("bases", bases, torch.int32, (nt, c), dev)
+    _check("tri_count", tri_count, torch.int32, (c,), dev)
     if stream and not prune:
         raise ValueError("the streamed closest walk always prunes")
     n = o.shape[0]
+    if rounds is not None:
+        _check("rounds", rounds, torch.int32, (n // group_rays(), 2), dev)
     t = torch.empty((n,), dtype=torch.float32, device=dev)
     tri = torch.empty((n,), dtype=torch.int32, device=dev)
     u, v = torch.empty_like(t), torch.empty_like(t)
@@ -85,9 +99,10 @@ def closest(blocks, counts, ids, bases, entries, o, d, tmn, tmx, cull: bool,
         return t, tri, u, v
     ptrs = (counts.data_ptr(), ids.data_ptr(), bases.data_ptr(),
             entries.data_ptr(), o.data_ptr(), d.data_ptr(), tmn.data_ptr(),
-            tmx.data_ptr(), blocks.data_ptr(), nt, tile, c, int(bool(cull)))
+            tmx.data_ptr(), blocks.data_ptr(), tri_count.data_ptr(), nt, tile,
+            c, int(bool(cull)))
     outs = (t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
-            _stream(dev))
+            None if rounds is None else rounds.data_ptr(), _stream(dev))
     name = "list_walk_closest_stream" if stream else "list_walk_closest"
     with torch.cuda.device(dev):
         fn = getattr(_lib(), name)

@@ -19,11 +19,13 @@ Port of spcbpt_tpu/ops/pallas_walk.py:
 
 The walk runs where its tensors live: CUDA tensors launch the hand-written
 kernels of csrc/list_walk.cu (kernels/list_walk.py: the resident forms read
-the blocks from global memory, the streamed forms stage them through two
+the blocks from global memory, the streamed forms stage them through
 shared-memory buffers, as JAX's VMEM-resident and DMA-streamed kernels
-differ), or raise; CPU tensors run the plain versions below, which advance
-all tiles in lock step. The card checks each kernel against them
-(`walk_closest_plain` / `walk_any_plain` run them on any device).
+differ; the closest forms walk each tile's list in groups of rays, a warp
+each, each group stopping on its own bound, with the same results), or
+raise; CPU tensors run the plain versions below, which advance all tiles in
+lock step. The card checks each kernel against them (`walk_closest_plain` /
+`walk_any_plain` run them on any device).
 
 No render path walks this way, in JAX or here: the list walk's caller is
 the traversal profiler (apps/prof_traversal.py, JAX tools/prof_traversal.py).
@@ -139,13 +141,14 @@ def prepare(cs, origins, dirs, tmin, tmax, tile: int, sort_rays: bool):
     return _prepare(cs, origins, dirs, tmin, tmax, tile) + (perm,)
 
 
-def _closest_lists(blocks, prep, cull, prune, vmem_resident, plain):
+def _closest_lists(cs, prep, cull, prune, vmem_resident, plain):
     o, d, tmn, tmx, _, entries, ids, bases, counts = prep
     if plain or o.device.type == "cpu":
-        return list_walk_closest_plain(blocks, counts, ids, bases, entries, o,
-                                       d, tmn, tmx, cull, prune)
-    return kernels.closest(blocks, counts, ids, bases, entries, o, d, tmn,
-                           tmx, cull, prune, stream=not vmem_resident)
+        return list_walk_closest_plain(cs.blocks(), counts, ids, bases,
+                                       entries, o, d, tmn, tmx, cull, prune)
+    return kernels.closest(cs.blocks(), cs.tri_count, counts, ids, bases,
+                           entries, o, d, tmn, tmx, cull, prune,
+                           stream=not vmem_resident)
 
 
 def _any_lists(blocks, prep, vmem_resident, plain):
@@ -164,8 +167,8 @@ def _closest(cs, origins, dirs, tmin, tmax, cull_backface, tile, sort_rays,
                          "streamed closest walk always prunes")
     *prep, perm = prepare(cs, origins, dirs, tmin, tmax, tile, sort_rays)
     n = prep[4]
-    out = [a[:n] for a in _closest_lists(cs.blocks(), prep, cull_backface,
-                                         prune, vmem_resident, plain)]
+    out = [a[:n] for a in _closest_lists(cs, prep, cull_backface, prune,
+                                         vmem_resident, plain)]
     if perm is not None:
         out = [unsort(a, perm) for a in out]
     return _hit(*out)

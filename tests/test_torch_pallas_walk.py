@@ -20,7 +20,13 @@ Tolerances:
   * occlusion on at least 99.99% of lanes;
   * against the port's brute force (intersect.brute_force_*, the same
     arithmetic) on random triangles: every lane.
+The numpy transcription of the card's closest forms (tests/tile_designs.py,
+groups of rays that walk their tile's list and stop on their own bound) is
+held to the plain walk bit for bit (np.array_equal), its rounds to the
+plain walk's per tile.
 """
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -40,6 +46,7 @@ from spcbpt_tpu_torch.ops.pallas_tile import _mt_vpu, _pick
 from spcbpt_tpu_torch.render.common import camera_rays
 from spcbpt_tpu_torch.scene import scene as tscene
 
+import tile_designs
 from jax_native import native_jax_route  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
@@ -372,9 +379,197 @@ def test_kernel_bindings_refuse_cpu_tensors(random_case):
     po, pd, ptn, ptx, _, entries, ids, bases, counts = prep
     for stream in (False, True):
         with pytest.raises(ValueError, match="CUDA tensors"):
-            kernels.closest(tcs.blocks(), counts, ids, bases, entries, po, pd,
-                            ptn, ptx, True, True, stream)
+            kernels.closest(tcs.blocks(), tcs.tri_count, counts, ids, bases,
+                            entries, po, pd, ptn, ptx, True, True, stream)
         with pytest.raises(ValueError, match="CUDA tensors"):
             kernels.any_hit(tcs.blocks(), counts, ids, entries, po, pd, ptn,
                             ptx, stream)
     assert not any(kernels.LAUNCHES.values())
+
+
+# (k, tile, cull, group, sort_rays, prune): each value of k, tile, cull and
+# sort_rays at least twice, the kernels' group of 8 rays and one ray twice,
+# one thread a ray (32) once, prune=False once
+_DESIGN = [(32, 128, True, 1, False, True), (32, 256, False, 8, True, True),
+           (128, 128, False, 8, True, True),
+           (128, 256, True, 1, False, True),
+           (128, 128, True, 32, True, False)]
+
+
+@pytest.mark.parametrize("name", ["random", "interior"])
+@pytest.mark.parametrize("k,tile,cull,group,sort_rays,prune", _DESIGN)
+def test_group_walk_design_matches_plain(request, name, k, tile, cull, group,
+                                         sort_rays, prune):
+    """The closest kernels' design (groups of `group` rays, 32 / group
+    threads a ray, slots below tri_count, each group testing every cluster
+    of its tile's list up to its stop and stopping on its own bound) returns
+    the plain walk's t, tri, u and v bit for bit; no group walks more rounds
+    than its tile, and on the interior some one-ray groups walk fewer; the
+    slots a group tests are those of the clusters it walked."""
+    case = _cases(request, name)
+    _, tcs = case["sets"][k]
+    prep = pallas_walk.prepare(tcs, *map(_t, case["rays"]), tile,
+                               sort_rays)[:-1]
+    po, pd, ptn, ptx, _, entries, ids, bases, counts = prep
+    blocks = tcs.blocks()
+    ref = pallas_walk.list_walk_closest_plain(blocks, counts, ids, bases,
+                                              entries, po, pd, ptn, ptx,
+                                              cull, prune)
+    rec = {}
+    got = tile_designs.group_walk(tcs, counts, ids, bases, entries, po, pd,
+                                  ptn, ptx, cull, prune, group, rec)
+    for f, a, b in zip(("t", "tri", "u", "v"), got, ref):
+        np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=f)
+    assert 0.05 < (ref[1].numpy() >= 0).mean() < 0.95
+    nt = ids.shape[0]
+    rounds = rec["rounds"].reshape(nt, tile // group)
+    walked = np.cumsum(tcs.tri_count.numpy()[ids.numpy()], axis=1)
+    walked = np.where(rounds > 0, np.take_along_axis(
+        walked, np.maximum(rounds - 1, 0), axis=1), 0)
+    slots = rec["slots"].reshape(nt, tile // group)
+    assert (slots == walked).all()
+    if not prune:
+        assert (rounds == counts.numpy()[:, None]).all()
+        return
+    per_tile = _rounds_per_tile(blocks, prep, cull, False)[:, None]
+    assert (rounds <= per_tile).all()
+    if name == "interior" and group == 1:
+        assert (rounds < per_tile).any()
+
+
+def _tie_case():
+    """Two 32-ray tiles straight up onto one triangle at t = 2, held three
+    times: slots 2 and 7 of cluster 0 and slot 5 of cluster 1 (triangle
+    ids 0 + 2, 0 + 7 and 10 + 5); cluster 2 holds a farther triangle. Tile 0
+    lists cluster 1 first, tile 1 cluster 0; both lists end at cluster 2,
+    whose entry is past the hit. Returns the cluster set (blocks and
+    tri_count) and the walk's inputs."""
+    f32 = np.float32
+    rs = np.random.RandomState(3)
+    tri = np.array([[-1, -1, 2], [0, 3, 0], [3, 0, 0]], f32)  # p0, e1, e2
+    blocks = np.zeros((3, 16, 128), f32)
+    for c, s in ((0, 2), (0, 7), (1, 5)):
+        blocks[c, :9, s] = tri.reshape(9)
+    blocks[2, :9, 0] = (tri + np.array([[0, 0, 1], [0, 0, 0], [0, 0, 0]],
+                                       f32)).reshape(9)
+    cs = SimpleNamespace(
+        blocks=lambda: _t(blocks), tri_count=_t(np.array([8, 6, 1], np.int32)))
+    n = 64
+    o = np.zeros((n, 3), f32)
+    o[:, :2] = rs.uniform(-0.3, 0.3, (n, 2))
+    d = np.tile(np.array([0, 0, 1], f32), (n, 1))
+    lists = np.array([[1, 0, 2], [0, 1, 2]], np.int32)
+    begin = np.array([0, 10, 20], np.int32)
+    walk = dict(counts=np.array([3, 3], np.int32), ids=lists,
+                bases=begin[lists],
+                entries=np.tile(np.array([1.5, 1.5, 2.5], f32), (2, 1)),
+                o=o, d=d, tmn=np.full(n, 1e-3, f32), tmx=np.full(n, 1e16, f32))
+    return cs, [_t(a) for a in walk.values()]
+
+
+@pytest.mark.parametrize("group", [1, 8, 32])
+@pytest.mark.parametrize("cull", [True, False])
+def test_group_walk_design_ties(group, cull):
+    """Equal t bit for bit: the first-listed cluster wins across clusters,
+    the smallest slot within one, in the plain walk and the transcription."""
+    cs, args = _tie_case()
+    ref = pallas_walk.list_walk_closest_plain(cs.blocks(), *args, cull)
+    rec = {}
+    got = tile_designs.group_walk(cs, *args, cull, True, group, rec)
+    want = np.repeat(np.array([15, 2], np.int32), 32)
+    for a in (ref, got):
+        np.testing.assert_array_equal(a[1].numpy(), want)
+        assert (a[0].numpy() == np.float32(2)).all()
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert (rec["rounds"] == 2).all() and (rec["slots"] == 14).all()
+
+
+def _adversarial_case():
+    """Hits at small t that round below the ray's own slab entry: 8
+    clusters of 12 triangles each in one plane z = 0.5 (every third cluster
+    1 ulp above it, every other tilted by 1e-3 through a line of it), so
+    faces coincide across clusters and every box is flat or nearly so; 256
+    rays from 1e-4 to 0.1 above the plane, grazing it at slopes from 1e-3
+    to 1, each aimed at a triangle's vertex (half of them within about 1e-3
+    of it). Returns the cluster set and (origins, dirs, tmin, tmax)."""
+    f32 = np.float32
+    rs = np.random.RandomState(5)
+    n_clusters, per, n = 8, 12, 256
+    blocks = np.zeros((n_clusters, 16, 128), f32)
+    corners = []
+    for c in range(n_clusters):
+        z = np.nextafter(f32(0.5), f32(1)) if c % 3 == 1 else f32(0.5)
+        cx, cy = rs.uniform(-0.6, 0.6, 2).astype(f32)
+        v = np.empty((per, 3, 3), f32)
+        v[..., 0] = cx + rs.uniform(-0.5, 0.5, (per, 3)).astype(f32)
+        v[..., 1] = cy + rs.uniform(-0.5, 0.5, (per, 3)).astype(f32)
+        v[..., 2] = z
+        if c % 2:
+            v[..., 2] = z + (v[..., 1] - cy) * f32(1e-3)
+        blocks[c, 0:3, :per] = v[:, 0].T
+        blocks[c, 3:6, :per] = (v[:, 1] - v[:, 0]).T
+        blocks[c, 6:9, :per] = (v[:, 2] - v[:, 0]).T
+        corners.append(v.reshape(-1, 3))
+    cs = SimpleNamespace(
+        blocks=lambda: _t(blocks),
+        tri_count=_t(np.full(n_clusters, per, np.int32)),
+        tri_begin=_t(np.arange(n_clusters, dtype=np.int32) * per),
+        cmin=_t(np.stack([c.min(axis=0) for c in corners])),
+        cmax=_t(np.stack([c.max(axis=0) for c in corners])))
+    h = (10.0 ** rs.uniform(-4, -1, n)).astype(f32)
+    target = np.concatenate(corners)[rs.randint(0, n_clusters * per * 3, n)]
+    target[:n // 2, :2] += rs.normal(0, 1e-3, (n // 2, 2)).astype(f32)
+    slope = (10.0 ** rs.uniform(-3, 0, n)).astype(f32)
+    ang = rs.uniform(0, 2 * np.pi, n)
+    horiz = np.stack([np.cos(ang), np.sin(ang)], 1).astype(f32)
+    o = np.empty((n, 3), f32)
+    o[:, :2] = target[:, :2] - horiz * (h / slope)[:, None]
+    o[:, 2] = target[:, 2] + h
+    d = np.concatenate([horiz, -slope[:, None]], axis=1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True).astype(f32)
+    return cs, [_t(a) for a in (o, d, np.full(n, 1e-6, f32),
+                                np.full(n, 1e16, f32))]
+
+
+@pytest.mark.parametrize("group", [1, 8, 32])
+@pytest.mark.parametrize("cull", [True, False])
+def test_group_walk_design_adversarial_hits(group, cull):
+    """Grazing, near-vertex hits on faces shared across clusters, at small
+    t: some of the plain walk's hits lie below the ray's own entry into its
+    cluster's box by more than 2^-16 of t (no skip on a ray's own entry with
+    such a margin would be safe), and the design, which skips no cluster
+    before its stop, still returns the plain walk's t, tri, u and v bit for
+    bit."""
+    cs, rays = _adversarial_case()
+    prep = pallas_walk._prepare(cs, *rays, 128)
+    po, pd, ptn, ptx, _, entries, ids, bases, counts = prep
+    ref = pallas_walk.list_walk_closest_plain(cs.blocks(), counts, ids, bases,
+                                              entries, po, pd, ptn, ptx, cull)
+    t, tri = ref[0].numpy(), ref[1].numpy()
+    lanes = np.nonzero(tri >= 0)[0]
+    assert lanes.size > 128
+    o, d, tn, tx = (a.numpy() for a in (po, pd, ptn, ptx))
+    own = np.array([tile_designs._group_entries(
+        cs, o[i:i + 1], d[i:i + 1], tn[i:i + 1], tx[i:i + 1])[tri[i] // 12]
+        for i in lanes])
+    assert (own - t[lanes] > t[lanes] * np.float32(2.0 ** -16)).any()
+    got = tile_designs.group_walk(cs, counts, ids, bases, entries, po, pd, ptn,
+                                  ptx, cull, True, group, {})
+    for f, a, b in zip(("t", "tri", "u", "v"), got, ref):
+        np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=f)
+
+
+@pytest.mark.parametrize("name", ["random", "interior"])
+def test_slots_past_tri_count_are_zero(request, name):
+    """The closest kernels test only the slots below tri_count: in both
+    cluster sets every slot at or past it is zero (det = 0, never a hit)."""
+    case = _cases(request, name)
+    for k in (32, 128):
+        _, tcs = case["sets"][k]
+        blk = tcs.blocks()[:, :9].numpy()
+        count = tcs.tri_count.numpy()
+        assert count.dtype == np.int32 and (count > 0).all()
+        assert (count <= k).all()
+        past = np.arange(blk.shape[-1]) >= count[:, None, None]
+        assert not np.where(past, blk, 0).any()

@@ -1,7 +1,8 @@
-"""numpy transcriptions of the tile-walk kernels' designs
-(spcbpt_tpu_torch/csrc/tile_walk.cu), which run only on the card: the CPU
-tests hold them bit for bit to the plain versions of ops/tile_trace and
-ops/pallas_tile, and their visits to ops/clusters.VISIT_LOG."""
+"""numpy transcriptions of the tile-walk and list-walk kernels' designs
+(spcbpt_tpu_torch/csrc/tile_walk.cu, csrc/list_walk.cu), which run only on
+the card: the CPU tests hold them bit for bit to the plain versions of
+ops/tile_trace, ops/pallas_tile and ops/pallas_walk, and their visits to
+ops/clusters.VISIT_LOG or to the plain walk's rounds."""
 from __future__ import annotations
 
 import numpy as np
@@ -11,12 +12,12 @@ import torch
 def mt_slots(o, d, blk, k, tmn, tmx, cull):
     """The kernel's branch-free slot test (`mt_test`) in numpy float32, every
     product and sum rounded on its own as the kernel (built with
-    --fmad=false) rounds it: o/d (R, 3), blk (16, 128), slots [0, k) ->
-    (hit, t, u, v), each (R, k)."""
+    --fmad=false) rounds it: o/d (..., R, 3), blk (..., 16, 128), tmn/tmx
+    (..., R), slots [0, k) -> (hit, t, u, v), each (..., R, k)."""
     f32 = np.float32
-    ox, oy, oz = (o[:, a:a + 1] for a in range(3))
-    dx, dy, dz = (d[:, a:a + 1] for a in range(3))
-    p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z = (blk[j, :k][None]
+    ox, oy, oz = (o[..., a:a + 1] for a in range(3))
+    dx, dy, dz = (d[..., a:a + 1] for a in range(3))
+    p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z = (blk[..., j, None, :k]
                                                    for j in range(9))
     pvx = dy * e2z - dz * e2y
     pvy = dz * e2x - dx * e2z
@@ -32,7 +33,7 @@ def mt_slots(o, d, blk, k, tmn, tmx, cull):
     v = (dx * qvx + dy * qvy + dz * qvz) * inv
     t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv
     hit = det_ok & (u >= 0) & (v >= 0) & (u + v <= 1) \
-        & (t > tmn[:, None]) & (t < tmx[:, None])
+        & (t > tmn[..., None]) & (t < tmx[..., None])
     return hit, t, u, v
 
 
@@ -137,3 +138,96 @@ def any_tile_walk(cs, o, d, tmn, tmx, rec):
             visited.append(int(cid))
         rec["visits"].append(visited)
     return torch.from_numpy(occ.astype(np.int32))
+
+
+def _lex_min(t, s, u, v, ot, os_, ou, ov):
+    """The shuffle step of the closest kernels: the other thread's (t, slot)
+    where it is smaller, the smaller slot at an equal t."""
+    take = (ot < t) | ((ot == t) & (os_ < s))
+    return (np.where(take, ot, t), np.where(take, os_, s),
+            np.where(take, ou, u), np.where(take, ov, v))
+
+
+def group_walk(cs, counts, ids, bases, entries, o, d, tmn, tmx, cull, prune,
+               group, rec):
+    """K6 closest (`closest_kernel` of csrc/list_walk.cu) on prepared rays
+    over cluster set `cs` (its blocks() and tri_count): groups of `group`
+    consecutive rays (one warp each) walk their tile's list in the tile's
+    order and test every cluster of it up to their stop. A group tests its
+    bound, the max of min(best_t, tmax) over its rays, before every round,
+    round 0 included, and stops when the next entry exceeds it (prune) or
+    the list ends. A ray's slots lie on S = 32 / group threads, slot k on
+    thread k % S; each thread keeps the (t, slot)-smallest hit of its slots
+    below the cluster's tri_count under the round's min(best_t, tmax) (1e30
+    and slot 128 without one), and xor steps over the S threads keep the
+    smallest t, then the smallest slot; best improves on strict <.
+    Returns (t, tri, u, v) as torch tensors; each group's rounds walked and
+    slots tested per ray go to rec["rounds"] and rec["slots"]."""
+    f32, big = np.float32, np.float32(1e30)
+    blocks = cs.blocks().numpy()
+    slots = blocks.shape[-1]
+    count, ids, bases, entries = (
+        a.numpy() for a in (cs.tri_count, ids, bases, entries))
+    nt, c = entries.shape
+    tile = o.shape[0] // nt
+    split = 32 // group
+    ng = o.shape[0] // group
+    og, dg = (a.numpy().reshape(ng, group, 3) for a in (o, d))
+    tn, tx = (a.numpy().reshape(ng, group) for a in (tmn, tmx))
+    tile_of = np.arange(ng) * group // tile
+    n = counts.numpy()[tile_of]
+    best_t = np.full((ng, group), big, f32)
+    best_id = np.full((ng, group), -1, np.int32)
+    best_u = np.zeros((ng, group), f32)
+    best_v = np.zeros((ng, group), f32)
+    rounds = np.zeros(ng, np.int64)
+    tested = np.zeros(ng, np.int64)
+    bound = lambda g: np.minimum(best_t[g], tx[g]).max(axis=1)
+    walk = n > 0
+    if prune:
+        walk &= entries[tile_of, 0] <= bound(slice(None))
+    run = np.nonzero(walk)[0]
+    slot = np.arange(slots).reshape(slots // split, split)   # [j, q]
+    r = 0
+    while run.size:
+        tl = tile_of[run]
+        cid = ids[tl, r]
+        tested[run] += count[cid]
+        tmax_eff = np.minimum(best_t[run], tx[run])
+        hit, t, u, v = mt_slots(og[run], dg[run], blocks[cid], slots,
+                                tn[run], tmax_eff, cull)
+        hit &= np.arange(slots) < count[cid][:, None, None]
+        hit &= (tmax_eff > tn[run])[..., None]
+        # thread q: its slots q, q + S, ... ascending, strict <
+        shape = (run.size, group, slots // split, split)
+        tq = np.where(hit, t, big).reshape(shape)
+        j = np.argmin(tq, axis=2)[:, :, None, :]
+        any_q = hit.reshape(shape).any(axis=2)
+        pick = lambda a: np.take_along_axis(a.reshape(shape), j, 2)[:, :, 0]
+        cb = np.where(any_q, pick(tq), big)
+        cs_ = np.where(any_q, slot[j[:, :, 0, :], np.arange(split)], slots)
+        cu = np.where(any_q, pick(u), f32(0))
+        cv = np.where(any_q, pick(v), f32(0))
+        mask = 1
+        while mask < split:
+            other = np.arange(split) ^ mask
+            cb, cs_, cu, cv = _lex_min(cb, cs_, cu, cv, cb[..., other],
+                                       cs_[..., other], cu[..., other],
+                                       cv[..., other])
+            mask <<= 1
+        cb, cs_, cu, cv = cb[..., 0], cs_[..., 0], cu[..., 0], cv[..., 0]
+        imp = cb < best_t[run]
+        best_t[run] = np.where(imp, cb, best_t[run])
+        best_id[run] = np.where(imp, bases[tl, r][:, None] + cs_,
+                                 best_id[run])
+        best_u[run] = np.where(imp, cu, best_u[run])
+        best_v[run] = np.where(imp, cv, best_v[run])
+        r += 1
+        rounds[run] = r
+        more = r < n[run]
+        if prune:
+            more &= entries[tl, min(r, c - 1)] <= bound(run)
+        run = run[more]
+    rec["rounds"], rec["slots"] = rounds, tested
+    return [torch.from_numpy(a.reshape(-1))
+            for a in (best_t, best_id, best_u, best_v)]
