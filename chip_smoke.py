@@ -44,10 +44,11 @@ Phases, one status line each; any failure raises and exits non-zero:
      hit, resident and streamed) on both cluster sets of one BVH (the tile
      mode's K=32, the walk mode's K=128) for the camera, bounce and
      connection wavefronts, both cull settings, tiles of 256 (and 128 for
-     the resident closest form), prune=False once; against brute force on
-     a subset; times per call (the closest forms at K=128 and K=32), and
-     the rounds each closest group walked against the plain walk's tile
-     visits;
+     the resident closest form and both any forms), prune=False once;
+     against brute force on a subset; times per call (every form at K=128
+     and K=32, the any forms also on the connection wavefront), and the
+     rounds and tests each group made against the plain walk's tile visits
+     and tests;
  11. the list walk's path: the traversal profiler `python -m
      spcbpt_tpu_torch.apps.prof_traversal` at its defaults (2^17 rays,
      both sets, tiles 128 and 256, every form) in a process of its own;
@@ -72,9 +73,9 @@ process and are read from its last line); the CLI renders' PNG, HDR and
 stats go to smoke_out/. The last three lines are the card as nvidia-smi
 names it, one JSON object with each kernel's numbers (its bound from the
 plain version's visits on the same inputs, see PEAK_F32_FLOPS; the K6
-closest forms, which test fewer pairs than their plain version, carry the
-bound of their own tests beside it as own_bound_ms), and {"ok": true,
-"device": {...}}.
+forms, which test fewer pairs than their plain version, take the bound of
+their own tests and carry the plain walk's beside it as plain_bound_ms),
+and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -940,9 +941,10 @@ def phase_list_walk(tts, wts, waves, dev) -> dict:
     """K6, all four forms, against their plain versions on both cluster sets
     of one BVH (K=32 of the tile mode, K=128 of the walk mode): the camera,
     bounce and connection wavefronts, both cull settings, tiles of 256 (and
-    128 for the resident closest form), prune=False once; against brute
-    force on a subset; times on the bounce wavefront at tile 256, K=128
-    (and K=32 for the closest forms), with the closest groups' rounds."""
+    128 for the resident closest form and both any forms), prune=False once;
+    against brute force on a subset; times on the bounce wavefront at tile
+    256, K=128 and K=32 (the any forms also on the connection wavefront),
+    with the groups' rounds and tests."""
     from spcbpt_tpu_torch.kernels import list_walk as kernels
     from spcbpt_tpu_torch.ops import clusters, intersect, pallas_walk
 
@@ -981,20 +983,22 @@ def phase_list_walk(tts, wts, waves, dev) -> dict:
                             f", brute on {BRUTE_SUBSET} rays {bf_agree:.6f}")
                 assert bf_agree >= TRI_AGREE, (k, name, cull, bf_agree)
             tseg = any_segments(name, tmax, n, dev)
-            occ_p = pallas_walk.walk_any_plain(cs, o, d, tmin, tseg,
-                                               sort_rays=sort)
-            for resident in (True, False):
-                occ_k = pallas_walk.walk_any(cs, o, d, tmin, tseg,
-                                             sort_rays=sort,
-                                             vmem_resident=resident)
-                torch.cuda.synchronize()
-                assert torch.equal(occ_k, occ_p), \
-                    f"K6 any resident={resident} K={k} {name}: differs"
+            for tile in (256, 128):
+                occ_p = pallas_walk.walk_any_plain(cs, o, d, tmin, tseg,
+                                                   tile=tile, sort_rays=sort)
+                for resident in (True, False):
+                    occ_k = pallas_walk.walk_any(cs, o, d, tmin, tseg,
+                                                 tile=tile, sort_rays=sort,
+                                                 vmem_resident=resident)
+                    torch.cuda.synchronize()
+                    assert torch.equal(occ_k, occ_p), \
+                        (f"K6 any resident={resident} K={k} tile={tile} "
+                         f"{name}: differs")
             bf = intersect.brute_force_any(o[sub], d[sub], *tris, tmin[sub],
                                            tseg[sub])
             bf_agree = (occ_k[sub] == bf).float().mean().item()
-            log("list", f"K={k} {name}: any resident and streamed equal the "
-                        f"plain version (occluded "
+            log("list", f"K={k} {name}: any resident and streamed (tiles "
+                        f"256, 128) equal the plain version (occluded "
                         f"{occ_k.float().mean().item():.4f}), brute "
                         f"{bf_agree:.6f}")
             assert bf_agree >= OCC_AGREE, (k, name, bf_agree)
@@ -1020,9 +1024,8 @@ def phase_list_walk(tts, wts, waves, dev) -> dict:
     # tile 256 (closest with culling, any with segments up to 3, as the
     # profiler walks them), against the plain version; the JSON line takes
     # K=128, the closest forms are timed at K=32 too. The closest groups'
-    # rounds and slots tested (the kernels' optional output) against the
-    # plain walk's tile rounds and tests: the kernels' own ray-triangle
-    # tests are each group's rays times the slots it tested
+    # rounds and their rays' tests (the kernels' optional output) against
+    # the plain walk's tile rounds and tests
     group = kernels.group_rays()
     results, err = {}, {}
     for k, cs in ((128, wts.clusters_walk), (32, tts.clusters)):
@@ -1050,19 +1053,20 @@ def phase_list_walk(tts, wts, waves, dev) -> dict:
         plain_log = visit_log(plain_c)
         tc, tric, vc = tally(plain_log, sizes)
         walked = rounds[False][:, 0].long()
-        own_tests = group * int(rounds[False][:, 1].long().sum())
+        own_tests = int(rounds[False][:, 1].long().sum())
         assert int(walked.max()) <= len(plain_log), \
             (int(walked.max()), len(plain_log))
         assert int(walked.sum()) <= vc * (256 // group)
-        # the plain walk's bound (the yardstick of every form), which the
-        # JSON line takes: its visits' tests; bytes: rays, counts, the list
-        # entries the walk reads (ids, entries and bases: one per round and
-        # the stopping one per tile), the visited clusters' triangles, hits
+        # the plain walk's bound (plain_bound_ms, the yardstick across
+        # forms): its visits' tests; bytes: rays, counts, the list entries
+        # the walk reads (ids, entries and bases: one per round and the
+        # stopping one per tile), the visited clusters' triangles, hits
         plain_bnd = bound(tc, npad * (RAY_BYTES + 16) + nt * 4
                           + (vc + nt) * 12 + tric * TRI_BYTES)
-        # the kernels' own work beside it (own_bound_ms): the tests they
-        # make; bytes: rays, counts, each tile's list (id, entry, base) and
-        # the triangles of its clusters up to its longest group's stop, hits
+        # the bound the JSON line takes, of the work the kernels need: the
+        # tests they make; bytes: rays, counts, each tile's list (id, entry,
+        # base) and the triangles of its clusters up to its longest group's
+        # stop, hits
         reach = rounds[False][:, 0].view(nt, -1).amax(dim=1).long()
         lists = int(reach.sum())
         in_reach = (torch.arange(ids.shape[1], device=dev)[None, :]
@@ -1092,36 +1096,82 @@ def phase_list_walk(tts, wts, waves, dev) -> dict:
             for stream, suffix in ((False, ""), (True, "_stream")):
                 results[f"list_walk_closest{suffix}"] = dict(
                     max_abs_err=err[k, stream], ms=ms[stream], plain_ms=pc,
-                    **plain_bnd, own_bound_ms=bnd["bound_ms"])
+                    **bnd, plain_bound_ms=plain_bnd["bound_ms"])
 
-    cs = wts.clusters_walk
-    sizes = clusters.cluster_sizes(cs, wts.num_tris)
-    blocks = cs.blocks()
+    # the any forms on the bounce wavefront with segments up to 3 (as the
+    # profiler walks them; K=128 in the JSON line) and on the connection
+    # wavefront's own segments, both sets, tile 256; each form's groups'
+    # rounds and their own tests (the kernels' optional output, each ray up
+    # to its first occluder) against the plain walk's tile rounds and tests
     t3 = torch.where(tmax < 0, -1.0, torch.full_like(tmax, 3.0))
-    prep_a = pallas_walk.prepare(cs, o, d, tmin, t3, 256, True)
-    po, pd, ptn, qtx, _, q_entries, q_ids, _, q_counts, _ = prep_a
-    npad, nt = po.shape[0], q_ids.shape[0]
-    any_hit = lambda stream: kernels.any_hit(
-        blocks, q_counts, q_ids, q_entries, po, pd, ptn, qtx, stream)
-    plain_a = lambda: pallas_walk.list_walk_any_plain(
-        blocks, q_counts, q_ids, q_entries, po, pd, ptn, qtx)
-    ref_a = plain_a()
-    pa = cuda_ms(plain_a, 2)
-    ta, tria, va = visits(plain_a, sizes)
-    # bytes: rays, counts, ids and entries (one per round and the stopping
-    # one per tile), the visited clusters' triangles, flags
-    byte_a = (npad * (RAY_BYTES + 4) + nt * 4 + (va + nt) * 8
-              + tria * TRI_BYTES)
-    for stream, suffix in ((False, ""), (True, "_stream")):
-        got_a = any_hit(stream)
-        assert torch.equal(got_a, ref_a), f"K6 any stream={stream}"
-        ka = cuda_ms(lambda: any_hit(stream), 20)
-        results[f"list_walk_any{suffix}"] = dict(
-            max_abs_err=(got_a - ref_a).abs().max().item(), ms=ka,
-            plain_ms=pa, **bound(ta, byte_a))
-        log("list", f"{name} K=128 tile 256 ({nt} tiles, {va} any visits): "
-                    f"{'streamed' if stream else 'resident'} any {ka:.3f} ms "
-                    f"({mr(ka):.1f} Mrays/s), plain {pa:.2f} ms")
+    segments = [(f"{name} tmax 3", o, d, t3), waves[2]]
+    forms = ((False, "resident", ""), (True, "streamed", "_stream"))
+    for k, cs in ((128, wts.clusters_walk), (32, tts.clusters)):
+        sizes = clusters.cluster_sizes(cs, wts.num_tris)
+        blocks = cs.blocks()
+        for wave, wo, wd, wt in segments:
+            wtmin = torch.full((wo.shape[0],), 1e-3, device=dev)
+            po, pd, ptn, qtx, _, q_entries, q_ids, _, q_counts, _ = \
+                pallas_walk.prepare(cs, wo, wd, wtmin, wt, 256, True)
+            npad, nt = po.shape[0], q_ids.shape[0]
+            any_hit = lambda stream, rounds=None: kernels.any_hit(
+                blocks, cs.tri_count, q_counts, q_ids, q_entries, po, pd, ptn,
+                qtx, stream, rounds)
+            plain_a = lambda: pallas_walk.list_walk_any_plain(
+                blocks, q_counts, q_ids, q_entries, po, pd, ptn, qtx)
+            ref_a = plain_a()
+            plain_log = visit_log(plain_a)
+            ta, tria, va = tally(plain_log, sizes)
+            # the plain walk's bound (plain_bound_ms); bytes: rays, counts,
+            # ids and entries (one per round and the stopping one per tile),
+            # the visited clusters' triangles, flags
+            plain_bnd = bound(ta, npad * (RAY_BYTES + 4) + nt * 4
+                              + (va + nt) * 8 + tria * TRI_BYTES)
+            timed = k == 128 and wave == segments[0][0]    # the JSON line's
+            pa = cuda_ms(plain_a, 2) if timed else None
+            log("list", f"{wave} K={k} tile 256 ({nt} tiles): occluded "
+                        f"{ref_a.float().mean().item():.4f}; the plain walk's "
+                        f"{va} tile visits (at most {len(plain_log)} a "
+                        f"tile), {ta} ray-triangle tests, bound "
+                        f"{plain_bnd['bound_ms']:.4f} ms "
+                        f"({plain_bnd['bound_by']})")
+            for stream, form, suffix in forms:
+                group = kernels.any_group_rays(stream)
+                rounds = torch.empty((npad // group, 2), dtype=torch.int32,
+                                     device=dev)
+                got_a = any_hit(stream, rounds)
+                assert torch.equal(got_a, ref_a), \
+                    f"K6 any K={k} {wave} {form}"
+                walked = rounds[:, 0].long()
+                own_tests = int(rounds[:, 1].long().sum())
+                assert int(walked.max()) <= len(plain_log), \
+                    (int(walked.max()), len(plain_log))
+                assert int(walked.sum()) <= va * (256 // group)
+                # the bound the JSON line takes, of the work the kernel
+                # needs: its tests; bytes: rays, counts, each tile's list
+                # (id, entry) and the triangles of its clusters up to its
+                # longest group's stop, flags
+                reach = walked.view(nt, -1).amax(dim=1)
+                in_reach = (torch.arange(q_ids.shape[1], device=dev)[None, :]
+                            < reach[:, None])
+                reached = int((cs.tri_count[q_ids.long()] * in_reach).sum())
+                bnd = bound(own_tests, npad * (RAY_BYTES + 4) + nt * 4
+                            + int(reach.sum()) * 8 + reached * TRI_BYTES)
+                ms = cuda_ms(lambda: any_hit(stream), 20)
+                log("list", f"{wave} K={k}: any {form} {ms:.4f} ms "
+                            f"({wo.shape[0] / ms / 1e3:.1f} Mrays/s), "
+                            f"{npad // group} groups of {group} walked "
+                            f"{int(walked.sum())} rounds, at most "
+                            f"{int(walked.max())} (x {256 // group} groups "
+                            f"a tile: {va * (256 // group)}); own tests "
+                            f"{own_tests} ({own_tests / max(ta, 1):.3f}x the "
+                            f"plain walk's), own bound {bnd['bound_ms']:.4f} "
+                            f"ms ({bnd['bound_by']})")
+                if timed:
+                    results[f"list_walk_any{suffix}"] = dict(
+                        max_abs_err=(got_a - ref_a).abs().max().item(),
+                        ms=ms, plain_ms=pa, **bnd,
+                        plain_bound_ms=plain_bnd["bound_ms"])
     return results
 
 

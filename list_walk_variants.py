@@ -1,32 +1,34 @@
 #!/usr/bin/env python3
-"""Times design variants of the list-walk closest kernels K6 (resident and
-streamed) on one NVIDIA GPU.
+"""Times design variants of the list-walk kernels K6 (closest and any hit,
+each resident and streamed) on one NVIDIA GPU.
 
     python3 list_walk_variants.py [variant ...]   (default: all of them)
 
-The package ships one design of the closest forms in csrc/list_walk.cu
-(groups of rays, one warp each, that walk their tile's list, test every
-cluster of it up to their stop and stop on their own bound; the slot loop
-bounded by the cluster's tri_count; the list taken 32 positions a step) and
-no switch. This script makes the other forms that were tried from that
-source in memory (every patch must match the source exactly once; other
-forms are appended whole), builds each with nvcc beside the shipped form,
-runs both entry points of each (the resident form reads the slots in
-place, the streamed one stages them with cp.async: staged against in-place
-slots) on chip_smoke.py's three interior wavefronts (camera 512x512; 2^17
+The package ships one design of each query in csrc/list_walk.cu (groups of
+rays, one warp each, that walk their tile's list, test every cluster of it
+up to their stop and stop on their own bound; the slot loop bounded by the
+cluster's tri_count; the list taken 32 positions a step; an any-hit ray
+leaving at its first occluder) and no switch. This script makes the other
+forms that were tried from that source in memory (every patch must match
+the source exactly once; other forms are appended whole), builds each with
+nvcc beside the shipped form, and runs both entry points of each (the
+resident form reads the slots in place, the streamed one stages them with
+cp.async) on chip_smoke.py's interior wavefronts (camera 512x512; 2^17
 bounce rays, a quarter of the lanes dead; 3 x 2^16 connection segments, a
 third masked; sorted but the camera's), on both cluster sets (K=128 of the
-walk mode, K=32 of the tile mode), tiles of 256, checks the shipped forms
-against the plain walk on the bounce wavefront and every variant against
-the shipped form (`torch.equal` on t, tri, u, v), with back-face culling on
-and off, and prints the least of 3 x ITERS-launch mean times (culling on),
-with the rounds the groups walked, the ray-triangle tests they made, and
-the time of the tile that holds the shipped form's longest group launched
-alone (its chain of rounds without the other tiles). A variant whose hits
-differ from the shipped form's is reported, not timed less: the lanes
-where it parts from the plain walk, and for each the gap in ulps between
-the ray's own entry into the box of the plain walk's hit cluster and that
-hit's t. The variants:
+walk mode, K=32 of the tile mode), tiles of 256, and prints the least of
+ROUNDS x ITERS-launch mean times.
+
+Closest hit (every wavefront): the shipped forms are checked against the
+plain walk on the bounce wavefront and every variant against the shipped
+form (`torch.equal` on t, tri, u, v), with back-face culling on and off;
+times with culling on, with the rounds the groups walked, the ray-triangle
+tests they made, and the time of the tile that holds the shipped form's
+longest group launched alone (its chain of rounds without the other
+tiles). A variant whose hits differ from the shipped form's is reported,
+not timed less: the lanes where it parts from the plain walk, and for each
+the gap in ulps between the ray's own entry into the box of the plain
+walk's hit cluster and that hit's t. The variants:
   lockstep   the form before: one block per tile, one thread a ray,
              every round ending in a block-wide max and barriers, all 128
              slots tested;
@@ -46,6 +48,24 @@ hit's t. The variants:
   branch_free   the slot test without the branch on det (all of a slot's
              operations on every slot; the shipped test leaves a slot whose
              det fails at once).
+
+Any hit (the bounce wavefront with segments up to 3, as the traversal
+profiler walks it, and the connection wavefront's own segments): every
+form's flags are checked against the plain walk (`torch.equal`; a variant
+that parts is reported with its lanes, the shipped form must not part), and
+timed with the rounds its groups walked and the slots its rays tested. The
+variants:
+  any_lockstep   the form before: one block per tile, one thread a
+             ray, every round ending in a block-wide max, all 128 slots
+             tested in series;
+  any_all_slots  all 128 slots tested and staged (no tri_count);
+  any_vote_loop  a ray's threads vote at every step of the slot loop (a
+             ballot a step of 32 / group slots) and stop together, in place
+             of leaving at their own first hit and voting once a round;
+  any_rays1, any_rays2, any_rays4, any_rays8, any_rays16, any_rays32
+             groups of 1, 2, 4, 8, 16 or 32 rays in both forms (the shipped
+             forms take 1 ray resident and 4 streamed).
+
 The last line is one JSON object with the card, its power limit and every
 time. Needs a card, nvcc, and chip_smoke.py beside it. Nothing holds the
 shipped source to these patches: once it changes so that one no longer
@@ -68,8 +88,57 @@ import chip_smoke
 ROUNDS, ITERS = 3, 10
 TILE = 256
 
+# the lock-step forms' helpers: a block-wide max and the staging of a whole
+# block of slots by the tile's threads
+_LOCKSTEP_HELPERS = r"""
+constexpr int kMaxTile = 256;     // rays per tile = threads per block
+
+// Block-wide max over the tile's warps; ends with a barrier, so the scratch
+// is free for the next call.
+__device__ __forceinline__ float block_max(float x, float* red) {
+  x = warp_max(x);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
+  __syncthreads();
+  x = red[0];
+  const int warps = blockDim.x >> 5;
+  for (int w = 1; w < warps; ++w) x = fmaxf(x, red[w]);
+  __syncthreads();
+  return x;
+}
+
+// Rows 0..8 of cluster `cid` (4,608 bytes) into a shared buffer with 16-byte
+// cp.async copies by the block's threads, one commit group per stage.
+__device__ __forceinline__ void stage_async(float* buf,
+                                            const float* __restrict__ blocks,
+                                            int cid) {
+  const float* b = blocks + static_cast<size_t>(cid) * kBlockRows * kSlots;
+  for (int j = threadIdx.x; j < kStage / 4; j += blockDim.x)
+    cp_async16(buf + 4 * j, b + 4 * j);
+  commit();
+}
+
+// The block of round r: in place (resident) or staged (streamed; round r+1
+// is issued before round r is waited for).
+template <bool kStream>
+__device__ __forceinline__ const float* lockstep_block(
+    const float* __restrict__ blocks, const int* __restrict__ ids, int r,
+    int n, float (*buf)[kStage]) {
+  if (!kStream)
+    return blocks + static_cast<size_t>(__ldg(ids + r)) * kBlockRows * kSlots;
+  if (r + 1 < n) {
+    stage_async(buf[(r + 1) & 1], blocks, __ldg(ids + r + 1));
+    wait_all_but_newest();
+  } else {
+    wait_all();
+  }
+  __syncthreads();  // every thread's copies of round r are visible
+  return buf[r & 1];
+}
+"""
+
 _LOCKSTEP = r"""
 namespace {
+""" + _LOCKSTEP_HELPERS + r"""
 template <bool kStream>
 __global__ void __launch_bounds__(kMaxTile)
 closest_tile_kernel(const int* __restrict__ counts,
@@ -96,7 +165,7 @@ closest_tile_kernel(const int* __restrict__ counts,
   bool go = n > 0;
   int r = 0;
   while (go) {  // uniform over the block
-    const float* s = round_block<kStream>(blocks, ids + row, r, n, buf);
+    const float* s = lockstep_block<kStream>(blocks, ids + row, r, n, buf);
     const float tmax_eff = fminf(best_t, tmx);
     if (tmax_eff > tmn) {
       float cb = kBig, cu = 0.0f, cv = 0.0f;
@@ -162,6 +231,72 @@ extern "C" int list_walk_closest_lockstep_stream(
                               static_cast<cudaStream_t>(stream)>>>(
       counts, ids, bases, entries, o, d, tmin, tmax, blocks, c_total, cull, 1,
       out_t, out_tri, out_u, out_v);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+# the any forms before: one block per tile, one thread a lane, the tile's
+# bound a block-wide max each round, all 128 slots tested in series
+_ANY_LOCKSTEP = r"""
+namespace {
+""" + _LOCKSTEP_HELPERS + r"""
+template <bool kStream>
+__global__ void __launch_bounds__(kMaxTile)
+any_tile_kernel(const int* __restrict__ counts, const int* __restrict__ ids,
+                const float* __restrict__ entries, const float* __restrict__ o,
+                const float* __restrict__ d, const float* __restrict__ tmin,
+                const float* __restrict__ tmax,
+                const float* __restrict__ blocks, int c_total,
+                int* __restrict__ out_occ) {
+  __shared__ __align__(16) float buf[kStream ? 2 : 1][kStage];
+  __shared__ float red[kMaxTile / 32];
+  const int tile = blockIdx.x;
+  const size_t i = static_cast<size_t>(tile) * blockDim.x + threadIdx.x;
+  const size_t row = static_cast<size_t>(tile) * c_total;
+  const int n = __ldg(counts + tile);
+  const Ray ray = load_ray(o, d, i);
+  const float tmn = __ldg(tmin + i);
+  const float tmx = __ldg(tmax + i);
+  bool occ = false;
+  if (kStream && n > 0) stage_async(buf[0], blocks, __ldg(ids + row));
+  bool go = n > 0;
+  int r = 0;
+  while (go) {  // uniform over the block
+    const float* s = lockstep_block<kStream>(blocks, ids + row, r, n, buf);
+    if (!occ && tmx > tmn) {
+      for (int k = 0; k < kSlots && !occ; ++k) {
+        float t, u, v;
+        // a hit at t >= 1e30 is a miss in the plain version's t table
+        occ = mt_slot(ray, s, k, false, tmn, tmx, t, u, v) && t < kBig;
+      }
+    }
+    ++r;
+    const float open_max = block_max(occ ? -kBig : tmx, red);
+    go = r < n && __ldg(entries + row + r) <= open_max;
+    if (kStream) __syncthreads();
+  }
+  if (kStream) wait_all();
+  out_occ[i] = occ ? 1 : 0;
+}
+}  // namespace
+
+extern "C" int list_walk_any_lockstep(
+    const int* counts, const int* ids, const float* entries, const float* o,
+    const float* d, const float* tmin, const float* tmax, const float* blocks,
+    const int* tri_count, int nt, int tile, int c_total, int* out_occ,
+    int* out_rounds, void* stream) {
+  any_tile_kernel<false><<<nt, tile, 0, static_cast<cudaStream_t>(stream)>>>(
+      counts, ids, entries, o, d, tmin, tmax, blocks, c_total, out_occ);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int list_walk_any_lockstep_stream(
+    const int* counts, const int* ids, const float* entries, const float* o,
+    const float* d, const float* tmin, const float* tmax, const float* blocks,
+    const int* tri_count, int nt, int tile, int c_total, int* out_occ,
+    int* out_rounds, void* stream) {
+  any_tile_kernel<true><<<nt, tile, 0, static_cast<cudaStream_t>(stream)>>>(
+      counts, ids, entries, o, d, tmin, tmax, blocks, c_total, out_occ);
   return static_cast<int>(cudaGetLastError());
 }
 """
@@ -450,7 +585,7 @@ closest_kernel(const int* __restrict__ counts, const int* __restrict__ ids,
   }
   if (out_rounds != nullptr && lane == 0) {
     out_rounds[2 * g] = r;
-    out_rounds[2 * g + 1] = slots;
+    out_rounds[2 * g + 1] = kRays * slots;
   }
 }
 
@@ -528,19 +663,57 @@ _UNROLL = "#pragma unroll 4\n" + _SLOT_LOOP
 _MT_SLOT = ("          if (mt_slot(ray, s, k, cull != 0, tmn, tmax_eff, t, u, "
             "v) &&")
 _CLOSEST = "// Closest hit: group g (one warp)"
-_IN_PLACE = ("        s = blocks + static_cast<size_t>(c_id) * kBlockRows * "
+_IN_PLACE = ("  if (!kStream)\n"
+             "    return blocks + static_cast<size_t>(c_id) * kBlockRows * "
              "kSlots;\n")
-# the resident form with the next position's slots prefetched into L1
-_PREFETCH = _IN_PLACE + """        const int nx = at < 31 ? at + 1 : 31;
-        if (__shfl_sync(kFull, open, nx) && at < 31) {
-          const float* nb = blocks + static_cast<size_t>(
-              __shfl_sync(kFull, cid, nx)) * kBlockRows * kSlots;
-          const int lines = (__shfl_sync(kFull, cnt, nx) + 31) >> 5;
-          for (int j = lane; j < kTriRows * lines; j += 32)
-            asm volatile("prefetch.global.L1 [%0];" ::"l"(
-                nb + (j / lines) * kSlots + 32 * (j % lines)));
-        }
+# the resident forms with the next position's slots prefetched into L1
+_PREFETCH = """  if (!kStream) {
+    const int nx = at < 31 ? at + 1 : 31;
+    if (__shfl_sync(kFull, open, nx) && at < 31) {
+      const float* nb = blocks + static_cast<size_t>(
+          __shfl_sync(kFull, cid, nx)) * kBlockRows * kSlots;
+      const int lines = (__shfl_sync(kFull, cnt, nx) + 31) >> 5;
+      for (int j = lane; j < kTriRows * lines; j += 32)
+        asm volatile("prefetch.global.L1 [%0];" ::"l"(
+            nb + (j / lines) * kSlots + 32 * (j % lines)));
+    }
+    return blocks + static_cast<size_t>(c_id) * kBlockRows * kSlots;
+  }
 """
+_ANY_SLOT_LOOP = """      bool hit = false;
+      if (!occ && tmx > tmn) {
+#pragma unroll 4
+        for (int k = q; k < c_cnt; k += kAnySplit) {
+          float t, u, v;
+          ++tests;
+          // a hit at t >= 1e30 is a miss in the plain version's t table
+          if (mt_slot(ray, s, k, false, tmn, tmx, t, u, v) && t < kBig) {
+            hit = true;
+            break;
+          }
+        }
+      }
+      // the kAnySplit threads of a ray: occluded once one of them hit
+      const unsigned hits = __ballot_sync(kFull, hit);
+      occ = occ || ((hits >> ray_at) & kAnyRayLanes) != 0;
+"""
+# a ray's threads vote within the slot loop: kAnySplit slots a step, one
+# ballot a step, the ray's threads stop together at the step where one of
+# them hit, the warp when no ray is left open
+_ANY_VOTE_LOOP = """      for (int k0 = 0; k0 < c_cnt; k0 += kAnySplit) {
+        const int k = k0 + q;
+        bool hit = false;
+        if (!occ && tmx > tmn && k < c_cnt) {
+          float t, u, v;
+          ++tests;
+          hit = mt_slot(ray, s, k, false, tmn, tmx, t, u, v) && t < kBig;
+        }
+        const unsigned hits = __ballot_sync(kFull, hit);
+        occ = occ || ((hits >> ray_at) & kAnyRayLanes) != 0;
+        if (!__any_sync(kFull, !occ && tmx > tmn)) break;
+      }
+"""
+_ANY_GROUP_RAYS = re.compile(r"constexpr int kAny(Stream)?Rays = \d+;")
 _SLACK = "      const float reach = bound + fabsf(bound) * kEntrySlack;"
 
 
@@ -550,6 +723,23 @@ def _rays(n: int):
         assert hits == 1, f"the group size matches {hits} times"
         return out
     return patch
+
+
+def _any_rays(n: int):
+    """Groups of n rays in both any forms."""
+    def patch(src: str) -> str:
+        out, hits = _ANY_GROUP_RAYS.subn(
+            lambda m: f"constexpr int kAny{m.group(1) or ''}Rays = {n};", src)
+        assert hits == 2, f"the any group sizes match {hits} times"
+        return out
+    return patch
+
+
+def _any_all_slots(src: str) -> str:
+    """Every slot tested by the any forms, and so every slot staged."""
+    src = _once(src, _ANY_SLOT_LOOP, _ANY_SLOT_LOOP.replace(
+        "k < c_cnt; k += kAnySplit", "k < kSlots; k += kAnySplit"))
+    return _once(src, _STAGE_CHUNKS, "  const int chunks = kSlots / 4;")
 
 
 _SHIPPED = ("list_walk_closest", "list_walk_closest_stream")
@@ -577,13 +767,28 @@ VARIANTS = {
         "unroll 4", f"unroll {n}")), _SHIPPED, False, None) for n in (2, 8)},
 }
 
+_ANY_SHIPPED = ("list_walk_any", "list_walk_any_stream")
+# name -> (patch of the shipped source, resident and streamed entry points)
+ANY_VARIANTS = {
+    "any_shipped": (lambda s: s, _ANY_SHIPPED),
+    "any_lockstep": (lambda s: s + _ANY_LOCKSTEP,
+                     ("list_walk_any_lockstep",
+                      "list_walk_any_lockstep_stream")),
+    "any_all_slots": (_any_all_slots, _ANY_SHIPPED),
+    "any_vote_loop": (lambda s: _once(s, _ANY_SLOT_LOOP, _ANY_VOTE_LOOP),
+                      _ANY_SHIPPED),
+    **{f"any_rays{n}": (_any_rays(n), _ANY_SHIPPED)
+       for n in (1, 2, 4, 8, 16, 32)},
+}
+
 
 def build_variant(name: str, out_dir: str) -> tuple:
     """Patch, compile and load one variant -> (ctypes library, ptxas
     lines)."""
     from spcbpt_tpu_torch.kernels import build
+    patch = (ANY_VARIANTS if name in ANY_VARIANTS else VARIANTS)[name][0]
     with open(os.path.join(build.SRC_DIR, "list_walk.cu")) as f:
-        src = VARIANTS[name][0](f.read())
+        src = patch(f.read())
     cu = os.path.join(out_dir, f"list_walk_{name}.cu")
     so = os.path.join(out_dir, f"liblist_walk_{name}.so")
     with open(cu, "w") as f:
@@ -596,12 +801,18 @@ def build_variant(name: str, out_dir: str) -> tuple:
             if "Used " in line or "spill" in line]
     lib = ctypes.CDLL(so)
     p, i = ctypes.c_void_p, ctypes.c_int
-    _, (resident, streamed), boxes, _ = VARIANTS[name]
-    ptrs = 12 if boxes else 10
-    getattr(lib, resident).argtypes = [p] * ptrs + [i] * 5 + [p] * 6
-    getattr(lib, streamed).argtypes = [p] * ptrs + [i] * 4 + [p] * 6
+    if name in ANY_VARIANTS:
+        forms = ANY_VARIANTS[name][1]
+        for fn in forms:
+            getattr(lib, fn).argtypes = [p] * 9 + [i] * 3 + [p] * 3
+    else:
+        _, forms, boxes, _ = VARIANTS[name]
+        ptrs = 12 if boxes else 10
+        getattr(lib, forms[0]).argtypes = [p] * ptrs + [i] * 5 + [p] * 6
+        getattr(lib, forms[1]).argtypes = [p] * ptrs + [i] * 4 + [p] * 6
     lib.list_walk_group_rays.argtypes = []
-    for fn in (resident, streamed, "list_walk_group_rays"):
+    lib.list_walk_any_group_rays.argtypes = [i]
+    for fn in (*forms, "list_walk_group_rays", "list_walk_any_group_rays"):
         getattr(lib, fn).restype = i
     return lib, regs
 
@@ -634,24 +845,32 @@ def parted(cs, o, d, hit, ref) -> dict:
             "entry_minus_t_ulps": gap[:8], "t_minus_plain_t_ulps": moved[:8]}
 
 
+def _ptr(*xs):
+    return [x.data_ptr() for x in xs]
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("list_walk_variants: no CUDA device is available")
     from spcbpt_tpu_torch.apps.render_cli import resolve_scene
     from spcbpt_tpu_torch.kernels import build
-    from spcbpt_tpu_torch.ops import pallas_walk
     from spcbpt_tpu_torch.scene.scene import load_trace_scene
 
-    names = ["shipped"] + [a for a in (argv or VARIANTS) if a != "shipped"]
-    unknown = set(names) - set(VARIANTS)
+    asked = argv or [*VARIANTS, *ANY_VARIANTS]
+    unknown = set(asked) - set(VARIANTS) - set(ANY_VARIANTS)
     if unknown:
-        raise SystemExit(f"unknown variants {sorted(unknown)}; "
-                         f"known: {list(VARIANTS)}")
+        raise SystemExit(f"unknown variants {sorted(unknown)}; known: "
+                         f"{[*VARIANTS, *ANY_VARIANTS]}")
     with open(os.path.join(build.SRC_DIR, "list_walk.cu")) as f:
         src = f.read()
-    # the group size of the shipped form is no variant
-    names = [a for a in names
-             if a == "shipped" or VARIANTS[a][0](src) != src]
+    # each query's shipped form beside its variants; the group size of the
+    # shipped form is no variant
+    names = []
+    for table, shipped in ((VARIANTS, "shipped"),
+                           (ANY_VARIANTS, "any_shipped")):
+        mine = [a for a in asked if a in table and a != shipped]
+        if mine or shipped in asked:
+            names += [shipped] + [a for a in mine if table[a][0](src) != src]
     smi = chip_smoke.nvidia_smi_line()
     print(smi, flush=True)
     out_dir = os.path.join(build.BUILD_DIR, "variants")
@@ -668,12 +887,25 @@ def main(argv) -> int:
     wts, _, cam = load_trace_scene(path, dev)
     tts, _, _ = load_trace_scene(path, dev, mode="tile")
     cam.aspect = 1.0
-    ptr = lambda *xs: [x.data_ptr() for x in xs]
-    stream = torch.cuda.current_stream(dev).cuda_stream
     waves = chip_smoke.wavefronts(wts, cam, dev) + (
         chip_smoke.connection_wavefront(wts, cam, dev),)
     results = {name: {"ptxas": regs} for name, (_, regs) in built.items()}
-    for k, cs in ((128, wts.clusters_walk), (32, tts.clusters)):
+    sets = ((128, wts.clusters_walk), (32, tts.clusters))
+    time_closest({a: b for a, b in built.items() if a in VARIANTS}, sets,
+                 waves, results, dev)
+    time_any({a: b for a, b in built.items() if a in ANY_VARIANTS}, sets,
+             waves, results, dev)
+    print(json.dumps({"card": smi, "variants": results}))
+    return 0
+
+
+def time_closest(built, sets, waves, results, dev) -> None:
+    """The closest variants on every wavefront and set (see the module
+    note); each variant's numbers go to results[name]."""
+    from spcbpt_tpu_torch.ops import pallas_walk
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for k, cs in sets:
         blocks = cs.blocks()
         for wave, o, d, tmax in waves:
             n = o.shape[0]
@@ -702,15 +934,15 @@ def main(argv) -> int:
                     def launch(t0, t1, hit, rounds, cull, lib=lib, fn=fn,
                                form=form):
                         lanes = slice(t0 * TILE, t1 * TILE)
-                        args = ptr(counts[t0:t1], ids[t0:t1], bases[t0:t1],
+                        args = _ptr(counts[t0:t1], ids[t0:t1], bases[t0:t1],
                                    entries[t0:t1], po[lanes], pd[lanes],
                                    ptn[lanes], ptx[lanes], blocks,
                                    cs.tri_count)
                         if boxes:
-                            args += ptr(cs.cmin, cs.cmax)
+                            args += _ptr(cs.cmin, cs.cmax)
                         args += [t1 - t0, TILE, c, cull] + (
                             [1] if form == "resident" else [])
-                        err = getattr(lib, fn)(*args, *ptr(*hit, rounds),
+                        err = getattr(lib, fn)(*args, *_ptr(*hit, rounds),
                                                stream)
                         assert err == 0, (name, fn, err)
 
@@ -745,15 +977,74 @@ def main(argv) -> int:
                         walked, slots = rounds.long().sum(dim=0).tolist()
                         out[f"{form}_rounds_sum"] = walked
                         out[f"{form}_rounds_max"] = int(rounds[:, 0].max())
-                        out[f"{form}_tests"] = group * slots
+                        out[f"{form}_tests"] = slots
                 results[name][f"K={k} {wave}"] = out
                 same = not any(key.endswith("differs") for key in out)
                 print(f"{name:13s} K={k:3d} {wave:17s} " + ", ".join(
                     f"{key} {val:.4f}" if isinstance(val, float) else
                     f"{key} {val}" for key, val in out.items())
                     + (" (equal to shipped)" if same else ""), flush=True)
-    print(json.dumps({"card": smi, "variants": results}))
-    return 0
+
+
+def time_any(built, sets, waves, results, dev) -> None:
+    """The any variants on the bounce wavefront with segments up to 3 and
+    on the connection wavefront's own segments, both sets, tile 256, sorted:
+    each form's flags against the plain walk (the lanes where they part),
+    the least of ROUNDS x ITERS-launch mean times, and (but the lock-step
+    form) the rounds its groups walked and the slots its rays tested."""
+    from spcbpt_tpu_torch.ops import pallas_walk
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    name_b, o_b, d_b, tmax_b = waves[1]
+    t3 = torch.where(tmax_b < 0, -1.0, torch.full_like(tmax_b, 3.0))
+    for k, cs in sets:
+        blocks = cs.blocks()
+        for wave, o, d, tmax in ((f"{name_b} tmax 3", o_b, d_b, t3),
+                                 waves[2]):
+            tmin = torch.full((o.shape[0],), 1e-3, device=dev)
+            po, pd, ptn, ptx, _, entries, ids, _, counts, _ = \
+                pallas_walk.prepare(cs, o, d, tmin, tmax, TILE, True)
+            nt, c = ids.shape
+            plain = pallas_walk.list_walk_any_plain(blocks, counts, ids,
+                                                    entries, po, pd, ptn, ptx)
+            for name, (lib, _) in built.items():
+                occ = torch.empty((nt * TILE,), dtype=torch.int32, device=dev)
+                out = {}
+                for stream, (form, fn) in enumerate(zip(
+                        ("resident", "streamed"), ANY_VARIANTS[name][1])):
+                    group = lib.list_walk_any_group_rays(stream)
+                    rounds = torch.zeros((nt * TILE // group, 2),
+                                         dtype=torch.int32, device=dev)
+                    def launch(lib=lib, fn=fn, rounds=rounds):
+                        err = getattr(lib, fn)(
+                            *_ptr(counts, ids, entries, po, pd, ptn, ptx,
+                                  blocks, cs.tri_count), nt, TILE, c,
+                            *_ptr(occ, rounds), stream)
+                        assert err == 0, (name, fn, err)
+                    launch()
+                    torch.cuda.synchronize()
+                    if not torch.equal(occ, plain):
+                        lanes = torch.nonzero(occ != plain)[:, 0]
+                        assert name != "any_shipped", (k, wave, form)
+                        out[f"{form}_differs"] = {
+                            "count": int(lanes.numel()),
+                            "lanes": lanes.tolist()[:8],
+                            "occ": occ[lanes].tolist()[:8],
+                            "plain_occ": plain[lanes].tolist()[:8]}
+                    out[f"{form}_ms"] = min(chip_smoke.cuda_ms(launch, ITERS)
+                                            for _ in range(ROUNDS))
+                    if name != "any_lockstep":
+                        launch()
+                        walked, tests = rounds.long().sum(dim=0).tolist()
+                        out[f"{form}_rounds_sum"] = walked
+                        out[f"{form}_rounds_max"] = int(rounds[:, 0].max())
+                        out[f"{form}_tests"] = tests
+                results[name][f"K={k} {wave}"] = out
+                same = not any(key.endswith("differs") for key in out)
+                print(f"{name:13s} K={k:3d} {wave:24s} " + ", ".join(
+                    f"{key} {val:.4f}" if isinstance(val, float) else
+                    f"{key} {val}" for key, val in out.items())
+                    + (" (equal to plain)" if same else ""), flush=True)
 
 
 if __name__ == "__main__":

@@ -14,8 +14,8 @@
 // the smallest slot on ties and improvement on strict <, and the stop rules:
 // closest stops when the next entry exceeds the largest min(best_t, tmax) of
 // the lanes that walk together (unless prune is off), any hit when it
-// exceeds the largest tmax of the tile's unoccluded lanes (-1e30 for an
-// occluded lane).
+// exceeds the largest tmax of their unoccluded lanes (-1e30 for an occluded
+// lane).
 //
 // The walk list (count, ids, bases, entries) is built outside the kernel
 // (ops/pallas_walk._prepare) and read uniformly by the lanes that walk it.
@@ -81,20 +81,67 @@
 //     streamed form stages the cluster's first tri_count slots of rows 0..8
 //     into a per-warp double buffer with cp.async, the next position in
 //     flight while one is tested, published with __syncwarp.
-//   * Optionally, each group writes the rounds it walked and the slots it
-//     tested per ray (out_rounds).
+//   * Optionally, each group writes the rounds it walked and the slots its
+//     rays tested, summed over the rays: kRays times the slots of the
+//     clusters it walked (out_rounds).
 //
-// The any forms keep their first design:
-//   * one block per tile (128 or 256 threads), one thread per lane, blocks
-//     independent, as Pallas' grid programs are, the tile's bound a
-//     block-wide max each round;
-//   * the resident form reads the cluster's rows 0..8 from global memory;
-//     every thread of a warp reads the same slot, a broadcast;
-//   * the streamed form stages rows 0..8 through two shared-memory buffers
-//     with cp.async: round r+1's block is in flight while round r computes
-//     (the 2-deep DMA of pallas_walk.py:114-124), and the last copy is
-//     drained when the walk stops early;
-//   * an occluded lane, or one whose interval is empty, skips the slot loop.
+// The any forms. What bounded them in their first form (one block per
+// tile, one thread a lane, kept in list_walk_variants.py): the tile
+// walked in lock step, every round ending in a block-wide max, until its
+// next entry exceeded the largest tmax of its unoccluded lanes, so one open
+// lane (a ray that escapes the room with tmax 3) kept all 256 walking while
+// the occluded ones idled; and each thread tested all 128 slots of every
+// cluster in series (88.5 triangles a cluster at K=128, 23.8 at K=32), in
+// 512 blocks of 8 warps for 2^17 rays: an any hit cost 2.5x a closest hit
+// on the same wavefront. What bounds them now: the tests the rays make
+// before their first occluder, and the chain of the group that walks
+// longest (a group holding a ray that escapes the room walks while the
+// entries stay below its tmax). The design is the closest forms' with what
+// an any-hit query changes:
+//   * Groups of rays that walk and stop on their own, one warp each, in
+//     blocks of kGroupWarps independent warps: kAnyRays rays a group in the
+//     resident form, kAnyStreamRays in the streamed one (constants of their
+//     own, measured against 1, 2, 4, 8, 16 and 32 rays; list_walk_variants.py
+//     rebuilds each and PERF.md has the times: a one-ray group reads a
+//     cluster's slots once per ray, from L2 in the resident form, but the
+//     streamed form would stage them once per ray). A group walks its
+//     tile's list in the tile's order, 32 positions a load (round r
+//     shuffles its cluster and count out of lane r - p0), tests every
+//     cluster up to its stop, and stops when the next entry exceeds its
+//     bound or the list ends: the warp max over its rays of (occluded ?
+//     -1e30 : tmax), tested before round 0 and after every round; it
+//     continues on entry <= bound, as the plain walk does. Nothing in the
+//     walk loop is block-wide: no barrier, no shared reduction.
+//   * A ray's slots lie on kAnySplit = 32 / kAnyGroup threads, slot k on
+//     thread k % kAnySplit, below the cluster's tri_count only (all 128
+//     slots measured slower). A thread leaves its slot loop at its first
+//     hit; one ballot a round tells the ray's threads whether one of them
+//     hit (a ballot at every step of the slot loop, stopping the ray's
+//     threads together, measured slower). An occluded ray, or one whose
+//     interval is empty (tmax <= tmin), tests no further slots. The slot
+//     test is mt_slot with the t < 1e30 of the plain version's t table.
+//   * The streamed form stages a cluster's first tri_count slots of rows
+//     0..8 into a per-warp double buffer (round_block), as the streamed
+//     closest form does; the last copy is drained when a group stops early.
+//   * Optionally, each group writes the positions it walked and the slots
+//     its rays tested, summed over the rays (out_rounds).
+//   * Why a group's flags equal the plain walk's, bit for bit. A lane's flag
+//     is the OR, over the clusters walked, of "some slot hits in (tmin,
+//     tmax)"; the order of the walk does not change an OR. A lane's bound
+//     term is tmax, or -1e30 once it is occluded; along the shared order a
+//     group's lanes are occluded at a round exactly when they are in the
+//     tile walk, so the group's bound is never above the tile's at the same
+//     round and the group stops at a round no later than the tile does. For
+//     every round from the group's stop to the tile's, the entry is at or
+//     above the stopping one and so above the tmax of each open lane of the
+//     group (the list is sorted), and each tile entry bounds from below the
+//     hit t of every lane of the tile in its cluster (tile_trace.
+//     tile_entries; the pruned plain walk's own stop rests on the same
+//     property): no hit in those rounds passes t < tmax. The same argument
+//     lets the group test its bound before round 0. Slots past tri_count
+//     are zero (det = 0) and never hit. A ray that stops testing after its
+//     first hit changes no OR. No cluster is skipped on a ray's own entry:
+//     hits round below it (see the closest forms above).
 #include <cuda_runtime.h>
 
 namespace {
@@ -105,11 +152,24 @@ constexpr int kSlots = 128;       // slot columns of a (16, 128) block
 constexpr int kBlockRows = 16;
 constexpr int kTriRows = 9;       // p0 | e1 | e2, x y z each
 constexpr int kStage = kTriRows * kSlots;  // floats staged per round
-constexpr int kMaxTile = 256;     // rays per tile = threads per any block
 constexpr int kRays = 8;          // rays per closest group, one warp each
 constexpr int kSplit = 32 / kRays;  // threads per ray of a closest group
-constexpr int kGroupWarps = 8;    // groups per block of the closest forms
+constexpr int kAnyRays = 1;       // rays per group of the resident any form
+constexpr int kAnyStreamRays = 4;  // rays per group of the streamed any form
+constexpr int kGroupWarps = 8;    // groups (warps) per block
 constexpr unsigned kFull = 0xffffffffu;
+
+// Rays per group of the resident or streamed any form.
+__host__ __device__ constexpr int any_rays(bool stream) {
+  return stream ? kAnyStreamRays : kAnyRays;
+}
+
+// The lanes of ray 0 of a group of `rays`: bits 0, rays, 2 * rays, ...
+__host__ __device__ constexpr unsigned ray_lanes(int rays) {
+  unsigned m = 0;
+  for (int b = 0; b < 32; b += rays) m |= 1u << b;
+  return m;
+}
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz;
@@ -164,16 +224,9 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-// Block-wide max over the tile's warps; ends with a barrier, so the scratch
-// is free for the next call.
-__device__ __forceinline__ float block_max(float x, float* red) {
-  x = warp_max(x);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
-  __syncthreads();
-  x = red[0];
-  const int warps = blockDim.x >> 5;
-  for (int w = 1; w < warps; ++w) x = fmaxf(x, red[w]);
-  __syncthreads();
+__device__ __forceinline__ int warp_sum(int x) {
+#pragma unroll
+  for (int m = 16; m >= 1; m >>= 1) x += __shfl_xor_sync(kFull, x, m);
   return x;
 }
 
@@ -187,19 +240,7 @@ __device__ __forceinline__ void commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-// The streamed any form's staging: rows 0..8 of cluster `cid` (4,608 bytes)
-// into a shared buffer with 16-byte cp.async copies, one commit group per
-// stage.
-__device__ __forceinline__ void stage_async(float* buf,
-                                            const float* __restrict__ blocks,
-                                            int cid) {
-  const float* b = blocks + static_cast<size_t>(cid) * kBlockRows * kSlots;
-  for (int j = threadIdx.x; j < kStage / 4; j += blockDim.x)
-    cp_async16(buf + 4 * j, b + 4 * j);
-  commit();
-}
-
-// The streamed closest form's staging, by one warp: the first `cnt` slots of
+// The streamed forms' staging, by one warp: the first `cnt` slots of
 // rows 0..8 of cluster `cid`, rounded up to whole 16-byte copies (the
 // columns past the count are zero and never tested), at the block's row
 // stride; one commit group per stage.
@@ -224,22 +265,32 @@ __device__ __forceinline__ void wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
-// The block of round r: in place (resident) or staged (streamed; round r+1
-// is issued before round r is waited for).
+// The slots of round r, at position `at` of the group's chunk (cluster c_id,
+// c_cnt slots): in place (resident), or staged into the warp's buffer r & 1
+// (streamed), the next position copied into the other while this one is
+// tested, if the bound reaches it now (should the bound fall past it this
+// round, the copy is drained unused). `open`, `cid`, `cnt`: the calling
+// lane's position of the chunk; `staged`: the position copied ahead.
 template <bool kStream>
 __device__ __forceinline__ const float* round_block(
-    const float* __restrict__ blocks, const int* __restrict__ ids, int r,
-    int n, float (*buf)[kStage]) {
+    const float* __restrict__ blocks, float* buf, int r, int at, int c_id,
+    int c_cnt, bool open, int cid, int cnt, int lane, int& staged) {
   if (!kStream)
-    return blocks + static_cast<size_t>(__ldg(ids + r)) * kBlockRows * kSlots;
-  if (r + 1 < n) {
-    stage_async(buf[(r + 1) & 1], blocks, __ldg(ids + r + 1));
+    return blocks + static_cast<size_t>(c_id) * kBlockRows * kSlots;
+  if (staged != r)  // not copied ahead: the first round of a chunk
+    stage_warp(buf + (r & 1) * kStage, blocks, c_id, c_cnt, lane);
+  const int nx = at < 31 ? at + 1 : 31;
+  if (__shfl_sync(kFull, open, nx) && at < 31) {
+    stage_warp(buf + ((r + 1) & 1) * kStage, blocks,
+               __shfl_sync(kFull, cid, nx), __shfl_sync(kFull, cnt, nx), lane);
+    staged = r + 1;
     wait_all_but_newest();
   } else {
+    staged = -1;
     wait_all();
   }
-  __syncthreads();  // every thread's copies of round r are visible
-  return buf[r & 1];
+  __syncwarp();  // every lane's copies of this position are visible
+  return buf + (r & 1) * kStage;
 }
 
 // Closest hit: group g (one warp) holds rays g * kRays ... of its tile; lane
@@ -300,30 +351,8 @@ closest_kernel(const int* __restrict__ counts, const int* __restrict__ ids,
       const int c_id = __shfl_sync(kFull, cid, at);
       const int c_cnt = __shfl_sync(kFull, cnt, at);
       const int c_base = __shfl_sync(kFull, base, at);
-      const float* s;
-      if (kStream) {
-        // round r's slots in buffer r & 1, round r + 1's in the other
-        if (staged != r)  // not copied ahead: the first round of a chunk
-          stage_warp(buf + (r & 1) * kStage, blocks, c_id, c_cnt, lane);
-        // the next position, copied while this one tests, if the bound
-        // reaches it now (should the bound fall past it this round, the
-        // copy is drained unused)
-        const int nx = at < 31 ? at + 1 : 31;
-        if (__shfl_sync(kFull, open, nx) && at < 31) {
-          stage_warp(buf + ((r + 1) & 1) * kStage, blocks,
-                     __shfl_sync(kFull, cid, nx), __shfl_sync(kFull, cnt, nx),
-                     lane);
-          staged = r + 1;
-          wait_all_but_newest();
-        } else {
-          staged = -1;
-          wait_all();
-        }
-        __syncwarp();  // every lane's copies of this position are visible
-        s = buf + (r & 1) * kStage;
-      } else {
-        s = blocks + static_cast<size_t>(c_id) * kBlockRows * kSlots;
-      }
+      const float* s = round_block<kStream>(blocks, buf, r, at, c_id, c_cnt,
+                                            open, cid, cnt, lane, staged);
       slots += c_cnt;
       const float tmax_eff = fminf(best_t, tmx);
       float cb = kBig, cu = 0.0f, cv = 0.0f;
@@ -375,46 +404,108 @@ closest_kernel(const int* __restrict__ counts, const int* __restrict__ ids,
   }
   if (out_rounds != nullptr && lane == 0) {
     out_rounds[2 * g] = r;
-    out_rounds[2 * g + 1] = slots;
+    out_rounds[2 * g + 1] = kRays * slots;
   }
 }
 
+// Any hit: group g (one warp) holds rays g * kAnyGroup ... of its tile;
+// lane = kAnyGroup * q + ray, thread q of its ray tests slots q,
+// q + kAnySplit, ... up to its first hit. The list is taken as in
+// closest_kernel.
 template <bool kStream>
-__global__ void __launch_bounds__(kMaxTile)
+__global__ void __launch_bounds__(32 * kGroupWarps)
 any_kernel(const int* __restrict__ counts, const int* __restrict__ ids,
            const float* __restrict__ entries, const float* __restrict__ o,
            const float* __restrict__ d, const float* __restrict__ tmin,
            const float* __restrict__ tmax, const float* __restrict__ blocks,
-           int c_total, int* __restrict__ out_occ) {
-  __shared__ __align__(16) float buf[kStream ? 2 : 1][kStage];
-  __shared__ float red[kMaxTile / 32];
-  const int tile = blockIdx.x;
-  const size_t i = static_cast<size_t>(tile) * blockDim.x + threadIdx.x;
-  const size_t row = static_cast<size_t>(tile) * c_total;
-  const int n = __ldg(counts + tile);
+           const int* __restrict__ tri_count, int groups, int tile,
+           int c_total, int* __restrict__ out_occ,
+           int* __restrict__ out_rounds) {
+  constexpr int kAnyGroup = any_rays(kStream);
+  constexpr int kAnySplit = 32 / kAnyGroup;  // threads per ray
+  constexpr unsigned kAnyRayLanes = ray_lanes(kAnyGroup);
+  extern __shared__ __align__(16) float stages[];  // streamed: 2 a warp
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = blockIdx.x * kGroupWarps + warp;
+  if (g >= groups) return;  // the whole warp
+  const int q = lane / kAnyGroup;
+  const int ray_at = lane % kAnyGroup;
+  const size_t first = static_cast<size_t>(g) * kAnyGroup;
+  const size_t i = first + ray_at;
+  const size_t row = first / tile * c_total;
+  const int n = __ldg(counts + first / tile);
   const Ray ray = load_ray(o, d, i);
   const float tmn = __ldg(tmin + i);
   const float tmx = __ldg(tmax + i);
+  float* buf = stages + warp * 2 * kStage;
   bool occ = false;
-  if (kStream && n > 0) stage_async(buf[0], blocks, __ldg(ids + row));
-  bool go = n > 0;
-  int r = 0;
-  while (go) {  // uniform over the block
-    const float* s = round_block<kStream>(blocks, ids + row, r, n, buf);
-    if (!occ && tmx > tmn) {
-      for (int k = 0; k < kSlots && !occ; ++k) {
-        float t, u, v;
-        // a hit at t >= 1e30 is a miss in the plain version's t table
-        occ = mt_slot(ray, s, k, false, tmn, tmx, t, u, v) && t < kBig;
-      }
+  float bound = warp_max(tmx);
+  int r = 0, tests = 0;
+  int staged = -1;  // streamed: the position copied ahead
+  bool walking = n > 0;
+  for (int p0 = 0; walking; p0 += 32) {
+    const int pos = p0 + lane;
+    const bool valid = pos < n;
+    int cid = 0, cnt = 0;
+    float te = kBig;
+    if (valid) {
+      cid = __ldg(ids + row + pos);
+      cnt = __ldg(tri_count + cid);
+      te = __ldg(entries + row + pos);
     }
-    ++r;
-    const float open_max = block_max(occ ? -kBig : tmx, red);
-    go = r < n && __ldg(entries + row + r) <= open_max;
-    if (kStream) __syncthreads();
+    for (; r - p0 < 32; ++r) {
+      const int at = r - p0;
+      // the stop: the list's end, or an entry past the bound
+      const bool open = valid && te <= bound;
+      if (!__shfl_sync(kFull, open, at)) {
+        walking = false;
+        break;
+      }
+      const int c_id = __shfl_sync(kFull, cid, at);
+      const int c_cnt = __shfl_sync(kFull, cnt, at);
+      const float* s = round_block<kStream>(blocks, buf, r, at, c_id, c_cnt,
+                                            open, cid, cnt, lane, staged);
+      bool hit = false;
+      if (!occ && tmx > tmn) {
+#pragma unroll 4
+        for (int k = q; k < c_cnt; k += kAnySplit) {
+          float t, u, v;
+          ++tests;
+          // a hit at t >= 1e30 is a miss in the plain version's t table
+          if (mt_slot(ray, s, k, false, tmn, tmx, t, u, v) && t < kBig) {
+            hit = true;
+            break;
+          }
+        }
+      }
+      // the kAnySplit threads of a ray: occluded once one of them hit
+      const unsigned hits = __ballot_sync(kFull, hit);
+      occ = occ || ((hits >> ray_at) & kAnyRayLanes) != 0;
+      bound = warp_max(occ ? -kBig : tmx);
+      // every lane is done with this stage before it is refilled
+      if (kStream) __syncwarp();
+    }
   }
-  if (kStream) wait_all();
-  out_occ[i] = occ ? 1 : 0;
+  if (kStream) wait_all();  // drain a copy ahead of a walk that stopped
+  if (q == 0) out_occ[i] = occ ? 1 : 0;
+  if (out_rounds != nullptr) {
+    tests = warp_sum(tests);
+    if (lane == 0) {
+      out_rounds[2 * g] = r;
+      out_rounds[2 * g + 1] = tests;
+    }
+  }
+}
+
+// The streamed forms' per-warp stages: their bytes a block, set as the
+// kernel's dynamic shared memory size (above the 48 KB default).
+template <bool kStream, typename Kernel>
+int stage_bytes(Kernel kernel, size_t* bytes) {
+  *bytes = kStream ? sizeof(float) * 2 * kStage * kGroupWarps : 0;
+  if (!kStream) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(*bytes)));
 }
 
 template <bool kStream>
@@ -426,17 +517,31 @@ int launch_closest(const int* counts, const int* ids, const int* bases,
                    float* out_u, float* out_v, int* out_rounds, void* stream) {
   const int groups = nt * (tile / kRays);
   const int grid = (groups + kGroupWarps - 1) / kGroupWarps;
-  const size_t bytes = kStream ? sizeof(float) * 2 * kStage * kGroupWarps : 0;
-  if (kStream) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        closest_kernel<kStream>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  size_t bytes;
+  const int err = stage_bytes<kStream>(closest_kernel<kStream>, &bytes);
+  if (err) return err;
   closest_kernel<kStream><<<grid, 32 * kGroupWarps, bytes,
                             static_cast<cudaStream_t>(stream)>>>(
       counts, ids, bases, entries, o, d, tmin, tmax, blocks, tri_count, groups,
       tile, c_total, cull, prune, out_t, out_tri, out_u, out_v, out_rounds);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kStream>
+int launch_any(const int* counts, const int* ids, const float* entries,
+               const float* o, const float* d, const float* tmin,
+               const float* tmax, const float* blocks, const int* tri_count,
+               int nt, int tile, int c_total, int* out_occ, int* out_rounds,
+               void* stream) {
+  const int groups = nt * (tile / any_rays(kStream));
+  const int grid = (groups + kGroupWarps - 1) / kGroupWarps;
+  size_t bytes;
+  const int err = stage_bytes<kStream>(any_kernel<kStream>, &bytes);
+  if (err) return err;
+  any_kernel<kStream><<<grid, 32 * kGroupWarps, bytes,
+                        static_cast<cudaStream_t>(stream)>>>(
+      counts, ids, entries, o, d, tmin, tmax, blocks, tri_count, groups, tile,
+      c_total, out_occ, out_rounds);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -452,10 +557,15 @@ int launch_closest(const int* counts, const int* ids, const int* bases,
 // float32; blocks (c, 16, 128) float32; tri_count (c,) int32, every slot at
 // or past it zero; tile a multiple of 32 up to 256.
 // Outputs (nt * tile,): t, tri, u, v (closest) or occ int32 (any); out_rounds
-// (nt * tile / list_walk_group_rays(), 2) int32 or null: per closest group
-// the rounds it walked and the slots it tested per ray.
+// int32 or null: per group ((nt * tile / list_walk_group_rays(), 2) closest,
+// (nt * tile / list_walk_any_group_rays(stream), 2) any) the rounds it
+// walked and the slots its rays tested, summed over the rays.
 
 extern "C" int list_walk_group_rays() { return kRays; }
+
+extern "C" int list_walk_any_group_rays(int stream) {
+  return any_rays(stream != 0);
+}
 
 extern "C" int list_walk_closest(const int* counts, const int* ids,
                                  const int* bases, const float* entries,
@@ -487,21 +597,23 @@ extern "C" int list_walk_closest_stream(
 extern "C" int list_walk_any(const int* counts, const int* ids,
                              const float* entries, const float* o,
                              const float* d, const float* tmin,
-                             const float* tmax, const float* blocks, int nt,
-                             int tile, int c_total, int* out_occ,
+                             const float* tmax, const float* blocks,
+                             const int* tri_count, int nt, int tile,
+                             int c_total, int* out_occ, int* out_rounds,
                              void* stream) {
-  any_kernel<false><<<nt, tile, 0, static_cast<cudaStream_t>(stream)>>>(
-      counts, ids, entries, o, d, tmin, tmax, blocks, c_total, out_occ);
-  return static_cast<int>(cudaGetLastError());
+  return launch_any<false>(counts, ids, entries, o, d, tmin, tmax, blocks,
+                           tri_count, nt, tile, c_total, out_occ, out_rounds,
+                           stream);
 }
 
 extern "C" int list_walk_any_stream(const int* counts, const int* ids,
                                     const float* entries, const float* o,
                                     const float* d, const float* tmin,
                                     const float* tmax, const float* blocks,
-                                    int nt, int tile, int c_total,
-                                    int* out_occ, void* stream) {
-  any_kernel<true><<<nt, tile, 0, static_cast<cudaStream_t>(stream)>>>(
-      counts, ids, entries, o, d, tmin, tmax, blocks, c_total, out_occ);
-  return static_cast<int>(cudaGetLastError());
+                                    const int* tri_count, int nt, int tile,
+                                    int c_total, int* out_occ,
+                                    int* out_rounds, void* stream) {
+  return launch_any<true>(counts, ids, entries, o, d, tmin, tmax, blocks,
+                          tri_count, nt, tile, c_total, out_occ, out_rounds,
+                          stream);
 }

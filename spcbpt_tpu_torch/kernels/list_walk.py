@@ -4,7 +4,8 @@ their resident and streamed forms, closest hit and any hit.
 Each function checks its tensors, allocates the outputs with torch.empty,
 launches on the current stream and raises on a launch error. LAUNCHES
 counts each entry point's launches and nothing else. The closest forms walk
-in groups of `group_rays()` rays, a warp each; they take the cluster set's
+in groups of `group_rays()` rays, the any forms in groups of
+`any_group_rays(stream)`, a warp each; all take the cluster set's
 `tri_count` (the slots they test).
 """
 from __future__ import annotations
@@ -38,10 +39,12 @@ def _lib() -> ctypes.CDLL:
     # pointers and the stream as c_void_p: ctypes would cut them to 32 bits
     lib.list_walk_closest.argtypes = [_P] * 10 + [_I] * 5 + [_P] * 6
     lib.list_walk_closest_stream.argtypes = [_P] * 10 + [_I] * 4 + [_P] * 6
-    lib.list_walk_any.argtypes = [_P] * 8 + [_I] * 3 + [_P] * 2
-    lib.list_walk_any_stream.argtypes = [_P] * 8 + [_I] * 3 + [_P] * 2
+    lib.list_walk_any.argtypes = [_P] * 9 + [_I] * 3 + [_P] * 3
+    lib.list_walk_any_stream.argtypes = [_P] * 9 + [_I] * 3 + [_P] * 3
     lib.list_walk_group_rays.argtypes = []
-    for name in (*LAUNCHES, "list_walk_group_rays"):
+    lib.list_walk_any_group_rays.argtypes = [_I]
+    for name in (*LAUNCHES, "list_walk_group_rays",
+                 "list_walk_any_group_rays"):
         getattr(lib, name).restype = _I
     return lib
 
@@ -49,6 +52,12 @@ def _lib() -> ctypes.CDLL:
 def group_rays() -> int:
     """Rays per group (one warp) of the closest kernels."""
     return _lib().list_walk_group_rays()
+
+
+def any_group_rays(stream: bool) -> int:
+    """Rays per group (one warp) of the resident (stream=False) or streamed
+    any kernel."""
+    return _lib().list_walk_any_group_rays(int(bool(stream)))
 
 
 def _check_lists(blocks, counts, ids, entries, o, d, tmn, tmx):
@@ -82,7 +91,7 @@ def closest(blocks, tri_count, counts, ids, bases, entries, o, d, tmn, tmx,
     cluster (every slot at or past it zero). stream=True launches the
     streamed form, which always prunes. rounds: None, or an
     (n / group_rays(), 2) int32 tensor that receives, per group, the rounds
-    it walked and the slots it tested per ray."""
+    it walked and the slots its rays tested, summed over the rays."""
     nt, tile, c, dev = _check_lists(blocks, counts, ids, entries, o, d, tmn,
                                     tmx)
     _check("bases", bases, torch.int32, (nt, c), dev)
@@ -114,12 +123,21 @@ def closest(blocks, tri_count, counts, ids, bases, entries, o, d, tmn, tmx,
     return t, tri, u, v
 
 
-def any_hit(blocks, counts, ids, entries, o, d, tmn, tmx, stream: bool):
-    """K6 any hit on prepared rays -> int32 occlusion flags (1 =
-    occluded)."""
+def any_hit(blocks, tri_count, counts, ids, entries, o, d, tmn, tmx,
+            stream: bool, rounds=None):
+    """K6 any hit on prepared rays -> int32 occlusion flags (1 = occluded).
+    tri_count: the (C,) int32 slots to test per cluster (every slot at or
+    past it zero). rounds: None, or an (n / any_group_rays(stream), 2)
+    int32 tensor that receives, per group, the rounds it walked and the
+    slots its rays tested, summed over the rays."""
     nt, tile, c, dev = _check_lists(blocks, counts, ids, entries, o, d, tmn,
                                     tmx)
-    occ = torch.empty((o.shape[0],), dtype=torch.int32, device=dev)
+    _check("tri_count", tri_count, torch.int32, (c,), dev)
+    n = o.shape[0]
+    if rounds is not None:
+        _check("rounds", rounds, torch.int32,
+               (n // any_group_rays(stream), 2), dev)
+    occ = torch.empty((n,), dtype=torch.int32, device=dev)
     if nt == 0:
         return occ
     name = "list_walk_any_stream" if stream else "list_walk_any"
@@ -127,7 +145,9 @@ def any_hit(blocks, counts, ids, entries, o, d, tmn, tmx, stream: bool):
         err = getattr(_lib(), name)(
             counts.data_ptr(), ids.data_ptr(), entries.data_ptr(),
             o.data_ptr(), d.data_ptr(), tmn.data_ptr(), tmx.data_ptr(),
-            blocks.data_ptr(), nt, tile, c, occ.data_ptr(), _stream(dev))
+            blocks.data_ptr(), tri_count.data_ptr(), nt, tile, c,
+            occ.data_ptr(), None if rounds is None else rounds.data_ptr(),
+            _stream(dev))
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     LAUNCHES[name] += 1

@@ -21,8 +21,8 @@ The walk runs where its tensors live: CUDA tensors launch the hand-written
 kernels of csrc/list_walk.cu (kernels/list_walk.py: the resident forms read
 the blocks from global memory, the streamed forms stage them through
 shared-memory buffers, as JAX's VMEM-resident and DMA-streamed kernels
-differ; the closest forms walk each tile's list in groups of rays, a warp
-each, each group stopping on its own bound, with the same results), or
+differ; every form walks each tile's list in groups of rays, a warp each,
+each group stopping on its own bound, with the same results), or
 raise; CPU tensors run the plain versions below, which advance all tiles in
 lock step. The card checks each kernel against them (`walk_closest_plain` /
 `walk_any_plain` run them on any device).
@@ -151,13 +151,13 @@ def _closest_lists(cs, prep, cull, prune, vmem_resident, plain):
                            stream=not vmem_resident)
 
 
-def _any_lists(blocks, prep, vmem_resident, plain):
+def _any_lists(cs, prep, vmem_resident, plain):
     o, d, tmn, tmx, _, entries, ids, _, counts = prep
     if plain or o.device.type == "cpu":
-        return list_walk_any_plain(blocks, counts, ids, entries, o, d, tmn,
-                                   tmx)
-    return kernels.any_hit(blocks, counts, ids, entries, o, d, tmn, tmx,
-                           stream=not vmem_resident)
+        return list_walk_any_plain(cs.blocks(), counts, ids, entries, o, d,
+                                   tmn, tmx)
+    return kernels.any_hit(cs.blocks(), cs.tri_count, counts, ids, entries, o,
+                           d, tmn, tmx, stream=not vmem_resident)
 
 
 def _closest(cs, origins, dirs, tmin, tmax, cull_backface, tile, sort_rays,
@@ -177,7 +177,7 @@ def _closest(cs, origins, dirs, tmin, tmax, cull_backface, tile, sort_rays,
 def _any(cs, origins, dirs, tmin, tmax, tile, sort_rays, vmem_resident,
          plain):
     *prep, perm = prepare(cs, origins, dirs, tmin, tmax, tile, sort_rays)
-    occ = _any_lists(cs.blocks(), prep, vmem_resident, plain)[:prep[4]] > 0
+    occ = _any_lists(cs, prep, vmem_resident, plain)[:prep[4]] > 0
     return unsort(occ, perm) if perm is not None else occ
 
 

@@ -20,10 +20,11 @@ Tolerances:
   * occlusion on at least 99.99% of lanes;
   * against the port's brute force (intersect.brute_force_*, the same
     arithmetic) on random triangles: every lane.
-The numpy transcription of the card's closest forms (tests/tile_designs.py,
-groups of rays that walk their tile's list and stop on their own bound) is
-held to the plain walk bit for bit (np.array_equal), its rounds to the
-plain walk's per tile.
+The numpy transcriptions of the card's closest and any forms
+(tests/tile_designs.py, groups of rays that walk their tile's list and stop
+on their own bound; an any-hit ray leaving at its first occluder) are held
+to the plain walk bit for bit (np.array_equal), their rounds to the plain
+walk's per tile.
 """
 from types import SimpleNamespace
 
@@ -382,59 +383,98 @@ def test_kernel_bindings_refuse_cpu_tensors(random_case):
             kernels.closest(tcs.blocks(), tcs.tri_count, counts, ids, bases,
                             entries, po, pd, ptn, ptx, True, True, stream)
         with pytest.raises(ValueError, match="CUDA tensors"):
-            kernels.any_hit(tcs.blocks(), counts, ids, entries, po, pd, ptn,
-                            ptx, stream)
+            kernels.any_hit(tcs.blocks(), tcs.tri_count, counts, ids, entries,
+                            po, pd, ptn, ptx, stream)
     assert not any(kernels.LAUNCHES.values())
 
 
-# (k, tile, cull, group, sort_rays, prune): each value of k, tile, cull and
-# sort_rays at least twice, the kernels' group of 8 rays and one ray twice,
-# one thread a ray (32) once, prune=False once
+def _design_walks(query, cs, prep, cull, prune, group, rec):
+    """`query`'s plain walk ("closest" or "any") and the transcription of its
+    kernels on prepared rays -> (fields, plain outputs, transcribed outputs,
+    the plain walk's hit flags whose mean the caller bounds); the
+    transcription's rounds and slots go to `rec`."""
+    po, pd, ptn, ptx, n, entries, ids, bases, counts = prep
+    blocks = cs.blocks()
+    if query == "any":
+        ref = pallas_walk.list_walk_any_plain(blocks, counts, ids, entries,
+                                              po, pd, ptn, ptx)
+        got = tile_designs.group_walk_any(cs, counts, ids, entries, po, pd,
+                                          ptn, ptx, group, rec)
+        return ("occ",), [ref], [got], ref.numpy()[:n]
+    ref = pallas_walk.list_walk_closest_plain(blocks, counts, ids, bases,
+                                              entries, po, pd, ptn, ptx,
+                                              cull, prune)
+    got = tile_designs.group_walk(cs, counts, ids, bases, entries, po, pd,
+                                  ptn, ptx, cull, prune, group, rec)
+    return ("t", "tri", "u", "v"), ref, got, ref[1].numpy() >= 0
+
+
+# (k, tile, cull, group, sort_rays, prune) of the closest query: each value
+# of k, tile, cull and sort_rays at least twice, the kernels' group of 8
+# rays and one ray twice, one thread a ray (32) once, prune=False once
 _DESIGN = [(32, 128, True, 1, False, True), (32, 256, False, 8, True, True),
            (128, 128, False, 8, True, True),
            (128, 256, True, 1, False, True),
            (128, 128, True, 32, True, False)]
+# (k, tile, group, sort_rays) of the any query (never culled, always
+# pruned): each k, tile and sort twice, the any kernels' groups of 1
+# (resident) and 4 (streamed) rays twice each, 8 and 32 once
+_DESIGN_ANY = [(32, 128, 1, False), (32, 256, 4, True), (128, 128, 8, True),
+               (128, 256, 1, False), (128, 128, 32, True),
+               (128, 256, 4, False)]
+_DESIGN_CASES = [pytest.param("closest", *c, id="-".join(map(str, c)))
+                 for c in _DESIGN]
+_DESIGN_CASES += [pytest.param("any", k, tile, False, group, sort_rays, True,
+                               id=f"any-{k}-{tile}-{group}-{sort_rays}")
+                  for k, tile, group, sort_rays in _DESIGN_ANY]
+# the hit share of the plain walk that each case must fall in
+_HIT_SHARE = {"closest": (0.05, 0.95), "any": (0.02, 0.8)}
 
 
 @pytest.mark.parametrize("name", ["random", "interior"])
-@pytest.mark.parametrize("k,tile,cull,group,sort_rays,prune", _DESIGN)
-def test_group_walk_design_matches_plain(request, name, k, tile, cull, group,
-                                         sort_rays, prune):
-    """The closest kernels' design (groups of `group` rays, 32 / group
-    threads a ray, slots below tri_count, each group testing every cluster
-    of its tile's list up to its stop and stopping on its own bound) returns
-    the plain walk's t, tri, u and v bit for bit; no group walks more rounds
-    than its tile, and on the interior some one-ray groups walk fewer; the
-    slots a group tests are those of the clusters it walked."""
+@pytest.mark.parametrize("query,k,tile,cull,group,sort_rays,prune",
+                         _DESIGN_CASES)
+def test_group_walk_design_matches_plain(request, name, query, k, tile, cull,
+                                         group, sort_rays, prune):
+    """The kernels' design (groups of `group` rays, 32 / group threads a
+    ray, slots below tri_count, each group testing every cluster of its
+    tile's list up to its stop and stopping on its own bound) returns the
+    plain walk's results bit for bit: closest, its t, tri, u and v; any (a
+    ray leaving at its first occluder, on the any segments), its flags. No
+    group walks more rounds than its tile, and on the interior some one-ray
+    groups walk fewer. A closest group's rays test the slots of every
+    cluster it walked; an any group's at most those, and fewer somewhere."""
     case = _cases(request, name)
     _, tcs = case["sets"][k]
-    prep = pallas_walk.prepare(tcs, *map(_t, case["rays"]), tile,
-                               sort_rays)[:-1]
-    po, pd, ptn, ptx, _, entries, ids, bases, counts = prep
-    blocks = tcs.blocks()
-    ref = pallas_walk.list_walk_closest_plain(blocks, counts, ids, bases,
-                                              entries, po, pd, ptn, ptx,
-                                              cull, prune)
+    rays = case["rays"] if query == "closest" else (*case["rays"][:3],
+                                                    case["seg"])
+    prep = pallas_walk.prepare(tcs, *map(_t, rays), tile, sort_rays)[:-1]
+    ids, counts = prep[6], prep[8]
     rec = {}
-    got = tile_designs.group_walk(tcs, counts, ids, bases, entries, po, pd,
-                                  ptn, ptx, cull, prune, group, rec)
-    for f, a, b in zip(("t", "tri", "u", "v"), got, ref):
+    fields, ref, got, hits = _design_walks(query, tcs, prep, cull, prune,
+                                           group, rec)
+    for f, a, b in zip(fields, got, ref):
         np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=f)
-    assert 0.05 < (ref[1].numpy() >= 0).mean() < 0.95
+    lo, hi = _HIT_SHARE[query]
+    assert lo < hits.mean() < hi
     nt = ids.shape[0]
     rounds = rec["rounds"].reshape(nt, tile // group)
     walked = np.cumsum(tcs.tri_count.numpy()[ids.numpy()], axis=1)
-    walked = np.where(rounds > 0, np.take_along_axis(
+    walked = group * np.where(rounds > 0, np.take_along_axis(
         walked, np.maximum(rounds - 1, 0), axis=1), 0)
     slots = rec["slots"].reshape(nt, tile // group)
-    assert (slots == walked).all()
-    if not prune:
+    if query == "closest":
+        assert (slots == walked).all()
+    else:
+        assert (slots <= walked).all() and (slots < walked).any()
+    if prune:
+        per_tile = _rounds_per_tile(tcs.blocks(), prep, cull,
+                                    query == "any")[:, None]
+        assert (rounds <= per_tile).all()
+        if name == "interior" and group == 1:
+            assert (rounds < per_tile).any()
+    else:
         assert (rounds == counts.numpy()[:, None]).all()
-        return
-    per_tile = _rounds_per_tile(blocks, prep, cull, False)[:, None]
-    assert (rounds <= per_tile).all()
-    if name == "interior" and group == 1:
-        assert (rounds < per_tile).any()
 
 
 def _tie_case():
@@ -482,7 +522,79 @@ def test_group_walk_design_ties(group, cull):
         assert (a[0].numpy() == np.float32(2)).all()
     for a, b in zip(got, ref):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
-    assert (rec["rounds"] == 2).all() and (rec["slots"] == 14).all()
+    assert (rec["rounds"] == 2).all()
+    assert (rec["slots"] == 14 * group).all()
+
+
+def _any_edge_case():
+    """Two tiles of 128 lanes walking three clusters straight up (+z), the
+    second tile all padding (count 0). Cluster 0 holds a triangle at z = 1
+    over region A in slot 0 and five far ones (tri_count 6), cluster 1 one
+    at z = 1.5 over region B, cluster 2 one at z = 3 over both; entries 0.9,
+    1.5 and 2.5 bound every lane's hits from below. Tile 0's quarters of 32
+    lanes: (0) region A, tmax 4: occluded at round 0; (1) region A, tmax ==
+    tmin == 2: never tests a slot, its bound 2 reaches cluster 1; (2) region
+    B, tmax 1.5, equal to cluster 1's entry: walks it (t = 1.5 is no hit)
+    and stops at cluster 2; (3) 16 dead lanes (tmax -1), then 16 padded
+    ones (origin 0, direction x, tmin 0, tmax -1). Returns the cluster set
+    and the walk's inputs (counts, ids, entries, o, d, tmn, tmx)."""
+    f32 = np.float32
+    rs = np.random.RandomState(7)
+    blocks = np.zeros((3, 16, 128), f32)
+
+    def put(c, s, z, x0, size):       # p0, e1, e2 of a triangle at height z
+        tri = np.array([[x0 - size, -size, z], [3 * size, 0, 0],
+                        [0, 3 * size, 0]], f32)
+        blocks[c, :9, s] = tri.reshape(9)
+    put(0, 0, 1.0, 0.0, 1.0)
+    for s in range(1, 6):
+        put(0, s, 1.0, 100.0 + 10 * s, 1.0)
+    put(1, 0, 1.5, 10.0, 1.0)
+    put(2, 0, 3.0, 0.0, 20.0)
+    cs = SimpleNamespace(blocks=lambda: _t(blocks),
+                         tri_count=_t(np.array([6, 1, 1], np.int32)))
+    n = 256
+    o = np.zeros((n, 3), f32)
+    o[:128, :2] = rs.uniform(-0.3, 0.3, (128, 2))
+    o[64:96, 0] += 10.0
+    d = np.tile(np.array([0, 0, 1], f32), (n, 1))
+    d[112:] = (1, 0, 0)
+    o[112:] = 0
+    tmn = np.full(n, 1e-3, f32)
+    tmx = np.full(n, -1.0, f32)
+    tmx[:32] = 4.0
+    tmn[32:64] = tmx[32:64] = 2.0
+    tmx[64:96] = 1.5
+    tmn[112:] = 0.0
+    walk = dict(counts=np.array([3, 0], np.int32),
+                ids=np.array([[0, 1, 2], [0, 1, 2]], np.int32),
+                entries=np.array([[0.9, 1.5, 2.5], [1e30] * 3], f32),
+                o=o, d=d, tmn=tmn, tmx=tmx)
+    return cs, [_t(a) for a in walk.values()]
+
+
+@pytest.mark.parametrize("group", [1, 4, 8, 32])
+def test_group_walk_any_design_edges(group):
+    """The any design on hand-made edges, against the plain walk: a group
+    occluded at round 0 walks one position; lanes with tmax == tmin test no
+    slot and are never occluded; a group continues on an entry equal to its
+    bound; dead, padded and count-0 groups walk nothing. A ray's threads
+    leave at their first hit: thread q of slots q, q + S, ... (S = 32 /
+    group) against the occluder in slot 0 of 6 makes 6, 6, 5 and 1 tests a
+    ray for groups of 1, 4, 8 and 32."""
+    cs, args = _any_edge_case()
+    ref = pallas_walk.list_walk_any_plain(cs.blocks(), *args)
+    rec = {}
+    got = tile_designs.group_walk_any(cs, *args, group, rec)
+    np.testing.assert_array_equal(got.numpy(), ref.numpy())
+    np.testing.assert_array_equal(ref.numpy(), np.repeat([1, 0, 0, 0, 0, 0,
+                                                          0, 0], 32))
+    lanes_rounds = np.repeat([1, 2, 2, 0, 0, 0, 0, 0], 32)
+    lanes_tests = np.repeat([{1: 6, 4: 6, 8: 5, 32: 1}[group], 0, 6 + 1, 0, 0,
+                             0, 0, 0], 32)
+    np.testing.assert_array_equal(rec["rounds"], lanes_rounds[::group])
+    np.testing.assert_array_equal(rec["slots"],
+                                  lanes_tests.reshape(-1, group).sum(axis=1))
 
 
 def _adversarial_case():
@@ -533,14 +645,19 @@ def _adversarial_case():
 
 
 @pytest.mark.parametrize("group", [1, 8, 32])
-@pytest.mark.parametrize("cull", [True, False])
-def test_group_walk_design_adversarial_hits(group, cull):
+@pytest.mark.parametrize("query,cull", [
+    pytest.param("closest", True, id="True"),
+    pytest.param("closest", False, id="False"),
+    pytest.param("any", False, id="any")])
+def test_group_walk_design_adversarial_hits(group, query, cull):
     """Grazing, near-vertex hits on faces shared across clusters, at small
     t: some of the plain walk's hits lie below the ray's own entry into its
     cluster's box by more than 2^-16 of t (no skip on a ray's own entry with
     such a margin would be safe), and the design, which skips no cluster
-    before its stop, still returns the plain walk's t, tri, u and v bit for
-    bit."""
+    before its stop, still returns the plain walk's results bit for bit.
+    The any query runs with each lane's segment ending just past its
+    (unculled) closest hit, np.nextafter(t_hit, inf): the any design keeps
+    every such occluder, as the plain walk does."""
     cs, rays = _adversarial_case()
     prep = pallas_walk._prepare(cs, *rays, 128)
     po, pd, ptn, ptx, _, entries, ids, bases, counts = prep
@@ -554,9 +671,14 @@ def test_group_walk_design_adversarial_hits(group, cull):
         cs, o[i:i + 1], d[i:i + 1], tn[i:i + 1], tx[i:i + 1])[tri[i] // 12]
         for i in lanes])
     assert (own - t[lanes] > t[lanes] * np.float32(2.0 ** -16)).any()
-    got = tile_designs.group_walk(cs, counts, ids, bases, entries, po, pd, ptn,
-                                  ptx, cull, True, group, {})
-    for f, a, b in zip(("t", "tri", "u", "v"), got, ref):
+    if query == "any":
+        seg = rays[3].clone()
+        seg[lanes] = _t(np.nextafter(t[lanes], np.float32(np.inf)))
+        prep = pallas_walk._prepare(cs, *rays[:3], seg, 128)
+    fields, ref, got, hits = _design_walks(query, cs, prep, cull, True, group,
+                                           {})
+    assert (hits[lanes] == 1).all()
+    for f, a, b in zip(fields, got, ref):
         np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=f)
 
 

@@ -162,7 +162,8 @@ def group_walk(cs, counts, ids, bases, entries, o, d, tmn, tmx, cull, prune,
     and slot 128 without one), and xor steps over the S threads keep the
     smallest t, then the smallest slot; best improves on strict <.
     Returns (t, tri, u, v) as torch tensors; each group's rounds walked and
-    slots tested per ray go to rec["rounds"] and rec["slots"]."""
+    slots tested, summed over its rays (each ray every slot below tri_count
+    of every cluster walked), go to rec["rounds"] and rec["slots"]."""
     f32, big = np.float32, np.float32(1e30)
     blocks = cs.blocks().numpy()
     slots = blocks.shape[-1]
@@ -192,7 +193,7 @@ def group_walk(cs, counts, ids, bases, entries, o, d, tmn, tmx, cull, prune,
     while run.size:
         tl = tile_of[run]
         cid = ids[tl, r]
-        tested[run] += count[cid]
+        tested[run] += group * count[cid]
         tmax_eff = np.minimum(best_t[run], tx[run])
         hit, t, u, v = mt_slots(og[run], dg[run], blocks[cid], slots,
                                 tn[run], tmax_eff, cull)
@@ -231,3 +232,59 @@ def group_walk(cs, counts, ids, bases, entries, o, d, tmn, tmx, cull, prune,
     rec["rounds"], rec["slots"] = rounds, tested
     return [torch.from_numpy(a.reshape(-1))
             for a in (best_t, best_id, best_u, best_v)]
+
+
+def group_walk_any(cs, counts, ids, entries, o, d, tmn, tmx, group, rec):
+    """K6 any (`any_kernel` of csrc/list_walk.cu) on prepared rays over
+    cluster set `cs` (its blocks() and tri_count): groups of `group`
+    consecutive rays (one warp each) walk their tile's list in the tile's
+    order. A group tests its bound, the max over its rays of (occluded ?
+    -1e30 : tmax), before every round, round 0 included, and stops when the
+    next entry exceeds it or the list ends. A ray's slots below the
+    cluster's tri_count lie on S = 32 / group threads, slot k on thread
+    k % S; each thread tests its slots in order and leaves at its first hit
+    (t in (tmin, tmax), t < 1e30); a ray is occluded once one of its threads
+    hit, and an occluded ray, or one with tmax <= tmin, tests nothing more.
+    Returns the int32 flags as a torch tensor; each group's rounds walked
+    and slots tested (summed over its rays) go to rec["rounds"] and
+    rec["slots"]."""
+    big = np.float32(1e30)
+    blocks = cs.blocks().numpy()
+    slots = blocks.shape[-1]
+    count, ids, entries = (a.numpy() for a in (cs.tri_count, ids, entries))
+    nt, c = entries.shape
+    tile = o.shape[0] // nt
+    split = 32 // group
+    ng = o.shape[0] // group
+    og, dg = (a.numpy().reshape(ng, group, 3) for a in (o, d))
+    tn, tx = (a.numpy().reshape(ng, group) for a in (tmn, tmx))
+    tile_of = np.arange(ng) * group // tile
+    n = counts.numpy()[tile_of]
+    occ = np.zeros((ng, group), bool)
+    rounds = np.zeros(ng, np.int64)
+    tested = np.zeros(ng, np.int64)
+    bound = lambda g: np.where(occ[g], -big, tx[g]).max(axis=1)
+    run = np.nonzero((n > 0) & (entries[tile_of, 0] <= bound(slice(None))))[0]
+    r = 0
+    while run.size:
+        tl = tile_of[run]
+        cid = ids[tl, r]
+        cnt = count[cid][:, None, None, None]
+        live = ~occ[run] & (tx[run] > tn[run])
+        hit, t = mt_slots(og[run], dg[run], blocks[cid], slots, tn[run],
+                          tx[run], False)[:2]
+        hit &= t < big
+        # thread q's slots q, q + S, ...: [group, ray, j, q]
+        shape = (run.size, group, slots // split, split)
+        k = np.arange(slots).reshape(slots // split, split)
+        mine = (k < cnt) & live[..., None, None]
+        hit = hit.reshape(shape) & mine
+        first = np.where(hit.any(axis=2), np.argmax(hit, axis=2), slots)
+        tested[run] += np.minimum(mine.sum(axis=2), first + 1).sum(axis=(1, 2))
+        occ[run] |= hit.any(axis=(2, 3))
+        r += 1
+        rounds[run] = r
+        more = (r < n[run]) & (entries[tl, min(r, c - 1)] <= bound(run))
+        run = run[more]
+    rec["rounds"], rec["slots"] = rounds, tested
+    return torch.from_numpy(occ.reshape(-1).astype(np.int32))
