@@ -20,7 +20,16 @@ Phases, one status line each; any failure raises and exits non-zero:
      plain torch version on the 32-triangle Cornell box, for a 512x512
      camera wavefront, a 2^17-ray bounce wavefront with a quarter of its
      lanes dead and a 3 x 2^16-ray connection-shaped segment wavefront with
-     masked lanes, both cull settings; times per call;
+     masked lanes, and on the interior's 512x512 camera rays against the
+     512 triangles that hold most of their closest hits, both cull
+     settings, each wavefront with at least BRUTE_MIN_SHARE of its lanes
+     hit and of its any-hit lanes occluded; each kernel alone (its launches
+     captured in a CUDA graph and replayed, with torch.profiler's kernel
+     times beside it) and each call through its binding; what the pairs
+     meet (the shares failing at det, at u and at v) and the live work,
+     stage by stage, that bounds them; one torch.profiler window showing
+     that a brute-mode trace_closest / trace_any call issues exactly one
+     device kernel;
   5. main path, PT on the interior: `render_cli --scene interior --alg pt
      --dim 1024x1024 --spp 4` through K1/K2, with no call of the plain
      route's `row_entries` pass;
@@ -74,8 +83,12 @@ stats go to smoke_out/. The last three lines are the card as nvidia-smi
 names it, one JSON object with each kernel's numbers (its bound from the
 plain version's visits on the same inputs, see PEAK_F32_FLOPS; the K6
 forms, which test fewer pairs than their plain version, take the bound of
-their own tests and carry the plain walk's beside it as plain_bound_ms),
-and {"ok": true, "device": {...}}.
+their own tests and carry the plain walk's beside it as plain_bound_ms;
+K3's rows give the kernel alone (graph replay) as ms and the call through
+its binding as call_ms, bound the live work of their inputs stage by
+stage and carry every lane against every triangle as plain_bound_ms, and
+the shares of live pairs failing at det, at u and at v), and {"ok": true,
+"device": {...}}.
 """
 from __future__ import annotations
 
@@ -142,16 +155,25 @@ KERNEL_SOURCES = ("ray_walk", "brute_trace", "tile_walk", "list_walk")
 # that finding those entries needs on this run's rays (`slab_tests`): 6
 # subtractions, 6 products, 5 minima, 5 maxima and 3 comparisons each. Bytes:
 # each ray read once, each hit written once, the triangles of the clusters
-# visited at least once, and the other inputs the kernel reads.
+# visited at least once, and the other inputs the kernel reads. K3's tests
+# stop at their first failing stage, as its plain version's rejections
+# allow, so its bound charges each stage's cumulative count
+# (`FLOPS_STAGES`: pvec and det; then 1/det, tvec and u; then qvec and v;
+# then t) to the pairs that stop there.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 FLOPS_PER_TEST = 45
+FLOPS_STAGES = {"det": 14, "u": 24, "v": 39, "t": FLOPS_PER_TEST}
 FLOPS_PER_SLAB_TEST = 25
 SLAB_GROUP = 8           # clusters per group box of K1/K2's entry phase
 TRI_BYTES = 36           # p0, e1, e2 of one triangle, float32
 RAY_BYTES = 32           # origin, direction, tmin, tmax
 PROFILER_TIMEOUT = 900
 LAUNCH_PROBE = 5000      # launches timed for the [env] line's host reading
+GRAPH_LAUNCHES = 20      # launches captured in one CUDA graph (graph_ms)
+GRAPH_ROUNDS = 3         # replays of it, the least taken
+BRUTE_WIDE = 512         # triangles of K3's widest wavefront (its limit)
+BRUTE_MIN_SHARE = 0.2    # least share of hit lanes and of occluded lanes
 
 
 _T0 = time.perf_counter()
@@ -263,12 +285,13 @@ def tally(log, sizes) -> tuple:
     return tests, int(sizes[seen].sum()), sum(c.numel() for c in cids)
 
 
-def bound(tests: int, nbytes: int, slab_tests: int = 0) -> dict:
-    """The JSON line's bound keys for `tests` ray-triangle tests and
-    `slab_tests` ray-box tests moving `nbytes` bytes; no single PyTorch call
-    walks a BVH (library_ms)."""
-    ops_ms = (tests * FLOPS_PER_TEST + slab_tests * FLOPS_PER_SLAB_TEST) \
-        / PEAK_F32_FLOPS * 1e3
+def bound(tests: int, nbytes: int, slab_tests: int = 0,
+          flops: int = 0) -> dict:
+    """The JSON line's bound keys for `tests` ray-triangle tests, `slab_tests`
+    ray-box tests and `flops` further operations moving `nbytes` bytes; no
+    single PyTorch call walks a BVH (library_ms)."""
+    ops_ms = (tests * FLOPS_PER_TEST + slab_tests * FLOPS_PER_SLAB_TEST
+              + flops) / PEAK_F32_FLOPS * 1e3
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     return dict(bound_ms=max(ops_ms, bytes_ms),
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes",
@@ -306,6 +329,70 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn) -> float:
+    """Device milliseconds per call of `fn` with no host time in the
+    interval: GRAPH_LAUNCHES calls (each allocating its outputs from the
+    graph's pool) captured in one CUDA graph, replayed between CUDA events;
+    the least of GRAPH_ROUNDS replays, after a warm-up on a side stream and
+    one replay."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_LAUNCHES):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(GRAPH_ROUNDS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / GRAPH_LAUNCHES)
+    del graph
+    return best
+
+
+def device_events(fn, calls: int = 1) -> dict:
+    """{name: (count, device ms per call)} of the device activities
+    (kernels, copies, fills) that `calls` calls of `fn` issue, from one
+    torch.profiler window."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        count, us = out.get(ev.name, (0, 0.0))
+        out[ev.name] = (count + 1,
+                        us + ev.time_range.end - ev.time_range.start)
+    return {k: (c, us / 1e3 / calls) for k, (c, us) in out.items()}
+
+
+def camera_wavefront(cam, dev):
+    """(name, origins, dirs, tmax) of the 512x512 camera wavefront."""
+    from spcbpt_tpu_torch.render.common import camera_rays
+
+    eye, U, V, W = cam.uvw()
+    n_cam = CAMERA_DIM * CAMERA_DIM
+    o, d, _ = camera_rays(eye, U, V, W, CAMERA_DIM, CAMERA_DIM, 0, block=32,
+                          device=dev)
+    return ("camera512", o.contiguous(), d, torch.full((n_cam,), 1e16,
+                                                       device=dev))
+
+
 def wavefronts(ts, cam, dev):
     """(name, origins, dirs, tmax) of the camera and bounce wavefronts."""
     from spcbpt_tpu_torch.ops import bsdf
@@ -314,11 +401,7 @@ def wavefronts(ts, cam, dev):
     from spcbpt_tpu_torch.utils import rng
 
     eye, U, V, W = cam.uvw()
-    n_cam = CAMERA_DIM * CAMERA_DIM
-    o, d, _ = camera_rays(eye, U, V, W, CAMERA_DIM, CAMERA_DIM, 0, block=32,
-                          device=dev)
-    camera = ("camera512", o.contiguous(), d, torch.full((n_cam,), 1e16,
-                                                         device=dev))
+    camera = camera_wavefront(cam, dev)
     # bounce wavefront: primary hit -> BSDF sample -> fixed permutation
     nb = BOUNCE_RAYS
     o1, d1, _ = camera_rays(eye, U, V, W, CAMERA_DIM, CAMERA_DIM, 0, block=16,
@@ -618,17 +701,102 @@ def connection_wavefront(ts, cam, dev):
     return ("connection3x2^16", a.contiguous(), dirs.contiguous(), tmax)
 
 
-def phase_brute(ts, cam, dev) -> dict:
-    """K3 against its plain version on Cornell's wavefronts."""
+def brute_wavefronts(cts, ccam, its, icam, dev) -> list:
+    """(name, origins, dirs, tmax, (p0, e1, e2)) of K3's wavefronts:
+    Cornell's camera 512x512, bounce 2^17 and connection 3 x 2^16 against
+    its 32 triangles, and the interior's camera 512x512 against the
+    BRUTE_WIDE triangles that hold most of its closest hits (the interior's
+    own walk, cull off), in ascending id order (the tables sliced)."""
+    from spcbpt_tpu_torch.scene.scene import trace_closest
+
+    ctris = (cts.tri_p0, cts.tri_e1, cts.tri_e2)
+    camera, bounce = wavefronts(cts, ccam, dev)
+    out = [w + (ctris,) for w in
+           (camera, bounce, connection_wavefront(cts, ccam, dev))]
+    name, o, d, tmax = camera_wavefront(icam, dev)
+    tri = trace_closest(its, o, d, 1e-3, tmax, False).tri
+    count = torch.bincount(tri[tri >= 0].long(), minlength=its.num_tris)
+    top = torch.argsort(count, descending=True, stable=True)[:BRUTE_WIDE]
+    ids = torch.sort(top).values
+    itris = tuple(x[ids].contiguous()
+                  for x in (its.tri_p0, its.tri_e1, its.tri_e2))
+    out.append((f"interior{BRUTE_WIDE}hit_{name}", o, d, tmax, itris))
+    return out
+
+
+def brute_segments(name, ref, tmax, n, dev):
+    """Any-hit segment ends of a K3 wavefront: the connection wavefront has
+    its own; the others end at 0.5-1.5x the closest hit (10 on a miss), so
+    about half of the hit lanes are occluded (dead lanes stay dead)."""
+    if name.startswith("connection"):
+        return tmax
+    rs = np.random.RandomState(1)
+    scale = torch.from_numpy(rs.uniform(0.5, 1.5, n).astype(np.float32))
+    t_hit = torch.where(ref.tri >= 0, ref.t, 10.0)
+    return torch.where(tmax < 0, -1.0, t_hit * scale.to(dev))
+
+
+def pair_census(o, d, tmin, tmax, tris, cull, chunk: int = 1 << 14) -> dict:
+    """What K3's pair test meets on these inputs, from the plain version's
+    tensors (intersect.tri_test): the live lanes (tmax > tmin); the shares
+    of their pairs with every triangle that fail at det, that pass det and
+    fail at u (u outside [0, 1]), that pass u and fail at v (v < 0 or u + v
+    > 1), and that reach the t test; `flops`, the operations of those pairs
+    by the stage each stops at (FLOPS_STAGES); `any_tests`, the tests an
+    any-hit lane needs: up to and including its first occluder (t in (tmin,
+    tmax)) in ascending ids, all T where it has none; and `any_flops`, the
+    operations of those tests by stage."""
+    from spcbpt_tpu_torch.ops import intersect
+    from spcbpt_tpu_torch.utils import vec
+
+    p0, e1, e2 = tris
+    t_total = p0.shape[0]
+    ids = torch.arange(t_total, device=o.device)
+    live_n = any_tests = 0
+    stages = dict.fromkeys(FLOPS_STAGES, 0)
+    any_stages = dict.fromkeys(FLOPS_STAGES, 0)
+    for s in range(0, o.shape[0], chunk):
+        lo, hi = tmin[s:s + chunk], tmax[s:s + chunk]
+        live = hi > lo
+        oo, dd = o[s:s + chunk][live][:, None], d[s:s + chunk][live][:, None]
+        lo, hi = lo[live][:, None], hi[live][:, None]
+        t, u, v, hit = intersect.tri_test(oo, dd, p0[None], e1[None],
+                                          e2[None], cull)
+        det = vec.dot(e1[None], vec.cross(dd, e2[None]))
+        det_ok = det > intersect._EPS_DET if cull else \
+            det.abs() > intersect._EPS_DET
+        u_ok = det_ok & (u >= 0.0) & (u <= 1.0)
+        stop = {"det": ~det_ok, "u": det_ok & ~u_ok, "v": u_ok & ~hit,
+                "t": hit}
+        occ = hit & (t > lo) & (t < hi)
+        first = torch.where(occ.any(dim=1), occ.int().argmax(dim=1) + 1,
+                            t_total)
+        tested = ids[None] < first[:, None]
+        live_n += int(live.sum())
+        any_tests += int(first.sum())
+        for k, m in stop.items():
+            stages[k] += int(m.sum())
+            any_stages[k] += int((m & tested).sum())
+    pairs = max(live_n * t_total, 1)
+    ops = lambda counts: sum(FLOPS_STAGES[k] * c for k, c in counts.items())
+    return dict(live=live_n, **{k: c / pairs for k, c in stages.items()},
+                flops=ops(stages), any_tests=any_tests,
+                any_flops=ops(any_stages))
+
+
+def phase_brute(cts, ccam, its, icam, dev) -> dict:
+    """K3 against its plain version on Cornell's wavefronts and on the
+    interior's 512-triangle wavefront, both cull settings; each kernel
+    alone (graph replay), its call, its plain version and its bound; and
+    one device kernel per brute-mode trace call."""
     from spcbpt_tpu_torch.kernels import brute_trace as kernels
     from spcbpt_tpu_torch.ops import brute_trace
+    from spcbpt_tpu_torch.scene.scene import trace_any, trace_closest
 
-    tris = (ts.tri_p0, ts.tri_e1, ts.tri_e2)
-    camera, bounce = wavefronts(ts, cam, dev)
     results = {}
-    for name, o, d, tmax in (camera, bounce,
-                             connection_wavefront(ts, cam, dev)):
-        n = o.shape[0]
+    waves = brute_wavefronts(cts, ccam, its, icam, dev)
+    for name, o, d, tmax, tris in waves:
+        n, t_total = o.shape[0], tris[0].shape[0]
         tmin = torch.full((n,), 1e-3, device=dev)
         for cull in (True, False):
             got = brute_trace.brute_closest(o, d, tmin, tmax, *tris, cull)
@@ -644,49 +812,97 @@ def phase_brute(ts, cam, dev) -> dict:
                 assert torch.equal(getattr(got, f), getattr(ref, f)), \
                     f"K3 {name} cull={cull}: {f} differs from the plain version"
             assert (got.tri[tmax < tmin] == -1).all(), "dead lane hit"
+            if not cull:
+                # the checks compare hits, not only misses
+                assert hits >= BRUTE_MIN_SHARE, (name, hits)
             if name.startswith("bounce") and not cull:
                 results["brute_closest"] = dict(max_abs_err=err_t)
-        # any hit: the connection wavefront has its own segments; the others
-        # end at 0.5-1.5x the closest hit (10 on a miss), so about half of
-        # the hit lanes are occluded (dead lanes stay dead)
-        if name.startswith("connection"):
-            tseg = tmax
-        else:
-            rs = np.random.RandomState(1)
-            scale = torch.from_numpy(rs.uniform(0.5, 1.5, n).astype(np.float32))
-            t_hit = torch.where(ref.tri >= 0, ref.t, 10.0)
-            tseg = torch.where(tmax < 0, -1.0, t_hit * scale.to(dev))
+        tseg = brute_segments(name, ref, tmax, n, dev)
         occ_k = brute_trace.brute_any(o, d, tmin, tseg, *tris)
         occ_p = brute_trace.brute_any_plain(o, d, tmin, tseg, *tris)
         torch.cuda.synchronize()
+        assert occ_k.dtype == torch.bool, occ_k.dtype
         assert torch.equal(occ_k, occ_p), \
             f"K3 any {name}: occlusion differs from the plain version"
+        occluded = occ_k.float().mean().item()
         log("brute", f"K3 any {name}: occlusion agreement 1.000000 "
-                     f"(occluded {occ_k.float().mean().item():.4f})")
+                     f"(occluded {occluded:.4f})")
+        assert occluded >= BRUTE_MIN_SHARE, (name, occluded)
         if name.startswith("connection"):
             results["brute_any"] = dict(
                 max_abs_err=(occ_k.int() - occ_p.int()).abs().max().item())
 
-        k1 = cuda_ms(lambda: kernels.closest(o, d, tmin, tmax, *tris, False),
-                     20)
-        k2 = cuda_ms(lambda: kernels.any_hit(o, d, tmin, tseg, *tris), 20)
+        call1 = lambda: kernels.closest(o, d, tmin, tmax, *tris, False)
+        call2 = lambda: kernels.any_hit(o, d, tmin, tseg, *tris)
+        k1, k2 = graph_ms(call1), graph_ms(call2)
+        c1, c2 = cuda_ms(call1, 20), cuda_ms(call2, 20)
+        prof = {k[:40]: round(ms, 4) for k, (_, ms) in
+                {**device_events(call1, 5), **device_events(call2, 5)}.items()}
         p1 = cuda_ms(lambda: brute_trace.brute_closest_plain(
             o, d, tmin, tmax, *tris, False), 5)
         p2 = cuda_ms(lambda: brute_trace.brute_any_plain(
             o, d, tmin, tseg, *tris), 5)
+        cen1 = pair_census(o, d, tmin, tmax, tris, False)
+        cen2 = pair_census(o, d, tmin, tseg, tris, False)
         mr = lambda ms: n / ms / 1e3
-        log("brute", f"{name} ({n} rays, {ts.num_tris} tris): K3 closest "
-                     f"{k1:.4f} ms ({mr(k1):.1f} Mrays/s) plain {p1:.4f} ms; "
-                     f"K3 any {k2:.4f} ms ({mr(k2):.1f} Mrays/s) plain "
-                     f"{p2:.4f} ms")
-        # every lane against every triangle; rays, triangles, hits or flags
-        tests, fixed = n * ts.num_tris, n * RAY_BYTES + ts.num_tris * TRI_BYTES
+        log("brute", f"{name} ({n} rays, {cen1['live']} live, {t_total} "
+                     f"tris): K3 closest {k1:.4f} ms alone "
+                     f"({mr(k1):.1f} Mrays/s), call {c1:.4f}, plain "
+                     f"{p1:.4f}; K3 any {k2:.4f} ms alone ({mr(k2):.1f} "
+                     f"Mrays/s), call {c2:.4f}, plain {p2:.4f}; profiler "
+                     f"ms per kernel {prof}")
+        log("brute", f"{name}: live pairs (cull=False) failing at det "
+                     f"{cen1['det']:.4f}, at u {cen1['u']:.4f}, at v "
+                     f"{cen1['v']:.4f}, reaching t {cen1['t']:.4f} "
+                     f"({cen1['flops'] / max(cen1['live'] * t_total, 1):.2f}"
+                     f" operations a pair); any-hit tests "
+                     f"{cen2['any_tests']} of {cen2['live'] * t_total} live "
+                     f"pairs ({cen2['any_flops']} operations)")
+        # the live work of these inputs: closest every live lane against
+        # every triangle, any each live lane up to its first occluder, each
+        # pair's operations up to the stage it stops at; every lane's
+        # tmin/tmax read, the live lanes' rays, the outputs and the table
+        # once.
+        # plain_bound_ms: every lane against every triangle, FLOPS_PER_TEST
+        # operations a pair.
+        fixed = n * 8 + cen1["live"] * 24 + t_total * TRI_BYTES
+        plain = n * RAY_BYTES + t_total * TRI_BYTES
+        row = None
         if name.startswith("bounce"):
-            results["brute_closest"].update(ms=k1, plain_ms=p1,
-                                            **bound(tests, fixed + n * 16))
+            row = results["brute_closest"]
+            row.update(ms=k1, call_ms=c1, plain_ms=p1,
+                       **bound(0, fixed + n * 16, flops=cen1["flops"]),
+                       plain_bound_ms=bound(n * t_total,
+                                            plain + n * 16)["bound_ms"])
+            census = cen1
         if name.startswith("connection"):
-            results["brute_any"].update(ms=k2, plain_ms=p2,
-                                        **bound(tests, fixed + n * 4))
+            row = results["brute_any"]
+            row.update(ms=k2, call_ms=c2, plain_ms=p2,
+                       **bound(0, fixed + n, flops=cen2["any_flops"]),
+                       plain_bound_ms=bound(n * t_total,
+                                            plain + n)["bound_ms"])
+            census = cen2
+        if row is not None:
+            row["pairs_failing_at"] = {k: census[k] for k in FLOPS_STAGES}
+
+    # the path's calls on Cornell's camera rays: one device kernel each,
+    # tmin a number as the render loops pass it, tmax a tensor
+    _, o, d, tmax, _ = waves[0]
+    tseg = tmax * 0.5
+    for query, call in (
+            ("closest", lambda: trace_closest(cts, o, d, 1e-3, tmax, False)),
+            ("any", lambda: trace_any(cts, o, d, 1e-3, tseg))):
+        call()
+        before = dict(kernels.LAUNCHES)
+        events = device_events(call)
+        launched = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+        log("brute", f"one brute-mode trace_{query} call: device activities "
+                     f"{ {k[:60]: c for k, (c, _) in events.items()} }, "
+                     f"launches {launched}")
+        assert len(events) == 1, events
+        (kname, (count, _)), = events.items()
+        assert count == 1 and f"{query}_kernel" in kname, events
+        assert sum(launched.values()) == 1, launched
     return results
 
 
@@ -1414,7 +1630,7 @@ def main() -> int:
     cts, _, ccam = load_trace_scene(resolve_scene("cornell"), dev)
     ccam.aspect = 1.0
     log("scene", f"cornell: {cts.num_tris} tris, mode {cts.mode}")
-    numbers.update(phase_brute(cts, ccam, dev))
+    numbers.update(phase_brute(cts, ccam, ts, cam, dev))
     t0 = time.perf_counter()
     tts, _, _ = load_trace_scene(scene_path, dev, mode="tile")
     log("scene", f"interior in tile mode: {tts.clusters.num_clusters} "

@@ -124,22 +124,20 @@ class TraceScene:
 # tracing entry points (the two "ray types" of optixPathTracer.h:202-209)
 # ---------------------------------------------------------------------------
 
-def _lanes(x, n, device):
-    return torch.as_tensor(x, dtype=torch.float32, device=device).expand(n)
-
-
 # The walks always sort their rays by coherence key, the JAX package's
 # default; no caller with presorted rays is ported yet.
 
 
 def trace_closest(ts: TraceScene, origins, dirs, tmin, tmax,
                   cull_backface: bool = True) -> intersect.Hit:
-    n = origins.shape[0]
-    tmin = _lanes(tmin, n, origins.device)
-    tmax = _lanes(tmax, n, origins.device)
     if ts.mode == "brute":
+        # K3 takes tmin/tmax as they come (numbers by value, tensors by
+        # their stride): one launch, no copy
         return brute_trace.brute_closest(origins, dirs, tmin, tmax, ts.tri_p0,
                                          ts.tri_e1, ts.tri_e2, cull_backface)
+    n = origins.shape[0]
+    tmin = tile_trace._as_lanes(tmin, n, origins.device)
+    tmax = tile_trace._as_lanes(tmax, n, origins.device)
     if ts.mode == "tile":
         # the round walk (K4) on the card; JAX's default matmul walk on CPU
         return tile_trace.tile_closest(
@@ -151,12 +149,12 @@ def trace_closest(ts: TraceScene, origins, dirs, tmin, tmax,
 
 
 def trace_any(ts: TraceScene, origins, dirs, tmin, tmax):
-    n = origins.shape[0]
-    tmin = _lanes(tmin, n, origins.device)
-    tmax = _lanes(tmax, n, origins.device)
     if ts.mode == "brute":
         return brute_trace.brute_any(origins, dirs, tmin, tmax, ts.tri_p0,
                                      ts.tri_e1, ts.tri_e2)
+    n = origins.shape[0]
+    tmin = tile_trace._as_lanes(tmin, n, origins.device)
+    tmax = tile_trace._as_lanes(tmax, n, origins.device)
     if ts.mode == "tile":
         # the fused walk (K5) on the card; JAX's matmul walk on CPU
         if origins.device.type != "cpu":

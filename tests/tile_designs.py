@@ -1,7 +1,8 @@
-"""numpy transcriptions of the tile-walk and list-walk kernels' designs
-(spcbpt_tpu_torch/csrc/tile_walk.cu, csrc/list_walk.cu), which run only on
-the card: the CPU tests hold them bit for bit to the plain versions of
-ops/tile_trace, ops/pallas_tile and ops/pallas_walk, and their visits to
+"""numpy transcriptions of the tile-walk, list-walk and brute-force kernels'
+designs (spcbpt_tpu_torch/csrc/tile_walk.cu, csrc/list_walk.cu,
+csrc/brute_trace.cu), which run only on the card: the CPU tests hold them
+bit for bit to the plain versions of ops/tile_trace, ops/pallas_tile,
+ops/pallas_walk and ops/brute_trace, and their visits to
 ops/clusters.VISIT_LOG or to the plain walk's rounds."""
 from __future__ import annotations
 
@@ -288,3 +289,93 @@ def group_walk_any(cs, counts, ids, entries, o, d, tmn, tmx, group, rec):
         run = run[more]
     rec["rounds"], rec["slots"] = rounds, tested
     return torch.from_numpy(occ.reshape(-1).astype(np.int32))
+
+
+K3_BLOCK = 256   # rays a block packs (kBlock of csrc/brute_trace.cu)
+
+
+def brute_walk(o, d, tmn, tmx, p0, e1, e2, cull, query, rec=None):
+    """K3 (`closest_kernel` / `any_kernel` of csrc/brute_trace.cu) in numpy
+    float32 on (n,) rays against (T, 3) triangle tables, `query` "closest"
+    or "any". The table is padded with zero triangles to a multiple of 4
+    (the kernel's float4 rows; a zero triangle fails det). Each block of
+    K3_BLOCK lanes lists its live lanes (tmax > tmin) in ascending order,
+    and its first threads take them; dead lanes and lanes past n keep the
+    miss.
+    A live ray walks the table in order with the staged test: det ->
+    reject; inv = 1/det, u -> reject outside [0, 1]; qvec, v -> reject if
+    v < 0 or u + v > 1; t -> reject outside (tmin, min(tmax, best t)), each
+    stage computed only for the rays still in. Closest takes a hit only on
+    a strictly smaller t (the smallest id among equal t); any leaves a ray
+    at its first hit. Every product and sum rounds on its own, as the
+    kernel (built with --fmad=false) rounds it. Returns (t, tri, u, v) or
+    the bool flags as torch tensors; `rec` (a dict) gets each block's live
+    count ("live"), the warps that hold live rays ("warps"), and the pairs
+    that failed at det ("det"), at u ("u"), at v ("v"), that reached t
+    ("t") and that were tested ("tests")."""
+    f32 = np.float32
+    big, eps = f32(1e30), f32(1e-10)
+    o, d = (np.asarray(a, f32) for a in (o, d))
+    tmn, tmx = (np.asarray(a, f32) for a in (tmn, tmx))
+    tris = [np.asarray(a, f32) for a in (p0, e1, e2)]
+    t_total = tris[0].shape[0]
+    pad = -t_total % 4
+    tris = [np.concatenate([a, np.zeros((pad, 3), f32)]) for a in tris]
+    n = o.shape[0]
+    alive = tmx > tmn
+    starts = np.arange(0, n, K3_BLOCK)
+    live = np.concatenate([np.nonzero(alive[b:b + K3_BLOCK])[0] + b
+                           for b in starts]).astype(np.int64)
+    per_block = np.add.reduceat(alive, starts) if n else np.zeros(0, int)
+    best_t = np.full(n, big, f32)
+    best_id = np.full(n, -1, np.int32)
+    best_u = np.zeros(n, f32)
+    best_v = np.zeros(n, f32)
+    occ = np.zeros(n, bool)
+    counts = dict(det=0, u=0, v=0, t=0, tests=0)
+    run = live
+    for j in range(t_total + pad):
+        (p0x, p0y, p0z), (e1x, e1y, e1z), (e2x, e2y, e2z) = \
+            (a[j] for a in tris)
+        counts["tests"] += run.size
+        ox, oy, oz = o[run].T
+        dx, dy, dz = d[run].T
+        pvx = dy * e2z - dz * e2y
+        pvy = dz * e2x - dx * e2z
+        pvz = dx * e2y - dy * e2x
+        det = e1x * pvx + e1y * pvy + e1z * pvz
+        ok = det > eps if cull else np.abs(det) > eps
+        counts["det"] += int((~ok).sum())
+        r, det, pvx, pvy, pvz = (a[ok] for a in (run, det, pvx, pvy, pvz))
+        dx, dy, dz, ox, oy, oz = (a[ok] for a in (dx, dy, dz, ox, oy, oz))
+        inv = f32(1.0) / det
+        tvx, tvy, tvz = ox - p0x, oy - p0y, oz - p0z
+        u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv
+        ok = (u >= 0) & (u <= 1)
+        counts["u"] += int((~ok).sum())
+        r, u, inv, tvx, tvy, tvz, dx, dy, dz = (
+            a[ok] for a in (r, u, inv, tvx, tvy, tvz, dx, dy, dz))
+        qvx = tvy * e1z - tvz * e1y
+        qvy = tvz * e1x - tvx * e1z
+        qvz = tvx * e1y - tvy * e1x
+        v = (dx * qvx + dy * qvy + dz * qvz) * inv
+        ok = (v >= 0) & (u + v <= 1)
+        counts["v"] += int((~ok).sum())
+        counts["t"] += int(ok.sum())
+        r, u, v, inv, qvx, qvy, qvz = (
+            a[ok] for a in (r, u, v, inv, qvx, qvy, qvz))
+        t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv
+        hi = np.minimum(tmx[r], best_t[r]) if query == "closest" else tmx[r]
+        ok = (t > tmn[r]) & (t < hi)
+        r, t, u, v = (a[ok] for a in (r, t, u, v))
+        if query == "closest":
+            best_t[r], best_id[r], best_u[r], best_v[r] = t, j, u, v
+        else:
+            occ[r] = True
+            run = run[~occ[run]]
+    if rec is not None:
+        rec.update(counts, live=per_block,
+                   warps=int((-(-per_block // 32)).sum()))
+    if query == "closest":
+        return [torch.from_numpy(a) for a in (best_t, best_id, best_u, best_v)]
+    return torch.from_numpy(occ)
