@@ -14,15 +14,15 @@ Phases, one status line each; any failure raises and exits non-zero:
      interior, for a 512x512 camera wavefront and a 2^17-ray incoherent
      bounce wavefront with a quarter of its lanes dead, and against brute
      force on a 4096-ray subset; the kernels' entry phase alone
-     (`ray_walk_entries`) against the plain `row_entries` table; times per
-     call;
+     (`ray_walk_entries`) against the plain `row_entries` table; each
+     kernel alone and each call;
   4. K3 vs plain: the brute-force kernel (closest and any hit) against its
      plain torch version on the 32-triangle Cornell box, for a 512x512
      camera wavefront, a 2^17-ray bounce wavefront with a quarter of its
      lanes dead and a 3 x 2^16-ray connection-shaped segment wavefront with
      masked lanes, and on the interior's 512x512 camera rays against the
      512 triangles that hold most of their closest hits, both cull
-     settings, each wavefront with at least BRUTE_MIN_SHARE of its lanes
+     settings, each wavefront with at least MIN_HIT_SHARE of its lanes
      hit and of its any-hit lanes occluded; each kernel alone (its launches
      captured in a CUDA graph and replayed, with torch.profiler's kernel
      times beside it) and each call through its binding; what the pairs
@@ -47,8 +47,12 @@ Phases, one status line each; any failure raises and exits non-zero:
      launch per trace, no host sync, each tile's rounds summing to the
      plain host loop's visits), K4's single round, and the fused walk K5
      (closest and any hit) against their plain versions on the camera,
-     bounce and connection wavefronts, both cull settings; against brute
-     force on a subset and against the walk mode; times per call;
+     bounce and connection wavefronts, both cull settings, the bounce
+     wavefront with at least MIN_HIT_SHARE of its lanes hit; against
+     brute force on a subset and against the walk mode; each kernel alone
+     and each call; K5 closest and the single round beside their first
+     forms (FIRST_FORMS, built from tile_walk_variants.py), which must equal
+     them;
  10. list-walk kernels vs plain: the four forms of K6 (closest and any
      hit, resident and streamed) on both cluster sets of one BVH (the tile
      mode's K=32, the walk mode's K=128) for the camera, bounce and
@@ -57,7 +61,7 @@ Phases, one status line each; any failure raises and exits non-zero:
      against brute force on a subset; times per call (every form at K=128
      and K=32, the any forms also on the connection wavefront), and the
      rounds and tests each group made against the plain walk's tile visits
-     and tests;
+     and tests; each form alone and each call;
  11. the list walk's path: the traversal profiler `python -m
      spcbpt_tpu_torch.apps.prof_traversal` at its defaults (2^17 rays,
      both sets, tiles 128 and 256, every form) in a process of its own;
@@ -82,13 +86,17 @@ process and are read from its last line); the CLI renders' PNG, HDR and
 stats go to smoke_out/. The last three lines are the card as nvidia-smi
 names it, one JSON object with each kernel's numbers (its bound from the
 plain version's visits on the same inputs, see PEAK_F32_FLOPS; the K6
-forms, which test fewer pairs than their plain version, take the bound of
-their own tests and carry the plain walk's beside it as plain_bound_ms;
-K3's rows give the kernel alone (graph replay) as ms and the call through
-its binding as call_ms, bound the live work of their inputs stage by
-stage and carry every lane against every triangle as plain_bound_ms, and
-the shares of live pairs failing at det, at u and at v), and {"ok": true,
-"device": {...}}.
+forms and K5 closest, which test fewer pairs than their plain version,
+take the bound of their own tests (their groups' optional rounds output)
+and K4's single round that of its live lanes, each carrying the plain
+version's beside it as plain_bound_ms;
+K3's rows bound the live work of their inputs stage by stage and carry
+every lane against every triangle as plain_bound_ms, and the shares of
+live pairs failing at det, at u and at v; every row gives the kernel alone
+as ms (`graph_ms`: its launches captured in a CUDA graph and replayed, no
+host time) and the call through its binding as call_ms, and K5 closest's
+and the single round's rows their first form alone as first_form_ms), and
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -169,11 +177,15 @@ SLAB_GROUP = 8           # clusters per group box of K1/K2's entry phase
 TRI_BYTES = 36           # p0, e1, e2 of one triangle, float32
 RAY_BYTES = 32           # origin, direction, tmin, tmax
 PROFILER_TIMEOUT = 900
+PROFILER_WINDOWS = 3     # tries of a profiler window (device_events)
 LAUNCH_PROBE = 5000      # launches timed for the [env] line's host reading
 GRAPH_LAUNCHES = 20      # launches captured in one CUDA graph (graph_ms)
 GRAPH_ROUNDS = 3         # replays of it, the least taken
 BRUTE_WIDE = 512         # triangles of K3's widest wavefront (its limit)
-BRUTE_MIN_SHARE = 0.2    # least share of hit lanes and of occluded lanes
+MIN_HIT_SHARE = 0.2      # least share of hit lanes and of occluded lanes
+# the first forms timed beside K5 closest and K4's single round: kernel ->
+# its form in tile_walk_variants.py
+FIRST_FORMS = {"K5 closest": "old_closest", "K4 round": "old_round"}
 
 
 _T0 = time.perf_counter()
@@ -232,14 +244,23 @@ def phase_environment() -> str:
     return smi
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
+    """Builds the kernels, the native library and the first forms of K5
+    closest and K4's single round (tile_walk_variants.py: FIRST_FORMS) in
+    parallel; returns the first forms' libraries by name."""
     from spcbpt_tpu_torch.kernels import build
     from spcbpt_tpu_torch.native import loader
+    import tile_walk_variants as variants
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNEL_SOURCES) + 1) as pool:
+    out_dir = os.path.join(build.BUILD_DIR, "variants")
+    os.makedirs(out_dir, exist_ok=True)
+    with ThreadPoolExecutor(len(KERNEL_SOURCES) + 3) as pool:
         native = pool.submit(loader.get_lib)
+        first = {name: pool.submit(variants.build_variant, name, out_dir)
+                 for name in FIRST_FORMS.values()}
         list(pool.map(build.build, KERNEL_SOURCES))
         lib = native.result()
+        first = {name: f.result()[0] for name, f in first.items()}
     log("build", f"native host library (BVH construction, OBJ parser): "
                  f"{'built with ' + loader.compiler() if lib else 'no C++ compiler, numpy route'}")
     infos = {name: dict(build.BUILD_LOG[name]) for name in KERNEL_SOURCES}
@@ -251,7 +272,9 @@ def phase_build() -> None:
         for line in info["ptxas"].splitlines():
             if "registers" in line or "spill" in line:
                 log("build", "ptxas: " + line.strip())
-    log("build", f"all kernels ready in {time.perf_counter() - t0:.2f} s")
+    log("build", f"all kernels ready in {time.perf_counter() - t0:.2f} s "
+                 f"(with the first forms {sorted(first)})")
+    return first
 
 
 def visit_log(fn) -> list:
@@ -363,21 +386,30 @@ def graph_ms(fn) -> float:
 def device_events(fn, calls: int = 1) -> dict:
     """{name: (count, device ms per call)} of the device activities
     (kernels, copies, fills) that `calls` calls of `fn` issue, from one
-    torch.profiler window."""
+    torch.profiler window. A window that comes back with no device activity
+    at all is taken again, up to PROFILER_WINDOWS times: on the card a short
+    window now and then returns none, though its launch ran (the callers
+    count launches beside it); the result of the last window is returned
+    either way, so a call that issues nothing still reads as nothing."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(calls):
-            fn()
+    for _ in range(PROFILER_WINDOWS):
         torch.cuda.synchronize()
-    out = {}
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        count, us = out.get(ev.name, (0, 0.0))
-        out[ev.name] = (count + 1,
-                        us + ev.time_range.end - ev.time_range.start)
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for ev in prof.events():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            count, us = out.get(ev.name, (0, 0.0))
+            out[ev.name] = (count + 1,
+                            us + ev.time_range.end - ev.time_range.start)
+        if out:
+            break
+        log("profiler", "a window came back with no device activity; "
+                        "taken again")
     return {k: (c, us / 1e3 / calls) for k, (c, us) in out.items()}
 
 
@@ -507,10 +539,11 @@ def phase_kernels(ts, waves, dev):
         # times: the row walk alone (kernel vs plain, entries included) on
         # the prepared rays, the entry phase alone, and the whole wrapper
         tris = (cs.tri_count, cs.tri_slots)
-        k1 = cuda_ms(lambda: kernels.closest(po, pd, ptmn, ptmx, *boxes,
-                                             cs.tri_begin, *tris, False), 20)
-        k2 = cuda_ms(lambda: kernels.any_hit(po, pd, ptmn, pseg, *boxes,
-                                             *tris), 20)
+        call1 = lambda: kernels.closest(po, pd, ptmn, ptmx, *boxes,
+                                        cs.tri_begin, *tris, False)
+        call2 = lambda: kernels.any_hit(po, pd, ptmn, pseg, *boxes, *tris)
+        k1, k2 = graph_ms(call1), graph_ms(call2)
+        c1, c2 = cuda_ms(call1, 20), cuda_ms(call2, 20)
         ke = cuda_ms(lambda: kernels.entries(po, pd, ptmn, ptmx, *boxes), 20)
         p1 = cuda_ms(lambda: ray_walk.closest_rows_plain(
             cs, po, pd, ptmn, ptmx, False), 2)
@@ -521,9 +554,10 @@ def phase_kernels(ts, waves, dev):
         wrap_ms = cuda_ms(lambda: ray_walk.walk_closest(
             cs, o, d, tmin, tmax, False, sort_rays=True), 10)
         mr = lambda ms: n / ms / 1e3
-        log("kernels", f"{name} ({n} rays): K1 {k1:.3f} ms ({mr(k1):.1f} "
-                       f"Mrays/s) plain {p1:.3f} ms ({mr(p1):.2f} Mrays/s); "
-                       f"K2 {k2:.3f} ms ({mr(k2):.1f} Mrays/s) plain "
+        log("kernels", f"{name} ({n} rays): K1 {k1:.4f} ms alone "
+                       f"({mr(k1):.1f} Mrays/s), call {c1:.4f}, plain "
+                       f"{p1:.3f} ms ({mr(p1):.2f} Mrays/s); K2 {k2:.4f} ms "
+                       f"alone ({mr(k2):.1f} Mrays/s), call {c2:.4f}, plain "
                        f"{p2:.3f} ms ({mr(p2):.2f} Mrays/s); entry phase "
                        f"alone {ke:.3f} ms (with the table's write), plain "
                        f"row_entries {re_ms:.3f} ms; walk_closest wrapper "
@@ -538,10 +572,12 @@ def phase_kernels(ts, waves, dev):
                 cs, po, pd, ptmn, ptmx, False), sizes)
             t2, tri2, _ = visits(lambda: ray_walk.any_rows_plain(
                 cs, po, pd, ptmn, pseg), sizes)
-            results["walk_closest"].update(ms=k1, plain_ms=p1, **bound(
+            results["walk_closest"].update(ms=k1, call_ms=c1, plain_ms=p1,
+                                           **bound(
                 t1, fixed + c * 4 + tri1 * TRI_BYTES + npad * 16,
                 slabs["closest"]))
-            results["walk_any"].update(ms=k2, plain_ms=p2, **bound(
+            results["walk_any"].update(ms=k2, call_ms=c2, plain_ms=p2,
+                                       **bound(
                 t2, fixed + tri2 * TRI_BYTES + npad * 4, slabs["any"]))
     return results
 
@@ -814,7 +850,7 @@ def phase_brute(cts, ccam, its, icam, dev) -> dict:
             assert (got.tri[tmax < tmin] == -1).all(), "dead lane hit"
             if not cull:
                 # the checks compare hits, not only misses
-                assert hits >= BRUTE_MIN_SHARE, (name, hits)
+                assert hits >= MIN_HIT_SHARE, (name, hits)
             if name.startswith("bounce") and not cull:
                 results["brute_closest"] = dict(max_abs_err=err_t)
         tseg = brute_segments(name, ref, tmax, n, dev)
@@ -827,7 +863,7 @@ def phase_brute(cts, ccam, its, icam, dev) -> dict:
         occluded = occ_k.float().mean().item()
         log("brute", f"K3 any {name}: occlusion agreement 1.000000 "
                      f"(occluded {occluded:.4f})")
-        assert occluded >= BRUTE_MIN_SHARE, (name, occluded)
+        assert occluded >= MIN_HIT_SHARE, (name, occluded)
         if name.startswith("connection"):
             results["brute_any"] = dict(
                 max_abs_err=(occ_k.int() - occ_p.int()).abs().max().item())
@@ -893,9 +929,14 @@ def phase_brute(cts, ccam, its, icam, dev) -> dict:
             ("closest", lambda: trace_closest(cts, o, d, 1e-3, tmax, False)),
             ("any", lambda: trace_any(cts, o, d, 1e-3, tseg))):
         call()
-        before = dict(kernels.LAUNCHES)
-        events = device_events(call)
-        launched = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+        launched = {}
+
+        def counted(call=call):   # the launches of the window's call
+            before = dict(kernels.LAUNCHES)
+            call()
+            launched.update({k: kernels.LAUNCHES[k] - before[k]
+                             for k in before})
+        events = device_events(counted)
         log("brute", f"one brute-mode trace_{query} call: device activities "
                      f"{ {k[:60]: c for k, (c, _) in events.items()} }, "
                      f"launches {launched}")
@@ -963,10 +1004,12 @@ def phase_cpu_vs_card_spcbpt(state_path: str) -> None:
     assert rel <= SPCBPT_CPU_CARD, (mean_a, mean_b)
 
 
-def phase_tile_kernels(tts, wts, waves, dev) -> dict:
+def phase_tile_kernels(tts, wts, waves, dev, first_forms) -> dict:
     """K4 (the round walk, and one round alone) and K5 against their plain
     versions on the tile-mode interior; against brute force and the walk
-    mode."""
+    mode; K5 closest and K4's round beside their first forms (the libraries
+    `first_forms`, by variant name)."""
+    import tile_walk_variants as variants
     from spcbpt_tpu_torch.kernels import tile_walk as kernels
     from spcbpt_tpu_torch.ops import clusters, intersect, pallas_tile
     from spcbpt_tpu_torch.ops import ray_walk, tile_trace
@@ -1024,9 +1067,9 @@ def phase_tile_kernels(tts, wts, waves, dev) -> dict:
                                                tmin[sub], tmax[sub], cull)
             agree = lambda a, b: (a == b).float().mean().item()
             vs_bf = (agree(k4.tri[sub], bf.tri), agree(k5.tri[sub], bf.tri))
+            hits = (k5.tri >= 0).float().mean().item()
             log("tile", f"{name} cull={cull}: the K4 walk and K5 closest "
-                        f"equal their plain versions; hits "
-                        f"{(k4.tri >= 0).float().mean().item():.4f}; tri "
+                        f"equal their plain versions; hits {hits:.4f}; tri "
                         f"agreement K4-K5 {agree(k4.tri, k5.tri):.6f}, "
                         f"K4-walk {agree(k4.tri, walk.tri):.6f}, brute on "
                         f"{BRUTE_SUBSET} rays {vs_bf[0]:.6f} / {vs_bf[1]:.6f}"
@@ -1036,6 +1079,9 @@ def phase_tile_kernels(tts, wts, waves, dev) -> dict:
                         f"{int(tile_rounds.sum())} = the plain walk's visits")
             assert min(vs_bf) >= TRI_AGREE, (name, cull, vs_bf)
             assert agree(k4.tri, walk.tri) >= TRI_AGREE
+            if name.startswith("bounce"):
+                # the closest times are taken here: they must time hits
+                assert hits >= MIN_HIT_SHARE, (name, cull, hits)
             if name.startswith("bounce") and not cull:
                 results["tile_round_walk"] = dict(
                     max_abs_err=(k4.t - p4.t).abs().max().item())
@@ -1070,26 +1116,52 @@ def phase_tile_kernels(tts, wts, waves, dev) -> dict:
             tile_trace._prepare(cs, po, pd, ptn, ptx, TILE_LANES)
         run0 = entries_s[:, 0] < 1e30
         cid0 = ids_s[:, 0].contiguous()
-        r_args = (o_t, d_t, tmin_t, tmax_t, cid0, run0)
+        round_k = lambda cull: kernels.tile_round(
+            o_t, d_t, tmin_t, tmax_t, cid0, run0, cs.tri_block, cs.tri_count,
+            cs.tri_k, cull)
+        round_p = lambda cull: plain_round(
+            o_t, d_t, cs.tri_block, cs.tri_count, cid0, run0, tmin_t, tmax_t,
+            cs.tri_k, cull)
         for cull in (True, False):
-            got = kernels.tile_round(*r_args, cs.tri_block, cs.tri_k, cull)
-            ref = plain_round(o_t, d_t, cs.tri_block, cid0, run0, tmin_t,
-                              tmax_t, cs.tri_k, cull)
+            got, ref = round_k(cull), round_p(cull)
             torch.cuda.synchronize()
             for f, a, b in zip(("t", "u", "v", "dn", "slot"), got, ref):
                 assert torch.equal(a, b), \
                     f"K4 round {name} cull={cull}: {f} differs from plain"
+            log("tile", f"{name} cull={cull}: K4 round 0 equals its plain "
+                        f"version; {run0.float().mean().item():.4f} of the "
+                        f"tiles run, lanes hit "
+                        f"{(got[4] < 128).float().mean().item():.4f}")
             if name.startswith("bounce") and not cull:
                 results["tile_round"] = dict(
                     max_abs_err=(got[0] - ref[0]).abs().max().item())
         w_args = (o_t, d_t, tmin_t, tmax_t, entries_s, ids_s, cs.tri_block,
                   cs.tri_begin, cs.tri_count, cs.tri_k, False)
-        k4w = cuda_ms(lambda: kernels.round_walk(*w_args), 10)
-        k4_ms = cuda_ms(lambda: kernels.tile_round(
-            *r_args, cs.tri_block, cs.tri_k, False), 50)
-        p4_ms = cuda_ms(lambda: plain_round(
-            o_t, d_t, cs.tri_block, cid0, run0, tmin_t, tmax_t, cs.tri_k,
-            False), 10)
+        qo, qd, qtn, qtx, _, _ = pallas_tile.prepare(cs, o, d, tmin, tmax,
+                                                     True)
+        qseg = pallas_tile.prepare(cs, o, d, tmin, tseg, True)[3]
+        calls = {
+            "K4 walk": lambda: kernels.round_walk(*w_args),
+            "K4 round 0": lambda: round_k(False),
+            "K5 closest": lambda: kernels.walk_closest(
+                qo, qd, qtn, qtx, cs.cmin, cs.cmax, cs.tri_begin,
+                cs.tri_block, cs.tri_count, False),
+            "K5 any": lambda: kernels.walk_any(
+                qo, qd, qtn, qseg, cs.cmin, cs.cmax, cs.tri_block,
+                cs.tri_count, cs.tri_k)}
+        alone = {k: graph_ms(fn) for k, fn in calls.items()}
+        call = {k: cuda_ms(fn, 10) for k, fn in calls.items()}
+        # the first forms alone, on the same inputs, equal to the kernels
+        inputs, _ = variants.inputs_of(cs, o, d, tmax, tseg, dev)
+        first = {}
+        for kind, vname in FIRST_FORMS.items():
+            run = variants.launcher(kind, first_forms[vname], variants.
+                                    VARIANTS[vname][1][kind], inputs)
+            ref = calls["K4 round 0" if kind == "K4 round" else kind]()
+            assert all(torch.equal(a, b) for a, b in zip(run(), ref)), \
+                f"{kind}'s first form on {name} differs from the kernel"
+            first[kind] = graph_ms(run)
+        p4_ms = cuda_ms(lambda: round_p(False), 10)
         plain_walk = lambda: tile_trace._in_buckets(
             lambda *a: tile_trace._round_walk(*a, False, plain_round))(
             cs, entries_s, ids_s, o_t, d_t, tmin_t, tmax_t)
@@ -1098,27 +1170,22 @@ def phase_tile_kernels(tts, wts, waves, dev) -> dict:
             sort_rays=True), 5)
         walk4_p = cuda_ms(plain_walk, 1) if name.startswith("bounce") \
             else float("nan")
-        qo, qd, qtn, qtx, _, _ = pallas_tile.prepare(cs, o, d, tmin, tmax,
-                                                     True)
-        qseg = pallas_tile.prepare(cs, o, d, tmin, tseg, True)[3]
-        k5c = cuda_ms(lambda: kernels.walk_closest(
-            qo, qd, qtn, qtx, cs.cmin, cs.cmax, cs.tri_begin, cs.tri_block,
-            cs.tri_k, False), 20)
-        k5a = cuda_ms(lambda: kernels.walk_any(
-            qo, qd, qtn, qseg, cs.cmin, cs.cmax, cs.tri_block, cs.tri_count,
-            cs.tri_k), 20)
         p5c = cuda_ms(lambda: pallas_tile.closest_tiles_plain(
             cs, qo, qd, qtn, qtx, False), 1)
         p5a = cuda_ms(lambda: pallas_tile.any_tiles_plain(
             cs, qo, qd, qtn, qseg), 1)
         log("tile", f"{name} ({n} rays, {o_t.shape[0]} tiles of "
-                    f"{TILE_LANES}): K4 walk {k4w:.3f} ms, plain (host loop,"
-                    f" bounce only) {walk4_p:.1f} ms; tile_closest with K4 "
-                    f"(sort + "
-                    f"prepare + walk + unsort) {walk4:.3f} ms; K4 round 0 "
-                    f"alone {k4_ms:.4f} ms, plain {p4_ms:.4f} ms; K5 closest"
-                    f" {k5c:.3f} ms, plain {p5c:.2f} ms; K5 any {k5a:.3f} "
-                    f"ms, plain {p5a:.2f} ms")
+                    f"{TILE_LANES}): kernel alone / call, ms: " + ", ".join(
+                        f"{k} {alone[k]:.4f} / {call[k]:.4f}" for k in calls)
+                    + f"; first forms alone: K4 round 0 "
+                    f"{first['K4 round']:.4f}, K5 closest "
+                    f"{first['K5 closest']:.4f}"
+                    f"; plain: K4 walk (host loop, bounce only) "
+                    f"{walk4_p:.1f}, K4 round 0 {p4_ms:.4f}, K5 closest "
+                    f"{p5c:.2f}, K5 any {p5a:.2f}; tile_closest with K4 "
+                    f"(sort + prepare + walk + unsort) {walk4:.3f} ms")
+        k4w, k4_ms, k5c, k5a = (alone[k] for k in calls)
+        c4w, c4_ms, c5c, c5a = (call[k] for k in calls)
         # bytes: rays (K4: the visit order it reads, one entry and id per
         # round and the stopping one per tile, a round count per tile,
         # tri_begin and tri_count; K5: the cluster boxes, and tri_begin for
@@ -1128,25 +1195,88 @@ def phase_tile_kernels(tts, wts, waves, dev) -> dict:
         lanes = nt4 * o_t.shape[1]
         if name.startswith("bounce"):
             t4, tri4, v4 = visits(plain_walk, sizes)
-            r4, trir, _ = visits(lambda: plain_round(
-                o_t, d_t, cs.tri_block, cid0, run0, tmin_t, tmax_t, cs.tri_k,
-                False), sizes)
-            t5, tri5, _ = visits(lambda: pallas_tile.closest_tiles_plain(
-                cs, qo, qd, qtn, qtx, False), sizes)
-            results["tile_round_walk"].update(ms=k4w, plain_ms=walk4_p,
-                                              **bound(
+            r4, trir, _ = visits(lambda: round_p(False), sizes)
+            results["tile_round_walk"].update(ms=k4w, call_ms=c4w,
+                                              plain_ms=walk4_p, **bound(
                 t4, lanes * (RAY_BYTES + 16) + (v4 + nt4) * 8 + nt4 * 4
                 + c * 8 + tri4 * TRI_BYTES))
-            results["tile_round"].update(ms=k4_ms, plain_ms=p4_ms, **bound(
-                r4, lanes * (RAY_BYTES + 20) + nt4 * 5 + trir * TRI_BYTES))
-            results["tile_walk_closest"].update(ms=k5c, plain_ms=p5c, **bound(
-                t5, nq * (RAY_BYTES + 16) + c * 28 + tri5 * TRI_BYTES))
+            # the round: the plain version's tests (every lane of a running
+            # tile) as plain_bound_ms; the kernel's own work as bound_ms:
+            # the live lanes of running tiles against their cluster's
+            # triangles; bytes: their rays, every lane's outputs, cid and
+            # run, the running tiles' tri_count and triangles
+            live = ((tmax_t > tmin_t) & run0[:, None]).sum(dim=1)
+            r4_own = int((live * sizes[cid0.long()]).sum())
+            runs = int(run0.sum())
+            plain_r = bound(r4, lanes * (RAY_BYTES + 20) + nt4 * 5
+                            + trir * TRI_BYTES)
+            results["tile_round"].update(
+                ms=k4_ms, call_ms=c4_ms, first_form_ms=first["K4 round"],
+                plain_ms=p4_ms, **bound(
+                    r4_own, runs * o_t.shape[1] * RAY_BYTES + lanes * 20
+                    + nt4 * 5 + runs * 4 + trir * TRI_BYTES),
+                plain_bound_ms=plain_r["bound_ms"])
+            # K5 closest: the plain walk's tile visits as plain_bound_ms;
+            # the groups' own positions and tests (the kernel's optional
+            # output) as bound_ms; bytes: rays, the boxes, tri_begin and
+            # tri_count, each tile's triangles up to its longest group's
+            # stop (its list is its clusters in reach sorted by (entry,
+            # id)), hits
+            group = kernels.group_rays()
+            rounds5 = torch.empty((nq // group, 2), dtype=torch.int32,
+                                  device=dev)
+            got5 = kernels.walk_closest(qo, qd, qtn, qtx, cs.cmin, cs.cmax,
+                                        cs.tri_begin, cs.tri_block,
+                                        cs.tri_count, False, rounds5)
+            plain_log = visit_log(lambda: pallas_tile.closest_tiles_plain(
+                cs, qo, qd, qtn, qtx, False))
+            t5, tri5, v5 = tally(plain_log, sizes)
+            assert all(torch.equal(a, b) for a, b in
+                       zip(got5, calls["K5 closest"]())), "K5 rounds form"
+            walked = rounds5[:, 0].long()
+            own5 = int(rounds5[:, 1].long().sum())
+            per_tile = pallas_tile.TILE // group
+            assert int(walked.max()) <= len(plain_log), \
+                (int(walked.max()), len(plain_log))
+            assert int(walked.sum()) <= v5 * per_tile, \
+                (int(walked.sum()), v5 * per_tile)
+            nt5 = nq // pallas_tile.TILE
+            reach = walked.view(nt5, per_tile).amax(dim=1)
+            order = torch.sort(tile_trace.tile_entries(
+                cs, qo, qd, qtn, qtx, pallas_tile.TILE), dim=1,
+                stable=True).indices
+            in_reach = (torch.arange(c, device=dev)[None, :]
+                        < reach[:, None])
+            reached = int((sizes[order] * in_reach).sum())
+            plain5 = bound(t5, nq * (RAY_BYTES + 16) + c * 28
+                           + tri5 * TRI_BYTES)
+            results["tile_walk_closest"].update(
+                ms=k5c, call_ms=c5c, first_form_ms=first["K5 closest"],
+                plain_ms=p5c, **bound(
+                    own5, nq * (RAY_BYTES + 16) + c * 32
+                    + reached * TRI_BYTES),
+                plain_bound_ms=plain5["bound_ms"])
+            log("tile", f"{name}: K5 closest's {nq // group} groups of "
+                        f"{group} walked {int(walked.sum())} positions, at "
+                        f"most {int(walked.max())}, against {v5} tile "
+                        f"visits of the plain walk (x {per_tile} groups a "
+                        f"tile = {v5 * per_tile}), at most {len(plain_log)};"
+                        f" ray-triangle tests: the plain walk's {t5}, the "
+                        f"groups' own {own5} ({own5 / max(t5, 1):.3f}x); "
+                        f"bound {results['tile_walk_closest']['bound_ms']:.4f}"
+                        f" ms ({results['tile_walk_closest']['bound_by']}), "
+                        f"the plain walk's {plain5['bound_ms']:.4f} ms; K4 "
+                        f"round 0: {r4_own} live tests of {r4}, bound "
+                        f"{results['tile_round']['bound_ms']:.5f} ms "
+                        f"({results['tile_round']['bound_by']}), the plain "
+                        f"version's {plain_r['bound_ms']:.5f} ms")
             log("tile", f"{name}: K4 walk {v4} visits of {TILE_LANES} rays "
                         f"({t4} ray-triangle tests)")
         if name.startswith("connection"):
             t5, tri5, v5 = visits(lambda: pallas_tile.any_tiles_plain(
                 cs, qo, qd, qtn, qseg), sizes)
-            results["tile_walk_any"].update(ms=k5a, plain_ms=p5a, **bound(
+            results["tile_walk_any"].update(ms=k5a, call_ms=c5a,
+                                            plain_ms=p5a, **bound(
                 t5, nq * (RAY_BYTES + 4) + c * 28 + tri5 * TRI_BYTES))
             log("tile", f"{name}: K5 any {v5} visits of {pallas_tile.TILE} "
                         f"rays ({t5} ray-triangle tests)")
@@ -1290,13 +1420,17 @@ def phase_list_walk(tts, wts, waves, dev) -> dict:
         reached = int((cs.tri_count[ids.long()] * in_reach).sum())
         bnd = bound(own_tests, npad * (RAY_BYTES + 16) + nt * 4 + lists * 12
                     + reached * TRI_BYTES)
-        ms = {stream: cuda_ms(lambda: closest(stream), 20)
+        ms = {stream: graph_ms(lambda: closest(stream))
               for stream in (False, True)}
+        call_ms = {stream: cuda_ms(lambda: closest(stream), 20)
+                   for stream in (False, True)}
         mr = lambda t: o.shape[0] / t / 1e3
         log("list", f"{name} K={k} tile 256 ({nt} tiles, {npad // group} "
-                    f"groups of {group}): closest resident {ms[False]:.4f} ms,"
-                    f" streamed {ms[True]:.4f} ms ({mr(ms[False]):.1f} and "
-                    f"{mr(ms[True]):.1f} Mrays/s); bound "
+                    f"groups of {group}): closest resident {ms[False]:.4f} ms"
+                    f" alone (call {call_ms[False]:.4f}), streamed "
+                    f"{ms[True]:.4f} ms alone (call {call_ms[True]:.4f}) "
+                    f"({mr(ms[False]):.1f} and {mr(ms[True]):.1f} Mrays/s "
+                    f"alone); bound "
                     f"{plain_bnd['bound_ms']:.4f} ms "
                     f"({plain_bnd['bound_by']}) from the plain walk's work, "
                     f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) from the "
@@ -1311,7 +1445,8 @@ def phase_list_walk(tts, wts, waves, dev) -> dict:
             pc = cuda_ms(plain_c, 2)
             for stream, suffix in ((False, ""), (True, "_stream")):
                 results[f"list_walk_closest{suffix}"] = dict(
-                    max_abs_err=err[k, stream], ms=ms[stream], plain_ms=pc,
+                    max_abs_err=err[k, stream], ms=ms[stream],
+                    call_ms=call_ms[stream], plain_ms=pc,
                     **bnd, plain_bound_ms=plain_bnd["bound_ms"])
 
     # the any forms on the bounce wavefront with segments up to 3 (as the
@@ -1373,9 +1508,11 @@ def phase_list_walk(tts, wts, waves, dev) -> dict:
                 reached = int((cs.tri_count[q_ids.long()] * in_reach).sum())
                 bnd = bound(own_tests, npad * (RAY_BYTES + 4) + nt * 4
                             + int(reach.sum()) * 8 + reached * TRI_BYTES)
-                ms = cuda_ms(lambda: any_hit(stream), 20)
-                log("list", f"{wave} K={k}: any {form} {ms:.4f} ms "
-                            f"({wo.shape[0] / ms / 1e3:.1f} Mrays/s), "
+                ms = graph_ms(lambda: any_hit(stream))
+                call = cuda_ms(lambda: any_hit(stream), 20)
+                log("list", f"{wave} K={k}: any {form} {ms:.4f} ms alone "
+                            f"({wo.shape[0] / ms / 1e3:.1f} Mrays/s), call "
+                            f"{call:.4f} ms, "
                             f"{npad // group} groups of {group} walked "
                             f"{int(walked.sum())} rounds, at most "
                             f"{int(walked.max())} (x {256 // group} groups "
@@ -1386,7 +1523,7 @@ def phase_list_walk(tts, wts, waves, dev) -> dict:
                 if timed:
                     results[f"list_walk_any{suffix}"] = dict(
                         max_abs_err=(got_a - ref_a).abs().max().item(),
-                        ms=ms, plain_ms=pa, **bnd,
+                        ms=ms, call_ms=call, plain_ms=pa, **bnd,
                         plain_bound_ms=plain_bnd["bound_ms"])
     return results
 
@@ -1615,7 +1752,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
     smi = phase_environment()
-    phase_build()
+    first_forms = phase_build()
     out_dir = os.path.join(REPO, "smoke_out")
 
     scene_path = resolve_scene("interior")
@@ -1637,7 +1774,7 @@ def main() -> int:
                  f"clusters of at most {tts.clusters.tri_k} triangles "
                  f"({time.perf_counter() - t0:.1f} s)")
     waves = waves + (connection_wavefront(ts, cam, dev),)
-    numbers.update(phase_tile_kernels(tts, ts, waves, dev))
+    numbers.update(phase_tile_kernels(tts, ts, waves, dev, first_forms))
     numbers.update(phase_list_walk(tts, ts, waves, dev))
     list_launches = phase_profiler()
     launches, walk_stats = phase_main_path(out_dir)

@@ -662,7 +662,8 @@ def _all_slots(src: str) -> str:
 _UNROLL = "#pragma unroll 4\n" + _SLOT_LOOP
 _MT_SLOT = ("          if (mt_slot(ray, s, k, cull != 0, tmn, tmax_eff, t, u, "
             "v) &&")
-_CLOSEST = "// Closest hit: group g (one warp)"
+# where mt_test goes: before the shared closest walk that calls it
+_CLOSEST = "// --- the closest-hit walk of one group"
 _IN_PLACE = ("  if (!kStream)\n"
              "    return blocks + static_cast<size_t>(c_id) * kBlockRows * "
              "kSlots;\n")
@@ -787,8 +788,7 @@ def build_variant(name: str, out_dir: str) -> tuple:
     lines)."""
     from spcbpt_tpu_torch.kernels import build
     patch = (ANY_VARIANTS if name in ANY_VARIANTS else VARIANTS)[name][0]
-    with open(os.path.join(build.SRC_DIR, "list_walk.cu")) as f:
-        src = patch(f.read())
+    src = patch(build.source("list_walk"))
     cu = os.path.join(out_dir, f"list_walk_{name}.cu")
     so = os.path.join(out_dir, f"liblist_walk_{name}.so")
     with open(cu, "w") as f:
@@ -861,8 +861,7 @@ def main(argv) -> int:
     if unknown:
         raise SystemExit(f"unknown variants {sorted(unknown)}; known: "
                          f"{[*VARIANTS, *ANY_VARIANTS]}")
-    with open(os.path.join(build.SRC_DIR, "list_walk.cu")) as f:
-        src = f.read()
+    src = build.source("list_walk")
     # each query's shipped form beside its variants; the group size of the
     # shipped form is no variant
     names = []

@@ -84,6 +84,8 @@
 //   * Optionally, each group writes the rounds it walked and the slots its
 //     rays tested, summed over the rays: kRays times the slots of the
 //     clusters it walked (out_rounds).
+//   The walk itself is closest_group_walk of csrc/group_walk.cuh, which
+//   K5 closest (csrc/tile_walk.cu) runs on its own sorted list.
 //
 // The any forms. What bounded them in their first form (one block per
 // tile, one thread a lane, kept in list_walk_variants.py): the tile
@@ -144,20 +146,14 @@
 //     hits round below it (see the closest forms above).
 #include <cuda_runtime.h>
 
+#include "group_walk.cuh"
+
 namespace {
 
-constexpr float kBig = 1e30f;
-constexpr float kEpsDet = 1e-10f;
-constexpr int kSlots = 128;       // slot columns of a (16, 128) block
-constexpr int kBlockRows = 16;
-constexpr int kTriRows = 9;       // p0 | e1 | e2, x y z each
-constexpr int kStage = kTriRows * kSlots;  // floats staged per round
 constexpr int kRays = 8;          // rays per closest group, one warp each
-constexpr int kSplit = 32 / kRays;  // threads per ray of a closest group
 constexpr int kAnyRays = 1;       // rays per group of the resident any form
 constexpr int kAnyStreamRays = 4;  // rays per group of the streamed any form
 constexpr int kGroupWarps = 8;    // groups (warps) per block
-constexpr unsigned kFull = 0xffffffffu;
 
 // Rays per group of the resident or streamed any form.
 __host__ __device__ constexpr int any_rays(bool stream) {
@@ -171,133 +167,15 @@ __host__ __device__ constexpr unsigned ray_lanes(int rays) {
   return m;
 }
 
-struct Ray {
-  float ox, oy, oz, dx, dy, dz;
-};
-
-__device__ __forceinline__ Ray load_ray(const float* __restrict__ o,
-                                        const float* __restrict__ d,
-                                        size_t i) {
-  Ray r;
-  r.ox = __ldg(o + 3 * i);
-  r.oy = __ldg(o + 3 * i + 1);
-  r.oz = __ldg(o + 3 * i + 2);
-  r.dx = __ldg(d + 3 * i);
-  r.dy = __ldg(d + 3 * i + 1);
-  r.dz = __ldg(d + 3 * i + 2);
-  return r;
-}
-
-// Moller-Trumbore of slot k of a block (rows at stride 128, in global or
-// shared memory) in the operation order of pallas_walk._mt_rows.
-__device__ __forceinline__ bool mt_slot(const Ray& r, const float* s, int k,
-                                        bool cull, float tmn, float tmx,
-                                        float& t, float& u, float& v) {
-  const float p0x = s[0 * kSlots + k], p0y = s[1 * kSlots + k],
-              p0z = s[2 * kSlots + k];
-  const float e1x = s[3 * kSlots + k], e1y = s[4 * kSlots + k],
-              e1z = s[5 * kSlots + k];
-  const float e2x = s[6 * kSlots + k], e2y = s[7 * kSlots + k],
-              e2z = s[8 * kSlots + k];
-  const float pvx = r.dy * e2z - r.dz * e2y;
-  const float pvy = r.dz * e2x - r.dx * e2z;
-  const float pvz = r.dx * e2y - r.dy * e2x;
-  const float det = e1x * pvx + e1y * pvy + e1z * pvz;
-  const bool det_ok = cull ? det > kEpsDet : fabsf(det) > kEpsDet;
-  if (!det_ok) return false;
-  const float inv = 1.0f / det;
-  const float tvx = r.ox - p0x;
-  const float tvy = r.oy - p0y;
-  const float tvz = r.oz - p0z;
-  u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv;
-  const float qvx = tvy * e1z - tvz * e1y;
-  const float qvy = tvz * e1x - tvx * e1z;
-  const float qvz = tvx * e1y - tvy * e1x;
-  v = (r.dx * qvx + r.dy * qvy + r.dz * qvz) * inv;
-  t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv;
-  return (u >= 0.0f) & (v >= 0.0f) & (u + v <= 1.0f) & (t > tmn) & (t < tmx);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int m = 16; m >= 1; m >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, m));
-  return x;
-}
-
 __device__ __forceinline__ int warp_sum(int x) {
 #pragma unroll
   for (int m = 16; m >= 1; m >>= 1) x += __shfl_xor_sync(kFull, x, m);
   return x;
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// The streamed forms' staging, by one warp: the first `cnt` slots of
-// rows 0..8 of cluster `cid`, rounded up to whole 16-byte copies (the
-// columns past the count are zero and never tested), at the block's row
-// stride; one commit group per stage.
-__device__ __forceinline__ void stage_warp(float* buf,
-                                           const float* __restrict__ blocks,
-                                           int cid, int cnt, int lane) {
-  const float* b = blocks + static_cast<size_t>(cid) * kBlockRows * kSlots;
-  const int chunks = (cnt + 3) >> 2;  // per row
-  for (int j = lane; j < kTriRows * chunks; j += 32) {
-    const int row = j / chunks;
-    const int at = row * kSlots + 4 * (j - row * chunks);
-    cp_async16(buf + at, b + at);
-  }
-  commit();
-}
-
-__device__ __forceinline__ void wait_all_but_newest() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-__device__ __forceinline__ void wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-// The slots of round r, at position `at` of the group's chunk (cluster c_id,
-// c_cnt slots): in place (resident), or staged into the warp's buffer r & 1
-// (streamed), the next position copied into the other while this one is
-// tested, if the bound reaches it now (should the bound fall past it this
-// round, the copy is drained unused). `open`, `cid`, `cnt`: the calling
-// lane's position of the chunk; `staged`: the position copied ahead.
-template <bool kStream>
-__device__ __forceinline__ const float* round_block(
-    const float* __restrict__ blocks, float* buf, int r, int at, int c_id,
-    int c_cnt, bool open, int cid, int cnt, int lane, int& staged) {
-  if (!kStream)
-    return blocks + static_cast<size_t>(c_id) * kBlockRows * kSlots;
-  if (staged != r)  // not copied ahead: the first round of a chunk
-    stage_warp(buf + (r & 1) * kStage, blocks, c_id, c_cnt, lane);
-  const int nx = at < 31 ? at + 1 : 31;
-  if (__shfl_sync(kFull, open, nx) && at < 31) {
-    stage_warp(buf + ((r + 1) & 1) * kStage, blocks,
-               __shfl_sync(kFull, cid, nx), __shfl_sync(kFull, cnt, nx), lane);
-    staged = r + 1;
-    wait_all_but_newest();
-  } else {
-    staged = -1;
-    wait_all();
-  }
-  __syncwarp();  // every lane's copies of this position are visible
-  return buf + (r & 1) * kStage;
-}
-
-// Closest hit: group g (one warp) holds rays g * kRays ... of its tile; lane
-// = kRays * q + ray, thread q of its ray tests slots q, q + kSplit, ... The
-// group takes its list 32 positions at a time (lane j loads position p0 + j)
-// and each round shuffles its position's cluster, count and base from the
-// lane that holds it.
+// Closest hit: group g (one warp) holds rays g * kRays ... of its tile and
+// walks the tile's list with closest_group_walk (csrc/group_walk.cuh, the
+// walk K5 closest runs too).
 template <bool kStream>
 __global__ void __launch_bounds__(32 * kGroupWarps)
 closest_kernel(const int* __restrict__ counts, const int* __restrict__ ids,
@@ -323,88 +201,22 @@ closest_kernel(const int* __restrict__ counts, const int* __restrict__ ids,
   const float tmn = __ldg(tmin + i);
   const float tmx = __ldg(tmax + i);
   float* buf = stages + warp * 2 * kStage;
-  float best_t = kBig, best_u = 0.0f, best_v = 0.0f;
-  int best_id = -1;
-  float bound = warp_max(fminf(best_t, tmx));
-  int r = 0, slots = 0;
-  int staged = -1;  // streamed: the position copied ahead
-  bool walking = n > 0;
-  for (int p0 = 0; walking; p0 += 32) {
-    const int pos = p0 + lane;
-    const bool valid = pos < n;
-    int cid = 0, cnt = 0, base = 0;
-    float te = kBig;
-    if (valid) {
-      cid = __ldg(ids + row + pos);
-      cnt = __ldg(tri_count + cid);
-      base = __ldg(bases + row + pos);
-      te = __ldg(entries + row + pos);
-    }
-    for (; r - p0 < 32; ++r) {
-      const int at = r - p0;
-      // the stop: the list's end, or (prune) an entry past the bound
-      const bool open = valid && !(prune && te > bound);
-      if (!__shfl_sync(kFull, open, at)) {
-        walking = false;
-        break;
-      }
-      const int c_id = __shfl_sync(kFull, cid, at);
-      const int c_cnt = __shfl_sync(kFull, cnt, at);
-      const int c_base = __shfl_sync(kFull, base, at);
-      const float* s = round_block<kStream>(blocks, buf, r, at, c_id, c_cnt,
-                                            open, cid, cnt, lane, staged);
-      slots += c_cnt;
-      const float tmax_eff = fminf(best_t, tmx);
-      float cb = kBig, cu = 0.0f, cv = 0.0f;
-      int cs = kSlots;
-      if (tmax_eff > tmn) {
-#pragma unroll 4
-        for (int k = q; k < c_cnt; k += kSplit) {
-          float t, u, v;
-          if (mt_slot(ray, s, k, cull != 0, tmn, tmax_eff, t, u, v) &&
-              t < cb) {
-            cb = t;
-            cu = u;
-            cv = v;
-            cs = k;
-          }
-        }
-      }
-      // the kSplit threads of a ray: smallest t, then smallest slot
-#pragma unroll
-      for (int m = kRays; m < 32; m <<= 1) {
-        const float ot = __shfl_xor_sync(kFull, cb, m);
-        const int os = __shfl_xor_sync(kFull, cs, m);
-        const float ou = __shfl_xor_sync(kFull, cu, m);
-        const float ov = __shfl_xor_sync(kFull, cv, m);
-        if (ot < cb || (ot == cb && os < cs)) {
-          cb = ot;
-          cs = os;
-          cu = ou;
-          cv = ov;
-        }
-      }
-      if (cb < best_t) {
-        best_t = cb;
-        best_id = c_base + cs;
-        best_u = cu;
-        best_v = cv;
-      }
-      bound = warp_max(fminf(best_t, tmx));
-      // every lane is done with this stage before it is refilled
-      if (kStream) __syncwarp();
-    }
-  }
-  if (kStream) wait_all();  // drain a copy ahead of a walk that stopped
+  const GroupHit h = closest_group_walk<kRays, kStream>(
+      ray, tmn, tmx, n, cull, prune, blocks, tri_count, buf, lane,
+      [&](int pos, float& te, int& cid, int& base) {
+        cid = __ldg(ids + row + pos);
+        base = __ldg(bases + row + pos);
+        te = __ldg(entries + row + pos);
+      });
   if (q == 0) {
-    out_t[i] = best_t;
-    out_tri[i] = best_id;
-    out_u[i] = best_u;
-    out_v[i] = best_v;
+    out_t[i] = h.t;
+    out_tri[i] = h.id;
+    out_u[i] = h.u;
+    out_v[i] = h.v;
   }
   if (out_rounds != nullptr && lane == 0) {
-    out_rounds[2 * g] = r;
-    out_rounds[2 * g + 1] = kRays * slots;
+    out_rounds[2 * g] = h.rounds;
+    out_rounds[2 * g + 1] = h.slots;
   }
 }
 

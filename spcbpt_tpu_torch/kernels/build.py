@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc`
 for sm_90a into `kernels/build/lib<name>-<hash>.so`, where the hash covers
-the source and the flags, so an edited source builds anew and an unchanged
-one is built once per checkout. Nothing is built when a module is
+the source with the headers of csrc/ it includes, and the flags, so an
+edited source or header builds anew and an unchanged one is built once per
+checkout. Nothing is built when a module is
 imported: the CPU tests import every module on machines without `nvcc`.
 """
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -41,12 +43,24 @@ def nvcc_path() -> str:
     return path
 
 
+_LOCAL_INCLUDE = re.compile(r'^#include "(\w+\.cuh)"\n', re.M)
+
+
+def source(name: str) -> str:
+    """The text of csrc/<name>.cu with the headers of csrc/ that it includes
+    (`#include "<header>.cuh"`) written in place: what nvcc compiles."""
+    def text(path: str) -> str:
+        with open(os.path.join(SRC_DIR, path)) as f:
+            return f.read()
+    return _LOCAL_INCLUDE.sub(lambda m: text(m.group(1)), text(f"{name}.cu"))
+
+
 def build(name: str) -> str:
     """Compile csrc/<name>.cu if no build of this source exists; returns the
     shared library's path."""
     src = os.path.join(SRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(
+        (source(name) + " ".join(NVCC_FLAGS)).encode())
     so = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
     if os.path.exists(so):
         BUILD_LOG[name] = {"seconds": 0.0, "cached": True, "ptxas": ""}

@@ -16,15 +16,12 @@ import torch
 from . import build
 from .ray_walk import _check, _stream
 
-TILE = 128             # rays per tile (= threads per block) of K5
+TILE = 128             # rays per tile of K5
 MAX_ROUND_LANES = 256  # rays per tile of K4: one thread each
 SLOTS = 128
-SHARED_BYTES = 227 * 1024   # dynamic shared memory a block may take (H100)
-# K5 closest keeps the tile's entry bound of every cluster in shared memory,
-# beside the staged 9 x 128 block and its 32 bytes of reduction scratch
-MAX_CLUSTERS = (SHARED_BYTES - 32) // 4 - 9 * SLOTS
-# K5 any keeps its tile's candidate list as 8-byte (entry, id) keys, padded
-# to a power of two for its sort, beside two staged 9 x 128 blocks
+# Both K5 kernels keep their tile's candidate list as 8-byte (entry, id)
+# keys in shared memory, padded to a power of two for its sort (K5 any
+# beside two staged 9 x 128 blocks)
 MAX_ANY_CLUSTERS = 1 << 14
 LAUNCHES = {"tile_round_walk": 0, "tile_round": 0, "tile_walk_closest": 0,
             "tile_walk_any": 0}
@@ -45,13 +42,20 @@ def _lib() -> ctypes.CDLL:
     # pointers and the stream as c_void_p: ctypes would cut them to 32 bits
     lib.tile_round_walk.argtypes = [_P] * 9 + [_I] * 5 + [_P] * 6
     lib.tile_round_walk.restype = _I
-    lib.tile_round.argtypes = [_P] * 7 + [_I] * 4 + [_P] * 6
+    lib.tile_round.argtypes = [_P] * 8 + [_I] * 4 + [_P] * 6
     lib.tile_round.restype = _I
-    lib.tile_walk_closest.argtypes = [_P] * 8 + [_I] * 4 + [_P] * 5
+    lib.tile_walk_closest.argtypes = [_P] * 9 + [_I] * 3 + [_P] * 6
     lib.tile_walk_closest.restype = _I
+    lib.tile_walk_group_rays.argtypes = []
+    lib.tile_walk_group_rays.restype = _I
     lib.tile_walk_any.argtypes = [_P] * 8 + [_I] * 3 + [_P] * 2
     lib.tile_walk_any.restype = _I
     return lib
+
+
+def group_rays() -> int:
+    """Rays per group (one warp) of K5 closest."""
+    return _lib().tile_walk_group_rays()
 
 
 def _check_blocks(tri_block, tri_k, dev):
@@ -116,11 +120,11 @@ def round_walk(o, d, tmin, tmax, entries, ids, tri_block, tri_begin,
     return t, tri, u, v, rounds
 
 
-def tile_round(o, d, tmin, tmax_eff, cid, run, tri_block, tri_k: int,
-               cull: bool):
+def tile_round(o, d, tmin, tmax_eff, cid, run, tri_block, tri_count,
+               tri_k: int, cull: bool):
     """K4 on (nt, r) ray tiles -> (t, u, v, dn, slot), each (nt, r): tile
-    i against tri_block[cid[i]] where run[i], a miss (t 1e30, u = v = 0,
-    slot 128) where not."""
+    i against the slots below tri_count of tri_block[cid[i]] where run[i],
+    a miss (t 1e30, u = v = 0, slot 128) where not; dn is 1."""
     dev = _cuda_device(o)
     nt, r = o.shape[0], o.shape[1]
     if not 0 < r <= MAX_ROUND_LANES:
@@ -132,7 +136,8 @@ def tile_round(o, d, tmin, tmax_eff, cid, run, tri_block, tri_k: int,
     _check("tmax_eff", tmax_eff, f32, (nt, r), dev)
     _check("cid", cid, torch.int32, (nt,), dev)
     _check("run", run, torch.bool, (nt,), dev)
-    _check_blocks(tri_block, tri_k, dev)
+    c = _check_blocks(tri_block, tri_k, dev)
+    _check("tri_count", tri_count, torch.int32, (c,), dev)
     t = torch.empty((nt, r), dtype=f32, device=dev)
     u, v, dn = torch.empty_like(t), torch.empty_like(t), torch.empty_like(t)
     slot = torch.empty((nt, r), dtype=torch.int32, device=dev)
@@ -141,17 +146,21 @@ def tile_round(o, d, tmin, tmax_eff, cid, run, tri_block, tri_k: int,
     with torch.cuda.device(dev):
         err = _lib().tile_round(
             o.data_ptr(), d.data_ptr(), tmin.data_ptr(), tmax_eff.data_ptr(),
-            cid.data_ptr(), run.data_ptr(), tri_block.data_ptr(), nt, r,
-            tri_k, int(bool(cull)), t.data_ptr(), u.data_ptr(), v.data_ptr(),
-            dn.data_ptr(), slot.data_ptr(), _stream(dev))
+            cid.data_ptr(), run.data_ptr(), tri_block.data_ptr(),
+            tri_count.data_ptr(), nt, r, tri_k, int(bool(cull)),
+            t.data_ptr(), u.data_ptr(), v.data_ptr(), dn.data_ptr(),
+            slot.data_ptr(), _stream(dev))
     if err:
         raise RuntimeError(f"tile_round launch failed: CUDA error {err}")
     LAUNCHES["tile_round"] += 1
     return t, u, v, dn, slot
 
 
-def _check_walk(o, d, tmin, tmax, cmin, cmax, tri_block, tri_k,
-                max_clusters):
+def _check_walk(o, d, tmin, tmax, cmin, cmax, tri_block, tri_count):
+    c = tri_block.shape[0]
+    if not 0 < c <= MAX_ANY_CLUSTERS:
+        raise ValueError(f"{c} clusters outside 1..{MAX_ANY_CLUSTERS} (the "
+                         f"kernels' shared memory)")
     dev = _cuda_device(o)
     n = o.shape[0]
     if n % TILE:
@@ -161,22 +170,25 @@ def _check_walk(o, d, tmin, tmax, cmin, cmax, tri_block, tri_k,
     _check("dirs", d, f32, (n, 3), dev)
     _check("tmin", tmin, f32, (n,), dev)
     _check("tmax", tmax, f32, (n,), dev)
-    c = _check_blocks(tri_block, tri_k, dev)
-    if not 0 < c <= max_clusters:
-        raise ValueError(f"{c} clusters outside 1..{max_clusters} (the "
-                         f"kernel's shared memory)")
+    _check("tri_block", tri_block, f32, (c, 16, SLOTS), dev)
     _check("cmin", cmin, f32, (c, 3), dev)
     _check("cmax", cmax, f32, (c, 3), dev)
+    _check("tri_count", tri_count, torch.int32, (c,), dev)
     return n, c, dev
 
 
 def walk_closest(o, d, tmin, tmax, cmin, cmax, tri_begin, tri_block,
-                 tri_k: int, cull: bool):
-    """K5 closest hit on (n,) padded rays -> (t, tri, u, v); misses keep
-    t=1e30, tri=-1, u=v=0."""
-    n, c, dev = _check_walk(o, d, tmin, tmax, cmin, cmax, tri_block, tri_k,
-                            MAX_CLUSTERS)
+                 tri_count, cull: bool, rounds=None):
+    """K5 closest hit on (n,) padded rays -> (t, tri, u, v); each cluster's
+    slots below tri_count are tested; misses keep t=1e30, tri=-1, u=v=0.
+    rounds: None, or an (n / group_rays(), 2) int32 tensor that receives,
+    per group, the positions of its tile's list it walked and the slots its
+    rays tested, summed over the rays."""
+    n, c, dev = _check_walk(o, d, tmin, tmax, cmin, cmax, tri_block,
+                            tri_count)
     _check("tri_begin", tri_begin, torch.int32, (c,), dev)
+    if rounds is not None:
+        _check("rounds", rounds, torch.int32, (n // group_rays(), 2), dev)
     t = torch.empty((n,), dtype=torch.float32, device=dev)
     tri = torch.empty((n,), dtype=torch.int32, device=dev)
     u, v = torch.empty_like(t), torch.empty_like(t)
@@ -186,8 +198,10 @@ def walk_closest(o, d, tmin, tmax, cmin, cmax, tri_begin, tri_block,
         err = _lib().tile_walk_closest(
             o.data_ptr(), d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(),
             cmin.data_ptr(), cmax.data_ptr(), tri_begin.data_ptr(),
-            tri_block.data_ptr(), n, c, tri_k, int(bool(cull)), t.data_ptr(),
-            tri.data_ptr(), u.data_ptr(), v.data_ptr(), _stream(dev))
+            tri_block.data_ptr(), tri_count.data_ptr(), n, c,
+            int(bool(cull)), t.data_ptr(), tri.data_ptr(), u.data_ptr(),
+            v.data_ptr(), None if rounds is None else rounds.data_ptr(),
+            _stream(dev))
     if err:
         raise RuntimeError(f"tile_walk_closest launch failed: CUDA error "
                            f"{err}")
@@ -199,9 +213,9 @@ def walk_any(o, d, tmin, tmax, cmin, cmax, tri_block, tri_count,
              tri_k: int):
     """K5 any hit on (n,) padded rays -> int32 occlusion flags (1 =
     occluded); each cluster's slots below tri_count are tested."""
-    n, c, dev = _check_walk(o, d, tmin, tmax, cmin, cmax, tri_block, tri_k,
-                            MAX_ANY_CLUSTERS)
-    _check("tri_count", tri_count, torch.int32, (c,), dev)
+    n, c, dev = _check_walk(o, d, tmin, tmax, cmin, cmax, tri_block,
+                            tri_count)
+    _check_blocks(tri_block, tri_k, dev)
     occ = torch.empty((n,), dtype=torch.int32, device=dev)
     if n == 0:
         return occ

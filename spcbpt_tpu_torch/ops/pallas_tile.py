@@ -6,8 +6,8 @@ Port of spcbpt_tpu/ops/pallas_tile.py:
     host-driven tile walk of ops/tile_trace.tile_closest(use_kernel=True):
     each running tile's lanes against its cluster's (16, 128) triangle
     block, the minimum t with the smallest slot that attains it. The port's
-    round reads the block of cluster cid[tile] in place and reports a miss
-    for tiles that do not run.
+    round stages the slots below the triangle count of cluster cid[tile]
+    and reports a miss for tiles that do not run.
   * `pallas_closest` / `pallas_any` (JAX `_closest_kernel` /
     `_any_kernel`): the whole walk in one kernel, 128-ray tiles, entry
     bounds computed per tile (tile_trace.tile_entries semantics), the
@@ -97,12 +97,14 @@ def mt_round_plain(origins, dirs, tris, tmn, tmax_eff, cull_backface: bool):
     return t_min, u_p, v_p, torch.ones_like(t_min), s_pick
 
 
-def mt_round_blocks_plain(origins, dirs, tri_block, cid, run, tmn, tmax_eff,
-                          tri_k: int, cull_backface: bool):
+def mt_round_blocks_plain(origins, dirs, tri_block, tri_count, cid, run,
+                          tmn, tmax_eff, tri_k: int, cull_backface: bool):
     """Plain version of K4 on any device: the round of tile i against
     tri_block[cid[i]] where run[i], a miss (t 1e30, u = v = 0, slot 128)
-    where not. tri_k is the kernel's slot bound; slots past it are zero and
-    never hit, so the plain version tests all 128."""
+    where not. tri_count and tri_k are the kernel's slot bounds and unused
+    here (slots past them are zero and never hit, so the plain version tests
+    all 128): the function takes mt_round's arguments so that it can stand
+    in for it as tile_trace._round_walk's round_fn."""
     log_visits(origins.shape[1], cid[run])
     tris = tri_block[torch.where(run, cid, 0).long()]
     t_min, u, v, dn, s_pick = mt_round_plain(origins, dirs, tris, tmn,
@@ -112,15 +114,16 @@ def mt_round_blocks_plain(origins, dirs, tri_block, cid, run, tmn, tmax_eff,
             torch.where(r, v, 0.0), dn, torch.where(r, s_pick, SLOTS))
 
 
-def mt_round(origins, dirs, tri_block, cid, run, tmn, tmax_eff, tri_k: int,
-             cull_backface: bool):
+def mt_round(origins, dirs, tri_block, tri_count, cid, run, tmn, tmax_eff,
+             tri_k: int, cull_backface: bool):
     """One round of the tile walk: K4 on CUDA tensors, its plain version on
-    CPU tensors. cid (NT,) int32 cluster per tile, run (NT,) bool."""
+    CPU tensors. cid (NT,) int32 cluster per tile, run (NT,) bool; tri_count
+    (C,) int32, each cluster's triangles."""
     if origins.device.type == "cpu":
-        return mt_round_blocks_plain(origins, dirs, tri_block, cid, run, tmn,
-                                     tmax_eff, tri_k, cull_backface)
+        return mt_round_blocks_plain(origins, dirs, tri_block, tri_count, cid,
+                                     run, tmn, tmax_eff, tri_k, cull_backface)
     return kernels.tile_round(origins, dirs, tmn, tmax_eff, cid, run,
-                              tri_block, tri_k, cull_backface)
+                              tri_block, tri_count, tri_k, cull_backface)
 
 
 # ---------------------------------------------------------------------------
@@ -193,7 +196,8 @@ def _closest_tiles(cs, o, d, tmn, tmx, cull):
     if o.device.type == "cpu":
         return closest_tiles_plain(cs, o, d, tmn, tmx, cull)
     return kernels.walk_closest(o, d, tmn, tmx, cs.cmin, cs.cmax,
-                                cs.tri_begin, cs.tri_block, cs.tri_k, cull)
+                                cs.tri_begin, cs.tri_block, cs.tri_count,
+                                cull)
 
 
 def _any_tiles(cs, o, d, tmn, tmx):

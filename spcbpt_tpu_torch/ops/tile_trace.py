@@ -352,8 +352,8 @@ def _round_walk(cs, entries_s, ids_s, o_t, d_t, tmin_t, tmax_t,
         tmax_eff = torch.minimum(best_t, tmax_t)
         run = alive & (e < _BIG) & (e <= torch.amax(tmax_eff, dim=1))
         t_min, u_p, v_p, _, s_pick = round_fn(
-            o_t, d_t, cs.tri_block, c, run, tmin_t, tmax_eff, cs.tri_k,
-            cull_backface)
+            o_t, d_t, cs.tri_block, cs.tri_count, c, run, tmin_t, tmax_eff,
+            cs.tri_k, cull_backface)
         improved = (t_min < best_t) & run[:, None]
         tri = cs.tri_begin[c.long()][:, None] + s_pick
         best_id = torch.where(improved, tri, best_id)

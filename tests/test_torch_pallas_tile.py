@@ -141,8 +141,8 @@ def test_round_reads_blocks_in_place(cases):
     cs = case["ts"].clusters
     o_t, d_t, tmin_t, tmax_t, cid, run = _round_inputs(case, 1)
     run[1::2] = False
-    got = pallas_tile.mt_round(o_t, d_t, cs.tri_block, cid, run, tmin_t,
-                               tmax_t, cs.tri_k, False)
+    got = pallas_tile.mt_round(o_t, d_t, cs.tri_block, cs.tri_count, cid,
+                               run, tmin_t, tmax_t, cs.tri_k, False)
     ref = pallas_tile.mt_round_plain(o_t, d_t, cs.tri_block[cid.long()],
                                      tmin_t, tmax_t, False)
     for a, b in zip(got, ref):
@@ -242,6 +242,175 @@ def test_any_tile_design_matches_plain(cases, name, sort_rays):
     assert [cid.tolist() for _, cid in log] == expected
 
 
+# K5 closest's groups (kClosestRays of csrc/tile_walk.cu), and the other
+# group size that was measured on the card
+K5_GROUP = tile_designs.cuda_constant("tile_walk", "kClosestRays")
+
+
+def _closest_design(cs, rays, cull, group, sort_rays):
+    """The transcription of K5 closest on the rays as pallas_closest
+    prepares them, and its plain version with the cluster visit log on ->
+    (design outputs, plain outputs, the design's record, the plain visits
+    of each round, the real lane count)."""
+    qo, qd, qtn, qtx, n, _ = pallas_tile.prepare(cs, *map(_t, rays),
+                                                 sort_rays)
+    rec = {}
+    got = tile_designs.closest_tile_walk(cs, qo, qd, qtn, qtx, cull, group,
+                                         rec)
+    log = []
+    tclusters.VISIT_LOG = log
+    try:
+        ref = pallas_tile.closest_tiles_plain(cs, qo, qd, qtn, qtx, cull)
+    finally:
+        tclusters.VISIT_LOG = None
+    rows = ttt.tile_entries(cs, qo, qd, qtn, qtx, pallas_tile.TILE).numpy()
+    assert len(rows) == len(rec["lists"])
+    for row, (ids, e) in zip(rows, rec["lists"]):
+        finite = np.nonzero(row < 1e30)[0]
+        np.testing.assert_array_equal(ids, finite)
+        np.testing.assert_array_equal(e, row[finite])
+    assert all(lanes == pallas_tile.TILE for lanes, _ in log)
+    return got, ref, rec, [cid.tolist() for _, cid in log], n
+
+
+def _group_stops(rec, group, visits):
+    """Each group's rounds beside its tile's (the plain walk's visits, tile
+    by tile): asserts that every group's visits are a prefix of its tile's
+    plain visit order, and that the tiles' visits are those the longest
+    group of each implies. Returns (group rounds, tile rounds), (tiles,
+    groups a tile)."""
+    order = rec["order"]
+    rounds = rec["rounds"].reshape(len(order), pallas_tile.TILE // group)
+    reach = rounds.max(axis=1)
+    expected = [[int(order[i][r]) for i in range(len(order)) if reach[i] > r]
+                for r in range(int(reach.max(initial=0)))]
+    assert visits == expected
+    return rounds, reach[:, None]
+
+
+@pytest.mark.parametrize("name", ["interior", "cornell"])
+@pytest.mark.parametrize("sort_rays", [False, True])
+@pytest.mark.parametrize("cull", [True, False])
+def test_closest_tile_design_matches_plain(cases, name, sort_rays, cull):
+    """The transcription of K5 closest (tests/tile_designs.py: the prologue
+    shared with K5 any, groups of K5_GROUP rays stopping on their own bound,
+    slots below tri_count, the lex-min over a ray's threads) equals
+    closest_tiles_plain bit for bit in t, tri, u and v, dead and padded
+    lanes included; its candidate lists are the finite part of
+    tile_trace.tile_entries; each group's visits are a prefix of its tile's
+    plain visit order."""
+    case = cases[name]
+    got, ref, rec, visits, n = _closest_design(case["ts"].clusters,
+                                               case["rays"], cull, K5_GROUP,
+                                               sort_rays)
+    for f, a, b in zip(("t", "tri", "u", "v"), got, ref):
+        np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=f)
+    assert 0.3 < (ref[1].numpy()[:n] >= 0).mean() < 0.95
+    rounds, tile_rounds = _group_stops(rec, K5_GROUP, visits)
+    assert (rounds <= tile_rounds).all()
+
+
+@pytest.fixture(scope="module")
+def random_case():
+    """1,200 random triangles and a wall of 2 at x = 2 (y, z in [-1.5,
+    1.5], facing -x), in the port's K=32 tile set; 700 rays from [-0.5,
+    0.5]^3, a fifth of them dead, every direction in the +x+y+z octant (so
+    the tiles' entry bounds stay finite): most run along +x into the wall,
+    but the last 8 lanes of each 128-ray tile run along (1, 1, 1), over the
+    wall and far into the soup. So a tile that walks on for those rays
+    holds groups whose rays all hit near."""
+    from spcbpt_tpu_torch.ops import bvh as tbvh
+    f32 = np.float32
+    rs = np.random.default_rng(5)
+    t = 1200
+    c = rs.uniform(-5, 5, (t, 3)).astype(f32)
+    wall = (np.array([[2, -1.5, -1.5], [2, 1.5, 1.5]], f32),
+            np.array([[0, 0, 3], [0, 0, -3]], f32),     # e1 x e2 along -x
+            np.array([[0, 3, 0], [0, -3, 0]], f32))
+    p0, e1, e2 = (np.concatenate([a, w]) for a, w in zip(
+        (c + rs.normal(0, 0.3, (t, 3)).astype(f32),
+         rs.normal(0, 0.4, (t, 3)).astype(f32),
+         rs.normal(0, 0.4, (t, 3)).astype(f32)), wall))
+    flat = tbvh.build_bvh(p0, e1, e2)
+    cs = tclusters.build_tile_clusters(
+        flat, *(a[flat.order] for a in (p0, e1, e2)), max_tris=32)
+    n = 700
+    o = rs.uniform(-0.5, 0.5, (n, 3)).astype(f32)
+    d = np.ones((n, 3), f32)
+    d[:, 1:] = rs.uniform(0.01, 0.15, (n, 2))
+    far = np.arange(n) % pallas_tile.TILE >= pallas_tile.TILE - 8
+    d[far] = rs.uniform(0.9, 1.1, (int(far.sum()), 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmin = np.full(n, 1e-3, f32)
+    tmax = np.full(n, 1e16, f32)
+    tmax[rs.permutation(n)[:n // 5]] = -1.0
+    return cs, (o, d, tmin, tmax)
+
+
+@pytest.mark.parametrize("group", [8, 32])
+@pytest.mark.parametrize("cull", [True, False])
+def test_closest_tile_design_groups_stop_early(random_case, group, cull):
+    """On the random soup the design's groups (of 8 and of 32 rays, the two
+    sizes measured on the card) still equal the plain walk bit for bit,
+    and somewhere a group stops before its tile: a tile walks on for its
+    rays that escape while the groups of rays that hit near are done. So
+    the groups' own tests (each group's rays times the slots below
+    tri_count of the positions it walked: the kernel's rounds output, from
+    which chip_smoke.py takes K5 closest's bound) are fewer than the plain
+    walk's."""
+    cs, rays = random_case
+    got, ref, rec, visits, n = _closest_design(cs, rays, cull, group, False)
+    for f, a, b in zip(("t", "tri", "u", "v"), got, ref):
+        np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=f)
+    assert 0.5 < (ref[1].numpy()[:n] >= 0).mean() < 0.95
+    rounds, tile_rounds = _group_stops(rec, group, visits)
+    assert (rounds <= tile_rounds).all() and (rounds < tile_rounds).any()
+    count = cs.tri_count.numpy().astype(np.int64)
+    own = [group * count[rec["order"][g * group // pallas_tile.TILE][:r]].sum()
+           for g, r in enumerate(rec["rounds"])]
+    np.testing.assert_array_equal(rec["slots"], own)
+    plain = sum(pallas_tile.TILE * count[np.array(cids, np.int64)].sum()
+                for cids in visits)
+    assert rec["slots"].sum() < plain
+
+
+@pytest.mark.parametrize("split", [1, 2])
+@pytest.mark.parametrize("cull", [True, False])
+def test_round_design_matches_plain(cases, split, cull):
+    """The transcription of K4's single round (slots below tri_count, a
+    ray's slots on `split` threads and their lex-min; 1 ships, 2 was
+    measured) equals mt_round_blocks_plain in every output, on a round
+    where some tiles do not run."""
+    case = cases["interior"]
+    cs = case["ts"].clusters
+    o_t, d_t, tmin_t, tmax_t, cid, run = _round_inputs(case, 1)
+    run[::3] = False
+    got = tile_designs.round_split(o_t, d_t, cs.tri_block, cs.tri_count, cid,
+                                   run, tmin_t, tmax_t, cull, split)
+    ref = pallas_tile.mt_round_blocks_plain(o_t, d_t, cs.tri_block,
+                                            cs.tri_count, cid, run, tmin_t,
+                                            tmax_t, cs.tri_k, cull)
+    for f, a, b in zip(("t", "u", "v", "dn", "slot"), got, ref):
+        np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=f)
+    hit = ref[4].numpy() < 128
+    assert 0.05 < hit.mean() < 0.95 and not hit[~run.numpy()].any()
+
+
+def test_walk_closest_refuses_too_many_clusters(cases):
+    """K5 closest keeps its tile's list in shared memory: a set of more
+    than MAX_ANY_CLUSTERS clusters raises before anything is built."""
+    c = kernels.MAX_ANY_CLUSTERS + 1
+    o = torch.zeros((128, 3))
+    t = torch.zeros((128,))
+    blocks = torch.zeros((1, 16, 128)).expand(c, 16, 128)
+    boxes = torch.zeros((1, 3)).expand(c, 3)
+    ints = torch.zeros((1,), dtype=torch.int32).expand(c)
+    with pytest.raises(ValueError, match="clusters outside"):
+        kernels.walk_closest(o, o, t, t, boxes, boxes, ints, blocks, ints,
+                             True)
+    assert not any(kernels.LAUNCHES.values())
+
+
 def test_cpu_tensors_take_plain_versions(cases):
     """CPU tensors go through the plain versions: no launch is counted, and
     the scene's CPU route never reaches the fused walk."""
@@ -264,7 +433,7 @@ def test_kernel_bindings_refuse_cpu_tensors(cases):
     t = torch.zeros((128,))
     with pytest.raises(ValueError, match="CUDA tensors"):
         kernels.walk_closest(o, o, t, t, cs.cmin, cs.cmax, cs.tri_begin,
-                             cs.tri_block, cs.tri_k, True)
+                             cs.tri_block, cs.tri_count, True)
     with pytest.raises(ValueError, match="CUDA tensors"):
         kernels.walk_any(o, o, t, t, cs.cmin, cs.cmax, cs.tri_block,
                          cs.tri_count, cs.tri_k)
@@ -272,7 +441,7 @@ def test_kernel_bindings_refuse_cpu_tensors(cases):
         kernels.tile_round(o[None], o[None], t[None], t[None],
                            torch.zeros((1,), dtype=torch.int32),
                            torch.ones((1,), dtype=torch.bool), cs.tri_block,
-                           cs.tri_k, True)
+                           cs.tri_count, cs.tri_k, True)
     with pytest.raises(ValueError, match="CUDA tensors"):
         kernels.round_walk(o[None], o[None], t[None], t[None],
                            torch.zeros((1, cs.num_clusters)),

@@ -6,8 +6,22 @@ ops/pallas_walk and ops/brute_trace, and their visits to
 ops/clusters.VISIT_LOG or to the plain walk's rounds."""
 from __future__ import annotations
 
+import os
+import re
+
 import numpy as np
 import torch
+
+from spcbpt_tpu_torch.kernels import build
+
+
+def cuda_constant(source: str, name: str) -> int:
+    """The `constexpr int name = value;` of csrc/<source>.cu, read from its
+    text (nothing is built): the designs run at the sizes the kernels ship
+    with."""
+    with open(os.path.join(build.SRC_DIR, f"{source}.cu")) as f:
+        (value,) = re.findall(rf"constexpr int {name} = (\d+);", f.read())
+    return int(value)
 
 
 def mt_slots(o, d, blk, k, tmn, tmx, cull):
@@ -110,27 +124,43 @@ def _group_entries(cs, o, d, tmn, tmx):
     return np.where(overlap, entry, big)
 
 
+K5_TILE = cuda_constant("tile_walk", "kTile")   # rays per tile of K5
+
+
+def tile_order(cs, o, d, tmn, tmx, rec):
+    """The prologue of both K5 kernels (`tile_order`) on padded numpy rays:
+    each 128-ray tile computes its entries, compacts those below 1e30 in id
+    order (a ballot per warp, a prefix over the warps) and sorts them near
+    to far by (entry, id) once. Returns a list per tile of (ids, entries)
+    in that order; each tile's candidate list (ids, entries) in id order
+    goes to rec["lists"]."""
+    rec["lists"], order = [], []
+    for g in range(tmn.shape[0] // K5_TILE):
+        sl = slice(K5_TILE * g, K5_TILE * (g + 1))
+        e = _group_entries(cs, o[sl], d[sl], tmn[sl], tmx[sl])
+        ids = np.nonzero(e < np.float32(1e30))[0]
+        rec["lists"].append((ids, e[ids]))
+        near = np.lexsort((ids, e[ids]))
+        order.append((ids[near], e[ids][near]))
+    return order
+
+
 def any_tile_walk(cs, o, d, tmn, tmx, rec):
-    """K5 any (`any_tile_kernel`) on padded rays -> int32 flags: each
-    128-ray tile computes its entries, compacts those below 1e30 in id
-    order (a ballot per warp, a prefix over the warps), sorts them near to
-    far by (entry, id) once, and walks them until each of its lanes is
-    occluded or dead; only lanes neither occluded nor with tmax <= tmin
-    test the cluster's slots below tri_count. Each tile's candidate list
-    (ids, entries) and visit order go to `rec`."""
-    tile = 128
+    """K5 any (`any_tile_kernel`) on padded rays -> int32 flags: each tile
+    takes its sorted list from the prologue (tile_order) and walks it until
+    each of its lanes is occluded or dead; only lanes neither occluded nor
+    with tmax <= tmin test the cluster's slots below tri_count. Each tile's
+    candidate list (ids, entries) and visit order go to `rec`."""
+    tile = K5_TILE
     o_n, d_n, tn, tx = (a.numpy() for a in (o, d, tmn, tmx))
     blocks, count = cs.tri_block.numpy(), cs.tri_count.numpy()
     occ = np.zeros(tn.shape[0], bool)
-    rec["lists"], rec["visits"] = [], []
-    for g in range(tn.shape[0] // tile):
+    rec["visits"] = []
+    for g, (near, _) in enumerate(tile_order(cs, o_n, d_n, tn, tx, rec)):
         sl = slice(tile * g, tile * (g + 1))
-        e = _group_entries(cs, o_n[sl], d_n[sl], tn[sl], tx[sl])
-        ids = np.nonzero(e < np.float32(1e30))[0]
-        rec["lists"].append((ids, e[ids]))
         visited = []
         dead = tx[sl] < tn[sl]
-        for cid in ids[np.lexsort((ids, e[ids]))]:
+        for cid in near:
             if (occ[sl] | dead).all():
                 break
             hit = mt_slots(o_n[sl], d_n[sl], blocks[cid], count[cid], tn[sl],
@@ -147,6 +177,81 @@ def _lex_min(t, s, u, v, ot, os_, ou, ov):
     take = (ot < t) | ((ot == t) & (os_ < s))
     return (np.where(take, ot, t), np.where(take, os_, s),
             np.where(take, ou, u), np.where(take, ov, v))
+
+
+def split_min(hit, t, u, v, split):
+    """The closest kernels' pick over a ray's slots, (..., K) each: thread
+    q of `split` keeps the (t, slot)-smallest hit of its slots q, q + split,
+    ... (ascending, strict <; 1e30 and slot K without one), and xor steps
+    over the threads keep the smallest t, then the smallest slot ->
+    (t, slot, u, v), each (...)."""
+    f32, big = np.float32, np.float32(1e30)
+    k = hit.shape[-1]
+    shape = hit.shape[:-1] + (k // split, split)
+    tq = np.where(hit, t, big).reshape(shape)
+    j = np.expand_dims(np.argmin(tq, axis=-2), -2)
+    any_q = hit.reshape(shape).any(axis=-2)
+    pick = lambda a: np.take_along_axis(a.reshape(shape), j, -2)[..., 0, :]
+    slot = np.arange(k).reshape(k // split, split)   # [j, q]
+    cb = np.where(any_q, pick(tq), big)
+    cs_ = np.where(any_q, slot[j[..., 0, :], np.arange(split)], k)
+    cu = np.where(any_q, pick(u), f32(0))
+    cv = np.where(any_q, pick(v), f32(0))
+    mask = 1
+    while mask < split:
+        other = np.arange(split) ^ mask
+        cb, cs_, cu, cv = _lex_min(cb, cs_, cu, cv, cb[..., other],
+                                   cs_[..., other], cu[..., other],
+                                   cv[..., other])
+        mask <<= 1
+    return cb[..., 0], cs_[..., 0], cu[..., 0], cv[..., 0]
+
+
+def round_split(o_t, d_t, tri_block, tri_count, cid, run, tmn, tmx, cull,
+                split):
+    """K4's single round (`round_kernel`) on (NT, R) tiles -> (t, u, v, dn,
+    slot) as torch tensors: a running tile's rays test the slots below its
+    cluster's tri_count, each ray's slots on `split` threads (split_min); a
+    tile that does not run, and a ray with tmax <= tmin, keep the miss
+    (t 1e30, u = v = 0, slot 128); dn is 1."""
+    o_n, d_n, tn, tx = (a.numpy() for a in (o_t, d_t, tmn, tmx))
+    blocks, count = tri_block.numpy(), tri_count.numpy()
+    c, go = cid.numpy(), run.numpy()
+    hit, t, u, v = mt_slots(o_n, d_n, blocks[c], blocks.shape[-1], tn, tx,
+                            cull)
+    hit &= np.arange(blocks.shape[-1]) < count[c][:, None, None]
+    hit &= (go[:, None] & (tx > tn))[..., None]
+    out = split_min(hit, t, u, v, split)
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in
+            (out[0], out[2], out[3], np.ones_like(out[0]),
+             out[1].astype(np.int32))]
+
+
+def closest_tile_walk(cs, o, d, tmn, tmx, cull, group, rec):
+    """K5 closest (`closest_walk_kernel`) on padded rays -> (t, tri, u, v)
+    as torch tensors: each 128-ray tile takes its sorted list from the
+    prologue (tile_order, shared with K5 any), and its groups of `group`
+    rays walk it as the list-walk kernels' groups walk theirs (group_walk:
+    each stopping on its own bound, the max of min(best_t, tmax) over its
+    rays, tested before every round; slots below tri_count on 32 / group
+    threads a ray, split_min; improvement on strict <). Each tile's
+    candidate list goes to rec["lists"], its sorted order to rec["order"],
+    each group's rounds to rec["rounds"]."""
+    o_n, d_n, tn, tx = (a.numpy() for a in (o, d, tmn, tmx))
+    order = tile_order(cs, o_n, d_n, tn, tx, rec)
+    rec["order"] = [ids for ids, _ in order]
+    nt = len(order)
+    width = max(1, max(len(ids) for ids, _ in order))
+    counts = np.array([len(ids) for ids, _ in order], np.int32)
+    lists = np.zeros((nt, width), np.int32)
+    entries = np.full((nt, width), np.float32(1e30), np.float32)
+    for i, (ids, e) in enumerate(order):
+        lists[i, :len(ids)] = ids
+        entries[i, :len(ids)] = e
+    bases = cs.tri_begin.numpy()[lists]
+    return group_walk(cs, *map(torch.from_numpy, (counts, lists, bases,
+                                                   entries)),
+                      o, d, tmn, tmx, cull, True, group, rec)
 
 
 def group_walk(cs, counts, ids, bases, entries, o, d, tmn, tmx, cull, prune,
@@ -189,7 +294,6 @@ def group_walk(cs, counts, ids, bases, entries, o, d, tmn, tmx, cull, prune,
     if prune:
         walk &= entries[tile_of, 0] <= bound(slice(None))
     run = np.nonzero(walk)[0]
-    slot = np.arange(slots).reshape(slots // split, split)   # [j, q]
     r = 0
     while run.size:
         tl = tile_of[run]
@@ -200,24 +304,7 @@ def group_walk(cs, counts, ids, bases, entries, o, d, tmn, tmx, cull, prune,
                                 tn[run], tmax_eff, cull)
         hit &= np.arange(slots) < count[cid][:, None, None]
         hit &= (tmax_eff > tn[run])[..., None]
-        # thread q: its slots q, q + S, ... ascending, strict <
-        shape = (run.size, group, slots // split, split)
-        tq = np.where(hit, t, big).reshape(shape)
-        j = np.argmin(tq, axis=2)[:, :, None, :]
-        any_q = hit.reshape(shape).any(axis=2)
-        pick = lambda a: np.take_along_axis(a.reshape(shape), j, 2)[:, :, 0]
-        cb = np.where(any_q, pick(tq), big)
-        cs_ = np.where(any_q, slot[j[:, :, 0, :], np.arange(split)], slots)
-        cu = np.where(any_q, pick(u), f32(0))
-        cv = np.where(any_q, pick(v), f32(0))
-        mask = 1
-        while mask < split:
-            other = np.arange(split) ^ mask
-            cb, cs_, cu, cv = _lex_min(cb, cs_, cu, cv, cb[..., other],
-                                       cs_[..., other], cu[..., other],
-                                       cv[..., other])
-            mask <<= 1
-        cb, cs_, cu, cv = cb[..., 0], cs_[..., 0], cu[..., 0], cv[..., 0]
+        cb, cs_, cu, cv = split_min(hit, t, u, v, split)
         imp = cb < best_t[run]
         best_t[run] = np.where(imp, cb, best_t[run])
         best_id[run] = np.where(imp, bases[tl, r][:, None] + cs_,
