@@ -79,7 +79,25 @@ Phases, one status line each; any failure raises and exits non-zero:
      frame gives the spread, and frames with planted any-hit faults must
      fall outside the bounds;
  14. CPU vs card in `tile` mode: PT 64x64, 2 spp, depth 8 on the scale=1
-     interior (the CPU runs JAX's matmul walk, the card K4/K5).
+     interior (the CPU runs JAX's matmul walk, the card K4/K5);
+ 15. training, Cornell through K3: `render_cli --scene cornell --alg
+     spcbpt --checkpoint smoke_out/cornell_trained.npz --spp 4` at 512x512
+     and the CLI's training defaults (200,000 pretraced paths on 8,192
+     lanes, 500,000 Q paths from 50,000-path light traces of depth 8,
+     Gamma 1000x1000 in batches of 20,000, 1 epoch); the launch counters
+     over the training alone (K3 closest and any > 0), the stage times and
+     counts, the trained Gamma's rows finite and summing to 1, the CMF rows
+     monotone and ending at 1, every Adam loss finite; then `--alg spcbpt
+     --resume` from that checkpoint, its mean within MEAN_VS_PT of phase
+     6's PT mean;
+ 16. one pretrace launch (Cornell, PRETRACE_LANES lanes, frame 0) on the
+     CPU and on the card: at least PRETRACE_AGREE of the lanes agree on
+     valid and n_conns; its K3 launches; one launch at the CLI's 8,192
+     lanes, its wall against its device activities (torch.profiler);
+ 17. the relMSE benchmark: `python -m spcbpt_tpu_torch.apps.benchmark
+     --scene cornell --dim 256x256 --ref-spp 64 --spp 8 --algs
+     pt,bdpt,spcbpt --checkpoint smoke_out/cornell_trained.npz` (in this
+     process, its output in smoke_out/benchmark.log): every relMSE finite.
 Each render phase sets every launch counter to 0 just before it renders and
 reads them just after (the profiler's counters start at 0 in its own
 process and are read from its last line); the CLI renders' PNG, HDR and
@@ -126,6 +144,15 @@ CONN_RAYS = 3 << 16      # connection wavefront: 3 draws x 2^16 pool lanes
 # BDPT and SPCBPT are unbiased, like PT: their Cornell means at 512x512,
 # 4 spp must lie within 2% of PT's (the JAX package's record is 0.3%).
 MEAN_VS_PT = 0.02
+# one pretrace launch on the CPU and on the card (phase 16)
+PRETRACE_LANES = 1024
+PRETRACE_AGREE = 0.99
+GAMMA_ROW_SUM = 1e-5     # trained Gamma's rows sum to 1 within this
+TRAIN_PATHS = 200_000    # render_cli's --train-samples and --q-samples
+Q_PATHS = 500_000
+TRAIN_LANES = 8192       # render_cli's pretrace lanes
+BENCH_ARGS = ["--scene", "cornell", "--dim", "256x256", "--ref-spp", "64",
+              "--spp", "8", "--algs", "pt,bdpt,spcbpt"]
 # CPU vs card, SPCBPT 64x64 1 spp: the two devices trace the same seeds,
 # but transcendental ulps, atomic sums and label ties let some paths part;
 # the mean must agree within 1%.
@@ -685,7 +712,156 @@ def phase_cornell(out_dir: str, dev, spp: int = 4) -> tuple:
         log("cornell", f"{alg} mean vs pt: {rel * 100:.3f}% "
                        f"(bound {MEAN_VS_PT * 100:.0f}%)")
         assert rel <= MEAN_VS_PT, (alg, means)
-    return launches["spcbpt"], state_path
+    return launches["spcbpt"], state_path, means["pt"]
+
+
+def phase_train(out_dir: str, dev, pt_mean: float, spp: int = 4) -> str:
+    """Trains Cornell through the CLI at its training defaults, with the
+    launch counters set to 0 at the start of the training and read at its
+    end; checks the trained state, then renders SPCBPT from the saved
+    checkpoint. Returns the checkpoint's path."""
+    from spcbpt_tpu_torch import checkpoint
+    from spcbpt_tpu_torch.train import gamma_train, pipeline
+
+    ckpt = os.path.join(out_dir, "cornell_trained.npz")
+    base = ["--scene", "cornell", "--alg", "spcbpt", "--light-paths",
+            "100000", "--light-depth", "16", "--connection-n", "3",
+            "--max-depth", "16"]
+    seen = {}
+    preprocess, train_gamma = pipeline.preprocess, gamma_train.train_gamma
+
+    def counted_preprocess(*a, **kw):
+        reset_launches()
+        out = preprocess(*a, **kw)
+        seen["launches"] = read_launches()
+        return out
+
+    def kept_train_gamma(*a, **kw):
+        seen["gamma"], seen["losses"] = train_gamma(*a, **kw)
+        return seen["gamma"], seen["losses"]
+
+    pipeline.preprocess = counted_preprocess
+    gamma_train.train_gamma = kept_train_gamma
+    try:
+        stats, _ = run_cli(out_dir, "cornell_train",
+                           base + ["--checkpoint", ckpt], spp)
+    finally:
+        pipeline.preprocess, gamma_train.train_gamma = preprocess, train_gamma
+    tr, sec = stats["train"], stats["phases"]["preprocess"]
+    k = seen["launches"]
+    losses = seen["losses"]
+    log("train", f"stages (s): " + ", ".join(
+        f"{name} {v:.3f}" for name, v in sec.items()))
+    log("train", f"{tr['n_paths']} paths, {tr['n_conns']} connections in "
+                 f"{tr['pretrace_launches']} pretrace launches; "
+                 f"{tr['q_paths']} Q paths in {tr['q_launches']} light "
+                 f"traces; Gamma loss {losses[0]:.6g} (first step) -> "
+                 f"{losses[-1]:.6g} (step {len(losses)}); second stage "
+                 f"'{tr['second_stage']}' (flux DR {tr['flux_dr']:.3f}); "
+                 f"launches over the training {k}")
+    assert tr["n_paths"] >= TRAIN_PATHS and tr["q_paths"] >= Q_PATHS, tr
+    assert k["brute_closest"] > 0 and k["brute_any"] > 0, k
+    assert k["walk_closest"] == k["walk_any"] == 0, k
+    assert np.isfinite(losses).all() and len(losses) >= 1, losses
+    gamma = seen["gamma"]
+    rows = gamma.sum(dim=1)
+    assert torch.isfinite(gamma).all()
+    err = (rows - 1.0).abs().max().item()
+    assert err <= GAMMA_ROW_SUM, err
+    ss = checkpoint.load_subspace_state(ckpt, dev)
+    cmf = ss.cmf_gamma
+    assert torch.isfinite(cmf).all() and (torch.diff(cmf, dim=1) >= 0).all()
+    assert torch.equal(cmf[:, -1], torch.ones_like(cmf[:, -1]))
+    assert ss.trained and ss.second_stage == tr["second_stage"]
+    log("train", f"Gamma rows finite, |row sum - 1| <= {err:.3g}; CMF rows "
+                 f"monotone, ending at 1; training command's render mean "
+                 f"{stats['mean_radiance']:.6f}")
+    stats, launches = run_cli(out_dir, "cornell_trained_spcbpt",
+                              base + ["--resume", ckpt], spp)
+    rel = abs(stats["mean_radiance"] - pt_mean) / pt_mean
+    log("train", f"spcbpt from the trained state {stats['width']}x"
+                 f"{stats['height']} {spp} spp: "
+                 f"{stats['render_seconds'] * 1e3 / spp:.1f} ms/spp, mean "
+                 f"{stats['mean_radiance']:.6f} vs pt {pt_mean:.6f} "
+                 f"({rel * 100:.3f}%, bound {MEAN_VS_PT * 100:.0f}%), "
+                 f"launches {launches}; {_frames(stats)}")
+    assert launches["brute_closest"] > 0 and launches["brute_any"] > 0
+    assert rel <= MEAN_VS_PT, (stats["mean_radiance"], pt_mean)
+    return ckpt
+
+
+def phase_cpu_vs_card_pretrace(devices=("cpu", "cuda")) -> None:
+    """One pretrace launch of Cornell, PRETRACE_LANES lanes, frame 0, on
+    the CPU and on the card; its K3 launches on the card."""
+    from spcbpt_tpu_torch.apps.render_cli import resolve_scene
+    from spcbpt_tpu_torch.scene.scene import load_trace_scene
+    from spcbpt_tpu_torch.train import pretrace
+
+    out = []
+    for dev in devices:
+        ts, _, cam = load_trace_scene(resolve_scene("cornell"), dev)
+        launch = pretrace.make_pretracer(cam.uvw(), PRETRACE_LANES)
+        reset_launches()
+        t0 = time.perf_counter()
+        b = pretrace.to_host(launch(ts, 0))
+        out.append((b, time.perf_counter() - t0, read_launches()))
+    (a, ta, _), (b, tb, k) = out
+    agree = ((a.valid == b.valid) & (a.n_conns == b.n_conns)).mean()
+    log("cpu-vs-card", f"pretrace {PRETRACE_LANES} lanes, frame 0: cpu "
+                       f"{ta:.2f} s, card {tb:.3f} s; lanes agreeing on "
+                       f"valid and n_conns {agree:.4f} (bound "
+                       f"{PRETRACE_AGREE}); valid {a.valid.mean():.4f} vs "
+                       f"{b.valid.mean():.4f}; card launches {k}")
+    assert agree >= PRETRACE_AGREE, agree
+    assert k["brute_closest"] > 0 and k["brute_any"] > 0, k
+    if devices[-1] != "cuda":
+        return
+    # where one launch at the CLI's width goes: wall (warm, synchronised)
+    # against the device activities it issues
+    launch = pretrace.make_pretracer(cam.uvw(), TRAIN_LANES)
+    pretrace.to_host(launch(ts, 1))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pretrace.to_host(launch(ts, 2))
+    wall = (time.perf_counter() - t0) * 1e3
+    events = device_events(lambda: pretrace.to_host(launch(ts, 3)))
+    busy = sum(ms for _, ms in events.values())
+    top = sorted(events.items(), key=lambda kv: -kv[1][1])[:3]
+    log("cpu-vs-card", f"one pretrace launch of {TRAIN_LANES} lanes on the "
+                       f"card: {wall:.1f} ms wall, "
+                       f"{sum(c for c, _ in events.values())} device "
+                       f"activities, {busy:.2f} ms busy "
+                       f"({busy / wall * 100:.1f}%); largest "
+                       + ", ".join(f"{n[:40]} {c}x {ms:.2f} ms"
+                                   for n, (c, ms) in top))
+
+
+def phase_benchmark(out_dir: str, ckpt: str) -> dict:
+    """The relMSE benchmark app from the trained checkpoint; returns its
+    results."""
+    import contextlib
+
+    from spcbpt_tpu_torch.apps import benchmark
+
+    path = os.path.join(out_dir, "benchmark.json")
+    log_path = os.path.join(out_dir, "benchmark.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as f, contextlib.redirect_stdout(f):
+        assert benchmark.main(BENCH_ARGS + ["--checkpoint", ckpt,
+                                            "--json", path]) == 0
+    with open(path) as f:
+        res = json.load(f)
+    log("benchmark", f"{' '.join(BENCH_ARGS)}: reference "
+                     f"{res['ref_alg']} {res['ref_spp']} spp in "
+                     f"{res['ref_seconds']:.1f} s; whole run "
+                     f"{time.perf_counter() - t0:.1f} s (log {log_path})")
+    for alg, r in res["algs"].items():
+        log("benchmark", f"{alg:7s} relMSE {r['relmse']:.6f} at {r['spp']} "
+                         f"spp in {r['seconds']:.2f} s (timed frames "
+                         f"after the warm-up)")
+        assert np.isfinite(r["relmse"]), (alg, r)
+    assert set(res["algs"]) == {"pt", "bdpt", "spcbpt"}, res["algs"]
+    return res
 
 
 def phase_cove(out_dir: str, dev) -> tuple:
@@ -1778,7 +1954,8 @@ def main() -> int:
     numbers.update(phase_list_walk(tts, ts, waves, dev))
     list_launches = phase_profiler()
     launches, walk_stats = phase_main_path(out_dir)
-    brute_launches, state_path = phase_cornell(out_dir, dev)
+    brute_launches, state_path, pt_mean = phase_cornell(out_dir, dev)
+    trained_path = phase_train(out_dir, dev, pt_mean)
     launches.update({k: brute_launches[k]
                      for k in ("brute_closest", "brute_any")})
     cove_stats, cove_state = phase_cove(out_dir, dev)
@@ -1791,6 +1968,8 @@ def main() -> int:
     phase_cpu_vs_card(scene_path)
     phase_cpu_vs_card_spcbpt(state_path)
     phase_tile_cpu_vs_card(out_dir)
+    phase_cpu_vs_card_pretrace()
+    phase_benchmark(out_dir, trained_path)
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     sources = {"walk_closest": "ray_walk.cu", "walk_any": "ray_walk.cu",

@@ -3,9 +3,11 @@
 Same flags and output (PNG, --hdr-out, --stats-json, the `[render] ...
 Mpaths/s` line, the per-frame `[frame]` lines of BDPT/SPCBPT). `--device`
 replaces the JAX `--platform` and defaults to `cuda`, which fails when no
-card is present. Subspace training is not ported yet: `--alg spcbpt` needs
-a trained state from `--resume` (a checkpoint of either package), and the
-training flags of the JAX CLI are absent.
+card is present. `--alg spcbpt` trains the subspace state first (pretrace,
+trees, Q, Gamma: train/pipeline.py, 8,192 pretrace lanes, at most 50,000
+light paths of depth 8 per Q launch), unless `--resume` loads one (a
+checkpoint of either package); `--checkpoint` saves the trained state.
+The close-set network (`--classifier nn`) is not ported.
 
 BDPT and SPCBPT render one light-vertex cache per frame, as the JAX CLI
 does: frame s traces `--light-paths` light sub-paths with seed
@@ -15,6 +17,8 @@ with subframe s+seed.
 Usage:
   python -m spcbpt_tpu_torch.apps.render_cli --scene interior --alg pt \
       --dim 1024x1024 --spp 4 --out out.png
+  python -m spcbpt_tpu_torch.apps.render_cli --scene cornell --alg spcbpt \
+      --checkpoint state.npz --spp 4 --out out.png
   python -m spcbpt_tpu_torch.apps.render_cli --scene cornell --alg spcbpt \
       --resume state.npz --spp 4 --out out.png
 """
@@ -47,8 +51,17 @@ def build_argparser():
                    help="light sub-paths per frame (reference M=100000)")
     p.add_argument("--light-depth", type=int, default=16)
     p.add_argument("--connection-n", type=int, default=3)
+    p.add_argument("--train-samples", type=int, default=200_000,
+                   help="pretraced paths for Gamma training")
+    p.add_argument("--q-samples", type=int, default=500_000)
+    p.add_argument("--classifier", default="centroid",
+                   choices=["centroid", "nn"],
+                   help="'nn' (the close-set refinement network) is not "
+                        "ported yet")
+    p.add_argument("--checkpoint", default=None,
+                   help="save trained state (npz) here after preprocessing")
     p.add_argument("--resume", default=None,
-                   help="load the trained subspace state (npz) for spcbpt")
+                   help="load trained state instead of preprocessing")
     p.add_argument("--stats-json", default=None,
                    help="write render stats as JSON here")
     p.add_argument("--seed", type=int, default=0)
@@ -86,17 +99,17 @@ def main(argv=None):
     args = build_argparser().parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
-    if args.alg == "spcbpt" and not args.resume:
-        raise SystemExit("--alg spcbpt needs --resume <state.npz>: subspace "
-                         "training (pretrace, trees, Q, Gamma) is not ported "
-                         "yet")
+    if args.alg == "spcbpt" and not args.resume \
+            and args.classifier == "nn":
+        raise SystemExit("--classifier nn: the close-set network is not "
+                         "ported yet; use --classifier centroid")
     device = torch.device(args.device)
 
-    from ..config import PT_MAX_DEPTH
+    from ..config import PT_MAX_DEPTH, PretraceConfig
     from .. import checkpoint
     from ..render.film import Film
     from ..scene.scene import load_trace_scene
-    from ..train import classify
+    from ..train import classify, pipeline
 
     scene_path = resolve_scene(args.scene)
     t0 = time.time()
@@ -131,9 +144,29 @@ def main(argv=None):
         classify.use_fp32_matmul()
 
     ss = classify.untrained_state(device)
-    if args.alg == "spcbpt":
+    if args.alg == "spcbpt" and args.resume:
         ss = checkpoint.load_subspace_state(args.resume, device)
         print(f"[train] resumed from {args.resume}", flush=True)
+    elif args.alg == "spcbpt":
+        print("[train] preprocessing (pretrace + trees + Q + Gamma)...",
+              flush=True)
+        cfg = PretraceConfig(num_core=8192, target_samples=args.train_samples,
+                             target_q_samples=args.q_samples)
+        ss, pstats = pipeline.preprocess(
+            ts, (eye, U, V, W), width, height, cfg,
+            lt_paths=min(args.light_paths, 50_000),
+            lt_depth=min(args.light_depth, 8), verbose=True)
+        stats["phases"]["preprocess"] = pstats.seconds
+        stats["train"] = dict(
+            n_paths=pstats.n_paths, n_conns=pstats.n_conns,
+            q_paths=pstats.q_paths, gamma_losses=pstats.gamma_losses,
+            pretrace_launches=pstats.pretrace_launches,
+            q_launches=pstats.q_launches, second_stage=pstats.second_stage,
+            flux_dr=pstats.flux_dr)
+        print(f"[train] done: {pstats.seconds}", flush=True)
+        if args.checkpoint:
+            checkpoint.save_subspace_state(args.checkpoint, ss)
+            print(f"[train] checkpoint -> {args.checkpoint}", flush=True)
 
     _sync(device)
     t_render = time.time()

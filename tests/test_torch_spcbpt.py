@@ -183,6 +183,9 @@ def test_render_cli_spcbpt_resume_writes_png(cornell, tmp_path):
 
 
 def test_render_cli_spcbpt_needs_resume(tmp_path):
+    """Without --resume, --alg spcbpt trains its state; only the close-set
+    network, which is not ported, still needs a state from elsewhere."""
     with pytest.raises(SystemExit, match="not ported"):
-        render_cli.main(["--device", "cpu", "--alg", "spcbpt", "--out",
+        render_cli.main(["--device", "cpu", "--alg", "spcbpt",
+                         "--classifier", "nn", "--out",
                          str(tmp_path / "x.png")])
