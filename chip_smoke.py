@@ -97,7 +97,26 @@ Phases, one status line each; any failure raises and exits non-zero:
  17. the relMSE benchmark: `python -m spcbpt_tpu_torch.apps.benchmark
      --scene cornell --dim 256x256 --ref-spp 64 --spp 8 --algs
      pt,bdpt,spcbpt --checkpoint smoke_out/cornell_trained.npz` (in this
-     process, its output in smoke_out/benchmark.log): every relMSE finite.
+     process, its output in smoke_out/benchmark.log): every relMSE finite;
+ 18. sky-lit Cornell through K3: the bundled Cornell scene under a
+     1024x512 Radiance sky the script writes from SKY_SEED (new-RLE
+     scanlines; a gradient, noise, a sun texel, env_lum 1) with one
+     Direction light shining into the box's open front; K3 closest and any
+     equal to their plain versions on its camera, bounce and env NEE
+     wavefronts (hit and occluded shares printed); render_cli at 512x512,
+     4 spp: PT, PT with the sky's raster zeroed (env_lum 0; the sky-lit
+     mean at least SKY_ON_OVER_OFF times it), BDPT, SPCBPT trained from the
+     scene at the CLI's defaults (--checkpoint; stage seconds and K3
+     launches per stage, pretrace acceptance against phase 15's) and
+     rendered from it (--resume); BDPT and SPCBPT within MEAN_VS_PT of PT;
+     the LVC vertices of one 100,000-path frame against plain Cornell's;
+     PT 64x64 on the CPU and on the card;
+ 19. sky-lit furnished scene through K1/K2: the interior's furniture
+     (scale 4: wood, ornament, lamp, bed, curtain) on one floor quad, no
+     room shell, under the same sky and Direction light and one quad
+     light; K1 and K2 on its env wavefronts as in phase 18; PT at
+     1024x1024, depth 30, 2^17 pool lanes, 4 spp; SPCBPT 256x256, 1 spp
+     from a synthetic trained state.
 Each render phase sets every launch counter to 0 just before it renders and
 reads them just after (the profiler's counters start at 0 in its own
 process and are read from its last line); the CLI renders' PNG, HDR and
@@ -179,6 +198,17 @@ COVE_FAULT_STRIDES = (16, 64)    # planted faults: one any-hit lane in N
 # CPU (JAX's matmul walk) against card (K4/K5) in tile mode: the two
 # formulations part at grazing edges; PT means within 0.5%.
 TILE_CPU_CARD = 0.005
+# the sky-lit phases: a 1024x512 Radiance sky drawn from SKY_SEED (a
+# gradient, noise and a sun texel) and one Direction light shining into the
+# Cornell box's open front (baked into the sky's raster)
+SKY_W, SKY_H, SKY_SEED = 1024, 512, 0
+SKY_DIRECTION = (0.2, -0.35, 1.0)
+SKY_SUN = (4.0, 3.6, 3.0)
+SKY_ON_OVER_OFF = 1.1    # PT mean with the sky at least this x the mean
+                         # with its raster zeroed (env_lum 0)
+SKY_CPU_CARD = 0.005
+LVC_PATHS = 100_000      # light sub-paths of one LVC frame (render_cli's)
+FURNISHED = ("wood", "ornament", "lamp", "bed", "curtain")
 KERNEL_SOURCES = ("ray_walk", "brute_trace", "tile_walk", "list_walk")
 # The least time of a kernel's work on one H100 SXM (NVIDIA's data sheet, at
 # its 700 W limit): the larger of its operations over the f32 rate outside
@@ -715,11 +745,11 @@ def phase_cornell(out_dir: str, dev, spp: int = 4) -> tuple:
     return launches["spcbpt"], state_path, means["pt"]
 
 
-def phase_train(out_dir: str, dev, pt_mean: float, spp: int = 4) -> str:
+def phase_train(out_dir: str, dev, pt_mean: float, spp: int = 4) -> tuple:
     """Trains Cornell through the CLI at its training defaults, with the
     launch counters set to 0 at the start of the training and read at its
     end; checks the trained state, then renders SPCBPT from the saved
-    checkpoint. Returns the checkpoint's path."""
+    checkpoint. Returns the checkpoint's path and the training's counts."""
     from spcbpt_tpu_torch import checkpoint
     from spcbpt_tpu_torch.train import gamma_train, pipeline
 
@@ -787,7 +817,7 @@ def phase_train(out_dir: str, dev, pt_mean: float, spp: int = 4) -> str:
                  f"launches {launches}; {_frames(stats)}")
     assert launches["brute_closest"] > 0 and launches["brute_any"] > 0
     assert rel <= MEAN_VS_PT, (stats["mean_radiance"], pt_mean)
-    return ckpt
+    return ckpt, tr
 
 
 def phase_cpu_vs_card_pretrace(devices=("cpu", "cuda")) -> None:
@@ -1123,7 +1153,8 @@ def phase_brute(cts, ccam, its, icam, dev) -> dict:
     return results
 
 
-def phase_cpu_vs_card(scene_path: str, devices=("cpu", "cuda")) -> None:
+def phase_cpu_vs_card(scene_path: str, devices=("cpu", "cuda"),
+                      tag: str = "") -> None:
     from spcbpt_tpu_torch.render import pt_pool
     from spcbpt_tpu_torch.scene.scene import load_trace_scene
 
@@ -1140,7 +1171,7 @@ def phase_cpu_vs_card(scene_path: str, devices=("cpu", "cuda")) -> None:
     rel = np.abs(a - b) / np.maximum(np.abs(a), 1e-20)
     close = float((np.where(np.abs(a - b) == 0, 0.0, rel) <= 1e-3)
                   .all(axis=-1).mean())
-    log("cpu-vs-card", f"64x64 2 spp: cpu {ta:.1f} s, card {tb:.1f} s; mean "
+    log("cpu-vs-card", f"{tag}64x64 2 spp: cpu {ta:.1f} s, card {tb:.1f} s; mean "
                        f"{mean_a:.6f} vs {mean_b:.6f}; pixels within 1e-3 "
                        f"relative {close:.4f}")
     assert np.array_equal(ca, cb) and (ca == 2).all()
@@ -1917,6 +1948,326 @@ def phase_tile_cpu_vs_card(out_dir: str) -> None:
     assert rel <= TILE_CPU_CARD, (mean_a, mean_b)
 
 
+def sky_raster(seed: int = SKY_SEED, h: int = SKY_H,
+               w: int = SKY_W) -> np.ndarray:
+    """(h, w, 3) float32 sky: a warm horizon to a blue zenith above, a dim
+    ground below (rows look up as v = (1 + sin(elevation)) / 2 grows),
+    noise from `seed`, and one bright sun texel."""
+    rng = np.random.default_rng(seed)
+    v = ((np.arange(h, dtype=np.float32) + 0.5) / h)[:, None, None]
+    el = np.clip(2.0 * v - 1.0, 0.0, 1.0)
+    sky = (1.0 - el) * np.array([1.0, 0.9, 0.75], np.float32) \
+        + el * np.array([0.45, 0.65, 1.2], np.float32)
+    ground = np.array([0.25, 0.2, 0.15], np.float32)
+    rgb = np.where(v >= 0.5, sky, ground) * np.ones((1, w, 1), np.float32)
+    rgb = rgb * rng.uniform(0.9, 1.1, (h, w, 1)).astype(np.float32)
+    rgb[int(0.8 * h), int(0.3 * w)] = (60.0, 55.0, 45.0)
+    return rgb.astype(np.float32)
+
+
+def _sky_scene_text(text: str, env_file: str, env_lum: float) -> str:
+    """`text` (a scene file) with the sky and the Direction light added."""
+    text = text.replace("cameraSetting\n{", "cameraSetting\n{\n"
+                        f"    env_file {env_file}\n    env_lum {env_lum}", 1)
+    d, e = SKY_DIRECTION, SKY_SUN
+    return text + ("\nlight\n{\n"
+                   f"    direction {d[0]} {d[1]} {d[2]}\n"
+                   f"    emission {e[0]} {e[1]} {e[2]}\n"
+                   "    type Direction\n}\n")
+
+
+def write_sky_scenes(out_dir: str) -> dict:
+    """Writes the sky (new-RLE scanlines), sky-lit Cornell (and its twin
+    with env_lum 0) and the sky-lit furnished scene under out_dir/sky;
+    returns their scene paths by name."""
+    import shutil
+
+    from spcbpt_tpu_torch.apps.render_cli import resolve_scene
+    from spcbpt_tpu_torch.scene import hdr, interior
+
+    root = os.path.join(out_dir, "sky")
+    cdir = os.path.join(root, "cornell")
+    os.makedirs(cdir, exist_ok=True)
+    t0 = time.perf_counter()
+    hdr.write_hdr(os.path.join(root, "sky.hdr"), sky_raster(), rle=True)
+    src = resolve_scene("cornell")
+    for f in os.listdir(os.path.dirname(src)):
+        if f.endswith(".obj"):
+            shutil.copy(os.path.join(os.path.dirname(src), f), cdir)
+    with open(src) as f:
+        text = f.read()
+    paths = {}
+    for name, lum in (("cornell_sky", 1.0), ("cornell_sky_off", 0.0)):
+        paths[name] = os.path.join(cdir, f"{name}.scene")
+        with open(paths[name], "w") as f:
+            f.write(_sky_scene_text(text, "sky.hdr", lum))
+    # the interior's furniture (scale 4) on one floor quad, no room shell
+    # and no divider, under the sky, the Direction light and one quad light
+    ipath = interior.generate(root, scale=4)
+    idir = os.path.dirname(ipath)
+    with open(os.path.join(idir, "floor.obj"), "w") as f:
+        f.write("v -2 0 -2\nv -2 0 16\nv 22 0 16\nv 22 0 -2\n"
+                "f 1 2 3\nf 1 3 4\n")
+    with open(ipath) as f:
+        itext = f.read()
+    head = itext[:itext.index("\nlight\n")]
+    meshes = "".join(
+        f"\nmesh\n{{\n    file interior_interior/{g}.obj\n"
+        f"    material {m}\n}}\n" for g, m in
+        zip(FURNISHED + ("floor",), ("Wood", "Ornament", "LampMetal",
+                                     "BedCloth", "Curtain", "Wall")))
+    quad = ("\nlight\n{\n    position 7.0 5.98 4.0\n    v1 13.0 5.98 4.0\n"
+            "    v2 7.0 5.98 10.0\n    emission 10 9.2 7.5\n    type Quad\n"
+            "    divLevel 8\n}\n")
+    paths["furnished_sky"] = os.path.join(idir, "furnished_sky.scene")
+    with open(paths["furnished_sky"], "w") as f:
+        f.write(_sky_scene_text(head + quad + meshes, "sky.hdr", 1.0))
+    log("sky", f"sky {SKY_W}x{SKY_H} (seed {SKY_SEED}, new-RLE scanlines, "
+               f"{os.path.getsize(os.path.join(root, 'sky.hdr'))} bytes) and "
+               f"scenes {sorted(paths)} written in "
+               f"{time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+def env_wavefronts_check(ts, cam, dev, tag: str, side: int = CAMERA_DIM):
+    """The kernels of ts's mode against their plain versions on three
+    wavefronts of the sky-lit scene: camera rays (closest), their BSDF
+    bounce from primary hits, most of which escape (closest), and NEE
+    segments from primary hits to one light each (any), env lanes ending at
+    2r along the sky direction, outside the scene's bounds. torch.equal, and
+    the hit and occluded shares printed."""
+    from spcbpt_tpu_torch.config import CULL_BACKFACE, SCENE_EPSILON
+    from spcbpt_tpu_torch.ops import brute_trace, bsdf, lights, ray_walk
+    from spcbpt_tpu_torch.render.common import camera_rays
+    from spcbpt_tpu_torch.scene.scene import local_geometry
+    from spcbpt_tpu_torch.utils import rng, vec
+
+    if ts.mode == "brute":
+        tris = (ts.tri_p0, ts.tri_e1, ts.tri_e2)
+        closest = lambda *r: brute_trace.brute_closest(*r, *tris,
+                                                       CULL_BACKFACE)
+        closest_plain = lambda *r: brute_trace.brute_closest_plain(
+            *r, *tris, CULL_BACKFACE)
+        any_hit = lambda *r: brute_trace.brute_any(*r, *tris)
+        any_plain = lambda *r: brute_trace.brute_any_plain(*r, *tris)
+        names = ("K3 closest", "K3 any")
+    else:
+        cs = ts.clusters_walk
+        closest = lambda *r: ray_walk.walk_closest(cs, *r, CULL_BACKFACE,
+                                                   sort_rays=True)
+        closest_plain = lambda *r: ray_walk.walk_closest_plain(
+            cs, *r, CULL_BACKFACE, sort_rays=True)
+        any_hit = lambda *r: ray_walk.walk_any(cs, *r, sort_rays=True)
+        any_plain = lambda *r: ray_walk.walk_any_plain(cs, *r,
+                                                       sort_rays=True)
+        names = ("K1", "K2")
+
+    def closest_equal(label, o, d, tmin, tmax):
+        got, ref = closest(o, d, tmin, tmax), closest_plain(o, d, tmin, tmax)
+        torch.cuda.synchronize()
+        for f in ("tri", "t", "u", "v"):
+            assert torch.equal(getattr(got, f), getattr(ref, f)), \
+                f"{names[0]} {tag} {label}: {f} differs from the plain version"
+        live = tmax >= tmin
+        share = (got.tri[live] >= 0).float().mean().item()
+        log("sky", f"{tag} {label} wavefront, {int(live.sum())} live lanes: "
+                   f"{names[0]} equal to its plain version; hit share "
+                   f"{share:.4f}")
+        return got
+
+    eye, U, V, W = cam.uvw()
+    o, d, state = camera_rays(eye, U, V, W, side, side, 0, device=dev)
+    n = o.shape[0]
+    tmin = torch.full((n,), SCENE_EPSILON, device=dev)
+    hit = closest_equal("camera", o.contiguous(), d, tmin,
+                        torch.full((n,), 1e16, device=dev))
+    geom = local_geometry(ts, hit, o, d)
+    surf = hit.valid & (geom["light_id"] < 0)
+    mat = bsdf.gather_mat(ts.mats, geom["mat_id"], geom["base_color"])
+    nd, state = bsdf.sample_bsdf(mat, geom["Ns"], -d, state)
+    closest_equal("bounce", geom["P"].contiguous(), nd.contiguous(), tmin,
+                  torch.where(surf, 1e16, -1.0))
+    ls, _ = lights.sample_light(ts, state)
+    target = torch.where(ls.is_env[..., None],
+                         geom["P"] + ls.direction * (2.0 * ts.env.r),
+                         ls.position)
+    seg = target - geom["P"]
+    seg_len = torch.clamp(vec.length(seg), min=1e-8)
+    seg_dir = (seg / seg_len[..., None]).contiguous()
+    tmax = torch.where(surf, seg_len - SCENE_EPSILON, -1.0)
+    P = geom["P"].contiguous()
+    occ, occ_p = any_hit(P, seg_dir, tmin, tmax), any_plain(P, seg_dir, tmin,
+                                                           tmax)
+    torch.cuda.synchronize()
+    assert torch.equal(occ, occ_p), \
+        f"{names[1]} {tag} env NEE: occlusion differs from the plain version"
+    env = surf & ls.is_env
+    log("sky", f"{tag} env NEE wavefront, {int(surf.sum())} live lanes "
+               f"({env.float().sum().item() / max(int(surf.sum()), 1):.4f} "
+               f"to the sky): {names[1]} equal to its plain version; "
+               f"occluded share {occ[surf].float().mean().item():.4f} "
+               f"(sky lanes {occ[env].float().mean().item():.4f})")
+
+
+def lvc_vertices(scene_path: str, dev) -> tuple:
+    """Valid LVC vertices of one frame (LVC_PATHS light sub-paths of depth
+    16, the untrained state) and the share of its origins on the sky."""
+    from spcbpt_tpu_torch.render import light_trace
+    from spcbpt_tpu_torch.scene.scene import load_trace_scene
+    from spcbpt_tpu_torch.train import classify
+
+    ts, _, _ = load_trace_scene(scene_path, dev)
+    lv = light_trace.trace_light_paths(ts, classify.untrained_state(dev),
+                                       LVC_PATHS, 7919, max_depth=16)
+    return int(lv.valid.sum()), float(lv.is_env[0].float().mean())
+
+
+def phase_sky_cornell(out_dir: str, dev, paths: dict, plain_train: dict,
+                      spp: int = 4) -> dict:
+    """Sky-lit Cornell through K3 at 512x512 with render_cli: PT, BDPT, and
+    SPCBPT trained from the scene at the CLI's defaults (--checkpoint) then
+    rendered from it (--resume); the BDPT and SPCBPT means within MEAN_VS_PT
+    of PT's; PT with the sky's raster zeroed SKY_ON_OVER_OFF below; the
+    training's stage seconds and K3 launches per stage; LVC vertices and
+    pretrace acceptance against plain Cornell; CPU vs card; K3 on the env
+    wavefronts. Returns the PT render's launches."""
+    from spcbpt_tpu_torch.apps.render_cli import resolve_scene
+    from spcbpt_tpu_torch.scene.scene import load_trace_scene
+    from spcbpt_tpu_torch.train import pipeline
+
+    path = paths["cornell_sky"]
+    ts, _, cam = load_trace_scene(path, dev)
+    cam.aspect = 1.0
+    assert ts.mode == "brute" and ts.has_env and ts.num_lights == 2, ts.mode
+    log("sky", f"cornell_sky: {ts.num_tris} tris, mode {ts.mode}, "
+               f"{ts.num_lights} lights (the sky last), quads' subspace "
+               f"base {int(ts.lights.ss_base[0])}, env r {float(ts.env.r):.3f}")
+    env_wavefronts_check(ts, cam, dev, "cornell_sky")
+    base = ["--scene", path, "--light-paths", str(LVC_PATHS),
+            "--light-depth", "16", "--connection-n", "3", "--max-depth", "16"]
+    means, launches = {}, {}
+    ckpt = os.path.join(out_dir, "cornell_sky_trained.npz")
+    per_stage, enter, exit_ = {}, pipeline._Stage.__enter__, \
+        pipeline._Stage.__exit__
+
+    def stage_enter(self):
+        out = enter(self)
+        self.k0 = read_launches()
+        return out
+
+    def stage_exit(self, *exc):
+        out = exit_(self, *exc)
+        k = read_launches()
+        per_stage[self.name] = {n: k[n] - self.k0[n] for n in
+                                ("brute_closest", "brute_any")}
+        return out
+
+    runs = (("pt", ["--scene", path, "--alg", "pt"]),
+            ("pt_sky_off", ["--scene", paths["cornell_sky_off"], "--alg",
+                            "pt"]),
+            ("bdpt", base + ["--alg", "bdpt"]),
+            ("spcbpt_train", base + ["--alg", "spcbpt", "--checkpoint",
+                                     ckpt]),
+            ("spcbpt", base + ["--alg", "spcbpt", "--resume", ckpt]))
+    for name, argv in runs:
+        if name == "spcbpt_train":
+            pipeline._Stage.__enter__ = stage_enter
+            pipeline._Stage.__exit__ = stage_exit
+        try:
+            stats, launches[name] = run_cli(out_dir, f"cornell_sky_{name}",
+                                            argv, spp)
+        finally:
+            pipeline._Stage.__enter__, pipeline._Stage.__exit__ = \
+                enter, exit_
+        means[name] = stats["mean_radiance"]
+        log("sky", f"cornell_sky {name} {stats['width']}x{stats['height']} "
+                   f"{spp} spp: {stats['render_seconds'] * 1e3 / spp:.1f} "
+                   f"ms/spp, mean {means[name]:.6f}, launches "
+                   f"{launches[name]}; {_frames(stats)}")
+        k = launches[name]
+        assert k["brute_closest"] > 0 and k["brute_any"] > 0, k
+        assert k["walk_closest"] == k["walk_any"] == 0, k
+        if name == "spcbpt_train":
+            tr, sec = stats["train"], stats["phases"]["preprocess"]
+            log("sky", "cornell_sky training stages (s): " + ", ".join(
+                f"{n} {v:.3f}" for n, v in sec.items()))
+            log("sky", "cornell_sky K3 launches per stage: " + ", ".join(
+                f"{n} {v['brute_closest']}/{v['brute_any']}"
+                for n, v in per_stage.items()) + " (closest/any)")
+            acc, acc_plain = (t["n_paths"] / (t["pretrace_launches"]
+                                              * TRAIN_LANES)
+                              for t in (tr, plain_train))
+            log("sky", f"cornell_sky training: {tr['n_paths']} paths in "
+                       f"{tr['pretrace_launches']} pretrace launches "
+                       f"({acc:.4f} accepted a lane; plain Cornell "
+                       f"{plain_train['n_paths']} in "
+                       f"{plain_train['pretrace_launches']}, {acc_plain:.4f}"
+                       f"); {tr['q_paths']} Q paths in {tr['q_launches']} "
+                       f"light traces (plain {plain_train['q_launches']}); "
+                       f"second stage '{tr['second_stage']}'")
+            assert tr["n_paths"] >= TRAIN_PATHS and tr["q_paths"] >= Q_PATHS
+            assert per_stage["pretrace"]["brute_closest"] > 0, per_stage
+    for alg in ("bdpt", "spcbpt"):
+        rel = abs(means[alg] - means["pt"]) / means["pt"]
+        log("sky", f"cornell_sky {alg} mean vs pt: {rel * 100:.3f}% "
+                   f"(bound {MEAN_VS_PT * 100:.0f}%)")
+        assert rel <= MEAN_VS_PT, (alg, means)
+    ratio = means["pt"] / means["pt_sky_off"]
+    log("sky", f"cornell_sky pt mean with the sky {means['pt']:.6f}, with "
+               f"its raster zeroed {means['pt_sky_off']:.6f}: x{ratio:.4f} "
+               f"(at least x{SKY_ON_OVER_OFF})")
+    assert ratio >= SKY_ON_OVER_OFF, means
+    (n_sky, env_share), (n_plain, _) = (
+        lvc_vertices(p, dev) for p in (path, resolve_scene("cornell")))
+    log("sky", f"LVC of one frame ({LVC_PATHS} light paths, depth 16): "
+               f"{n_sky} vertices on cornell_sky ({env_share:.4f} of the "
+               f"paths start on the sky), {n_plain} on plain Cornell "
+               f"(x{n_sky / n_plain:.3f})")
+    phase_cpu_vs_card(path, tag="cornell_sky ")
+    return launches["pt"]
+
+
+def phase_sky_furnished(out_dir: str, dev, paths: dict) -> dict:
+    """The sky-lit furnished scene through K1/K2: the kernels on its env
+    wavefronts, PT at 1024x1024 (depth 30, 2^17 pool lanes, 4 spp) and
+    SPCBPT at 256x256, 1 spp from a synthetic trained state. Returns the PT
+    render's launches."""
+    from spcbpt_tpu_torch import checkpoint
+    from spcbpt_tpu_torch.scene.scene import load_trace_scene
+    from spcbpt_tpu_torch.train import classify
+
+    path = paths["furnished_sky"]
+    ts, _, cam = load_trace_scene(path, dev)
+    cam.aspect = 1.0
+    assert ts.mode == "walk" and ts.has_env and ts.num_tris > 30_000, \
+        (ts.mode, ts.num_tris)
+    log("sky", f"furnished_sky: {ts.num_tris} tris, "
+               f"{ts.clusters_walk.num_clusters} clusters, mode {ts.mode}, "
+               f"env r {float(ts.env.r):.3f}")
+    env_wavefronts_check(ts, cam, dev, "furnished_sky")
+    spp = 4
+    stats, launches = run_cli(out_dir, "furnished_sky_pt", [
+        "--scene", path, "--alg", "pt", "--dim", "1024x1024", "--max-depth",
+        "30"], spp)
+    log("sky", f"furnished_sky pt 1024x1024 {spp} spp: "
+               f"{stats['render_seconds'] * 1e3 / spp:.1f} ms/spp, "
+               f"{stats['samples_per_second'] / 1e6:.3f} Mpaths/s, mean "
+               f"{stats['mean_radiance']:.6f}, launches {launches}")
+    assert launches["walk_closest"] > 0 and launches["walk_any"] > 0, launches
+    state_path = os.path.join(out_dir, "furnished_sky_state.npz")
+    checkpoint.save_subspace_state(state_path,
+                                   classify.synthetic_trained_state(ts, 0))
+    sp_stats, sp_launches = run_cli(out_dir, "furnished_sky_spcbpt", [
+        "--scene", path, "--alg", "spcbpt", "--resume", state_path, "--dim",
+        "256x256"], 1)
+    log("sky", f"furnished_sky spcbpt 256x256 1 spp: "
+               f"{sp_stats['render_seconds'] * 1e3:.1f} ms, mean "
+               f"{sp_stats['mean_radiance']:.6f}, launches {sp_launches}; "
+               f"{_frames(sp_stats)}")
+    assert sp_launches["walk_closest"] > 0 and sp_launches["walk_any"] > 0
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -1955,7 +2306,7 @@ def main() -> int:
     list_launches = phase_profiler()
     launches, walk_stats = phase_main_path(out_dir)
     brute_launches, state_path, pt_mean = phase_cornell(out_dir, dev)
-    trained_path = phase_train(out_dir, dev, pt_mean)
+    trained_path, plain_train = phase_train(out_dir, dev, pt_mean)
     launches.update({k: brute_launches[k]
                      for k in ("brute_closest", "brute_any")})
     cove_stats, cove_state = phase_cove(out_dir, dev)
@@ -1970,6 +2321,9 @@ def main() -> int:
     phase_tile_cpu_vs_card(out_dir)
     phase_cpu_vs_card_pretrace()
     phase_benchmark(out_dir, trained_path)
+    sky_paths = write_sky_scenes(out_dir)
+    phase_sky_cornell(out_dir, dev, sky_paths, plain_train)
+    phase_sky_furnished(out_dir, dev, sky_paths)
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     sources = {"walk_closest": "ray_walk.cu", "walk_any": "ray_walk.cu",

@@ -58,8 +58,10 @@ def smith_g_ggx(ndotv, alpha_g):
 
 def gather_mat(mats, mat_id, base_color=None):
     """Slice the Materials SoA at mat_id; optionally override base_color with
-    the texture-modulated color."""
-    i = mat_id.long()
+    the texture-modulated color. Ids past the table take its last row, as
+    JAX clamps an out-of-bounds gather: a light-source vertex stores its
+    light id there, and the sky's id is the number of quads."""
+    i = torch.clamp(mat_id.long(), max=mats.base_color.shape[0] - 1)
     m = dict(
         base_color=mats.base_color[i],
         metallic=mats.metallic[i],

@@ -3,7 +3,9 @@
 Port of spcbpt_tpu/render/light_trace.py (reference: __raygen__lightTrace
 raygen.cu:620-685, __closesthit__lightSubpath hit_program.cu:341-438,
 vertex init raygen.cu:173-216): sample a light uniformly, draw a cosine
-start direction, store the origin vertex, then bounce with Disney sampling
+start direction (env: an origin on the disk projected 10r out, travelling
+against the sampled direction), store the origin vertex (is_env from the
+sample), then bounce with Disney sampling
 under RR, storing at every hit a vertex with the cumulative flux/pdf RATIO,
 its subspace label (light classifier) and the light-side recursive-MIS
 accumulator updated per rmis.h:22-98.

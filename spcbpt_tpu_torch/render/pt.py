@@ -4,9 +4,11 @@ Port of spcbpt_tpu/render/pt.py (reference: __raygen__pinhole
 raygen.cu:71-170, __closesthit__radiance hit_program.cu:439-552,
 __closesthit__lightsource hit_program.cu:148-180):
 
-per bounce: trace -> if emitter, one-sided emission with area-vs-bsdf MIS
-(weight 1 at depth 0) -> else NEE to one uniformly picked light with the
-reciprocal MIS weight and a deferred visibility ray, then RR
+per bounce: trace -> if miss, the sky's radiance only at depth 0
+(raygen.cu:691-695) -> if emitter, one-sided emission with area-vs-bsdf MIS
+(weight 1 at depth 0) -> else NEE to one uniformly picked light (a quad
+with the reciprocal MIS weight, or the sky with none, hit_program.cu:505-521)
+and a deferred visibility ray, then RR
 (rate = clamp(max base_color, MIN_RR_RATE, 1)) and Disney BSDF bounce.
 30-bounce cap. All pixels advance together through a Python loop over the
 depth cap with an alive mask; the two traversal calls per bounce (closest +
@@ -20,6 +22,7 @@ from ..config import (CULL_BACKFACE, MIN_RR_RATE, PT_MAX_DEPTH,
                       SCENE_EPSILON)
 from ..ops import bsdf as bsdf_mod
 from ..ops import lights as lights_mod
+from ..scene import envmap as env_mod
 from ..scene.scene import TraceScene, local_geometry, trace_any, trace_closest
 from ..utils import rng as rng_mod
 from ..utils import vec
@@ -44,22 +47,39 @@ def _nee(ts: TraceScene, geom, v_dir, throughput, state, mask=None):
     l_dot_ln = vec.dot(-L_q, ln)
     n_dot_l = vec.dot(N, L_q)
     n_dot_v = vec.dot(N, v_dir)
-    ok = (n_dot_l > 0.0) & (n_dot_v > 0.0) & (l_dot_ln > 0.0) & ~ls.is_env
+    ok_q = (n_dot_l > 0.0) & (n_dot_v > 0.0) & (l_dot_ln > 0.0) & ~ls.is_env
     f_q = bsdf_mod.eval_bsdf(mat, N, v_dir, L_q)
     pdf_hit = (bsdf_mod.pdf_bsdf(mat, N, v_dir, L_q)
                * torch.abs(l_dot_ln) / torch.clamp(l_dist * l_dist, min=1e-12)
                * rr)
     mis_q = ls.pdf / torch.clamp(pdf_hit + ls.pdf, min=1e-30)
-    contrib = (throughput * ls.emission / ls.pdf[..., None]
-               * (n_dot_l * l_dot_ln / (l_dist * l_dist) * mis_q)[..., None]
-               * f_q)
-    contrib = torch.where(ok[..., None], contrib, 0.0)
+    contrib_q = (throughput * ls.emission / ls.pdf[..., None]
+                 * (n_dot_l * l_dot_ln / (l_dist * l_dist) * mis_q)[..., None]
+                 * f_q)
+    contrib_q = torch.where(ok_q[..., None], contrib_q, 0.0)
+    target = ls.position
+
+    if ts.has_env:
+        # env branch (hit_program.cu:505-521): no MIS weight in the reference
+        L_e = ls.direction
+        l_dot_n = vec.dot(L_e, N)
+        ok_e = (l_dot_n > 0.0) & ls.is_env
+        f_e = bsdf_mod.eval_bsdf(mat, N, v_dir, L_e)
+        contrib_e = (throughput * ls.emission / ls.pdf[..., None]
+                     * l_dot_n[..., None] * f_e)
+        contrib = torch.where(ok_e[..., None], contrib_e, contrib_q)
+        target = vec.where3(ls.is_env, P + L_e * (2.0 * ts.env.r),
+                            ls.position)
+        ok = ok_q | ok_e
+    else:
+        contrib = contrib_q
+        ok = ok_q
 
     # deferred visibility ray (raygen.cu:134-143); lanes that cannot
     # contribute drop their tmax below tmin so the walk skips them
     if mask is not None:
         ok = ok & mask
-    seg = ls.position - P
+    seg = target - P
     seg_len = torch.clamp(vec.length(seg), min=1e-8)
     seg_dir = seg / seg_len[..., None]
     tmax_v = torch.where(ok, seg_len - SCENE_EPSILON, -1.0)
@@ -67,6 +87,14 @@ def _nee(ts: TraceScene, geom, v_dir, throughput, state, mask=None):
                          torch.full_like(seg_len, SCENE_EPSILON), tmax_v)
     contrib = torch.where((ok & ~occluded)[..., None], contrib, 0.0)
     return vec.scrub(contrib), state
+
+
+def escape(ts: TraceScene, miss, d, throughput, depth):
+    """The sky's radiance on lanes that miss everything, for primary rays
+    only (raygen.cu:691-695). Callers add it when the scene has a sky."""
+    env_rad = throughput * env_mod.env_color(ts.env, d)
+    return vec.scrub(torch.where((miss & (depth == 0))[..., None], env_rad,
+                                 0.0))
 
 
 def emitter_hit(ts: TraceScene, geom, hit, d, throughput, bsdf_pdf, depth):
@@ -120,6 +148,8 @@ def make_pt_step(ts: TraceScene, max_depth: int = PT_MAX_DEPTH):
             hit = trace_closest(ts, o, d, SCENE_EPSILON,
                                 torch.where(live, 1e16, -1.0), CULL_BACKFACE)
             miss = ~hit.valid & live
+            if ts.has_env:
+                result = result + escape(ts, miss, d, throughput, depth)
             geom = local_geometry(ts, hit, o, d)
             hit_light = hit.valid & (geom["light_id"] >= 0) & live
             hit_surface = hit.valid & (geom["light_id"] < 0) & live

@@ -4,8 +4,9 @@ Port of `render_pool` of spcbpt_tpu/render/pt_pool.py. A fixed pool of
 lanes runs a loop: whenever a lane terminates, its result scatter-adds into
 the film and the lane restarts on the next camera sample from a global
 counter, so utilization stays high whatever the path-length distribution.
-Same estimator and same per-pixel sample counts as render/pt.py; sample rep
-r of pixel p uses seed(p, subframe0 + r).
+Same estimator (the sky's escape radiance included) and same per-pixel
+sample counts as render/pt.py; sample rep r of pixel p uses
+seed(p, subframe0 + r). JAX's `render_waves` is not ported.
 
 The loop condition (any lane alive, or samples left) is read on the host
 once per iteration. The film scatter-add is `index_add_`, whose order of
@@ -19,7 +20,7 @@ from ..config import CULL_BACKFACE, PT_MAX_DEPTH, SCENE_EPSILON
 from ..scene.scene import TraceScene, local_geometry, trace_closest
 from ..utils import rng as rng_mod
 from ..utils import vec
-from .pt import _nee, bounce, emitter_hit
+from .pt import _nee, bounce, emitter_hit, escape
 
 
 def render_pool(ts: TraceScene, cam_uvw, width: int, height: int,
@@ -69,6 +70,8 @@ def render_pool(ts: TraceScene, cam_uvw, width: int, height: int,
         hit = trace_closest(ts, o, d, SCENE_EPSILON,
                             torch.where(live, 1e16, -1.0), CULL_BACKFACE)
         miss = ~hit.valid & live
+        if ts.has_env:
+            result = result + escape(ts, miss, d, throughput, depth)
         geom = local_geometry(ts, hit, o, d)
         hit_light = hit.valid & (geom["light_id"] >= 0) & live
         hit_surf = hit.valid & (geom["light_id"] < 0) & live

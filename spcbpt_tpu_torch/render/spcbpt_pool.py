@@ -32,8 +32,6 @@ def render_pool(ts: TraceScene, ss: classify.SubspaceState,
                 uniform: bool = False, second_stage=None):
     """Render `spp` samples/pixel on the scene's device; returns
     (film_sum (W*H, 3), counts (W*H,) int32)."""
-    if ts.has_env:
-        raise NotImplementedError("environment maps are not ported yet")
     dev = ts.device
     eye, U, V, W = [torch.as_tensor(x, dtype=torch.float32, device=dev)
                     for x in cam_uvw]

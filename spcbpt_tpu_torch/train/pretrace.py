@@ -15,8 +15,11 @@ eye_prefix_pdf * light_suffix_contribution.
 Fixed (n_core,) lanes; eye prefix vertices live in per-lane buffers of
 `padding` slots. The JAX lax.scan over the bounces is a Python loop that
 stops once no lane is live: a dead lane never accepts and never writes its
-buffers, so the draws it would still make change nothing. Environment maps
-are not ported: a scene with one raises.
+buffers, so the draws it would still make change nothing. With a sky, NEE
+may pick the environment: its visibility target lies 10r along the sampled
+direction, and its light record is a direction (is_dir), whose
+light-source pdf in the backward walk is the projected disk's
+(scene/envmap.env_project_pdf).
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from ..config import (CULL_BACKFACE, MIN_RR_RATE, PRETRACE_CONN_PADDING,
                       SCENE_EPSILON)
 from ..ops import bsdf as bsdf_mod
 from ..ops import lights as lights_mod
+from ..scene import envmap as env_mod
 from ..scene.scene import TraceScene, local_geometry, trace_closest, visibility
 from ..utils import rng as rng_mod
 from ..utils import vec
@@ -89,12 +93,6 @@ def _pdf_rr(ts, mat_id, color, normal, in_dir, out_dir):
 def _eval_at(ts, mat_id, color, normal, in_dir, out_dir):
     mat = bsdf_mod.gather_mat(ts.mats, torch.clamp(mat_id, min=0), color)
     return bsdf_mod.eval_bsdf(mat, normal, in_dir, out_dir)
-
-
-def _env_r(ts):
-    if ts.has_env:
-        raise NotImplementedError("environment maps are not ported yet")
-    return 1.0
 
 
 def _build_path_info(ts: TraceScene, buf, k, light):
@@ -217,8 +215,10 @@ def _build_path_info(ts: TraceScene, buf, k, light):
         pdf_area = (b["pdf"] * g_pdf * torch.abs(vec.dot(b["norm"], cdir))
                     / math.pi)
         if ts.has_env:
-            raise NotImplementedError("environment maps are not ported yet")
-        pdf_dirl = pdf_area
+            pdf_dirl = (b["pdf"] * torch.abs(vec.dot(cdir, a_norm))
+                        * env_mod.env_project_pdf(ts.env))
+        else:
+            pdf_dirl = pdf_area
         d_pdf_b = _pdf_rr(ts, b["mat"], b["color"], b["norm"], b["dir"], cdir)
         pdf_general = b["pdf"] * d_pdf_b * g_pdf
         new_pdf = torch.where(b["is_src"],
@@ -353,7 +353,7 @@ def make_pretracer(cam_uvw, n_core: int,
             # (cuProg.h:489-501)
             target = torch.where(
                 ls.is_env[..., None],
-                geom["P"] + ls.direction * 10.0 * _env_r(ts), ls.position)
+                geom["P"] + ls.direction * 10.0 * ts.env.r, ls.position)
             vis_ok = visibility(ts, geom["P"], target, SCENE_EPSILON,
                                 mask=hit_surf)
             # one-sidedness checks (raygen.cu:835-837)

@@ -206,13 +206,104 @@ def test_connect_rate_and_mix_coeffs_match_jax(setup):
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6)
 
 
-def test_env_combiners_raise(setup):
-    _, ts, _, tss, _, rec, _ = setup
-    with pytest.raises(NotImplementedError, match="environment"):
-        trmis.light_hit_env_cached(ts, tss, None, None, None, None, None,
-                                   None, None, None, None)
-    with pytest.raises(NotImplementedError, match="environment"):
-        trmis.light_hit_env(ts, tss, None, None, None, None, None)
+@pytest.fixture(scope="module")
+def sky_setup(tmp_path_factory):
+    """Cornell under a sky (a Direction light baked in): the port's eye and
+    light sub-paths under the synthetic trained state."""
+    from spcbpt_tpu.scene.parser import load_scene
+    from spcbpt_tpu.scene.scene import build_scene
+    from spcbpt_tpu_torch.scene.hdr import write_hdr
+    from sky_scene import sky_raster
+
+    sky = str(tmp_path_factory.mktemp("sky") / "sky.hdr")
+    write_hdr(sky, sky_raster(seed=2, h=32, w=64))
+    desc = load_scene(default_scene_path())
+    desc.env_file = sky
+    desc.lights.append(dataclasses.replace(
+        desc.lights[0], light_type="Direction", direction=(0.2, -0.3, 1.0),
+        emission=(3.0, 3.0, 3.0)))
+    jts = build_scene(desc, mode="brute")
+    _, _, cam = jload(default_scene_path())
+    cam.aspect = 1.0
+    ts = from_jax_scene(jts, "cpu")
+    jss = jcls.synthetic_trained_state(jts, seed=7)
+    tss = tcls.from_jax_state(jss, "cpu")
+    eye, U, V, W = cam.uvw()
+    o, d, state = camera_rays(eye, U, V, W, 21, 21, 3)
+    o, d, state = o[:N_LANES], d[:N_LANES], state[:N_LANES]
+    rec = tsp.trace_eye_paths(ts, tss, o, d, state, 2)
+    lvs = tlt.trace_light_paths(ts, tss, N_LANES, 0, max_depth=2)
+    return jts, ts, jss, tss, rec, lvs
+
+
+@pytest.mark.parametrize("calibration", CALIBRATIONS)
+def test_env_combiners_raise(sky_setup, calibration):
+    """The env combiners no longer raise: light_hit_env,
+    light_hit_env_cached (fed as the renderers feed it) and the connection
+    evaluators with env start vertices (direction connections, the
+    projected-disk pdf and fm1) match JAX on a sky-lit Cornell."""
+    from spcbpt_tpu.scene import envmap as jem
+    from spcbpt_tpu_torch.scene import envmap as tem
+
+    jts, ts, jss, tss, rec, lvs = sky_setup
+    jss = jss.replace(second_stage=calibration)
+    tss = tss.replace(second_stage=calibration)
+    lv0 = _at(lvs, 0)
+    is_env = lv0.is_env
+    assert 0.3 < is_env.float().mean() < 0.7
+    j = lambda x: jnp.asarray(x.numpy())
+    for m in (1, 2):
+        eye_v = _at(rec["v"], m - 1)
+        valid = rec["valid"][:m].all(dim=0)
+        jeye = _to_jax(eye_v, jrmis.EyeVertices)
+        # escape toward the env direction of each lane's light sample
+        ray_dir = -lv0.normal
+        up = (eye_v.normal * ray_dir).sum(-1) > 0
+        flux = tem.env_color(ts.env, ray_dir)
+        e_pdf = tem.env_pdf(ts.env, ray_dir) / ts.num_lights
+        label = tem.env_label(ts.env, ray_dir)
+        np.testing.assert_array_equal(
+            e_pdf.numpy(), np.asarray(jem.env_pdf(jts.env, j(ray_dir))
+                                      / jts.num_lights))
+        got = trmis.light_hit_env(ts, tss, eye_v, ray_dir, flux, e_pdf, label)
+        ref = jrmis.light_hit_env(jts, jss, jeye, j(ray_dir), j(flux),
+                                  j(e_pdf), j(label))
+        _close(got, ref, valid & is_env & up)
+
+        lb = vec_normalize(eye_v.last_position - eye_v.position)
+        pending = trmis._pdf_at(ts, eye_v, lb, ray_dir) * trmis._rr(eye_v)
+        cos_last = torch.abs((eye_v.normal * ray_dir).sum(-1))
+        r3, ru = trmis.tracing_update_eye(ts, tss, eye_v, eye_v.position,
+                                          torch.zeros_like(valid),
+                                          in_dir=ray_dir)
+        args = (ray_dir, cos_last, pending, flux, e_pdf, label)
+        got = trmis.light_hit_env_cached(ts, tss, eye_v, r3, ru, *args)
+        jr3, jru = jrmis.tracing_update_eye(
+            jts, jss, jeye, j(eye_v.position), j(torch.zeros_like(valid)),
+            in_dir=j(ray_dir))
+        ref = jrmis.light_hit_env_cached(jts, jss, jeye, jr3, jru,
+                                         *(j(x) for x in args))
+        _close(got, ref, valid & is_env & up)
+
+        # connections to the light sources: env origins and quads
+        teye = tsp._ConnEye(eye_v, torch.ones_like(eye_v.position))
+        jce = jsp._ConnEye(jeye, jnp.ones_like(jeye.position))
+        jl0 = _to_jax(lv0, jvertex.LightVertices)
+        got = trmis.connection_light_source(ts, tss, eye_v, lv0)
+        ref = jrmis.connection_light_source(jts, jss, jeye, jl0)
+        _close(got, ref, valid)
+        for fn, jfn in ((tsp.connect_vertex_fused, jsp.connect_vertex_fused),
+                        (tsp.connect_vertex, jsp.connect_vertex)):
+            got = fn(ts, tss, teye, lv0)
+            ref = jfn(jts, jss, jce, jl0)
+            _close(got, ref, valid, min_lanes=10)
+            # env connections reach the sky through the open front
+            assert got[valid & is_env].abs().sum() > 0
+
+
+def vec_normalize(v):
+    return v / torch.clamp(torch.linalg.norm(v, dim=-1, keepdim=True),
+                           min=1e-20)
 
 
 def test_trace_eye_paths_matches_jax(setup):

@@ -19,6 +19,7 @@ from spcbpt_tpu_torch.utils.image import write_png
 # oversubscribing the cores
 
 from jax_native import native_jax_route  # noqa: F401 (autouse)
+from sky_scene import write_sky_floor
 
 torch.set_num_threads(1)
 
@@ -40,6 +41,10 @@ def _assert_scene_equal(ts, jts):
     for f in ("num_lights", "num_quad_lights", "has_env", "mode",
               "world_scale"):
         assert getattr(ts, f) == getattr(jts, f), f
+    for f in ("tex", "cmf", "center", "r", "valid"):
+        np.testing.assert_array_equal(getattr(ts.env, f).numpy(),
+                                      np.asarray(getattr(jts.env, f)),
+                                      err_msg=f"env.{f}")
     if ts.mode == "walk":
         for f in _CLUSTERS:
             x = getattr(ts.clusters_walk, f)   # tri_block lives on the host
@@ -99,12 +104,67 @@ def test_unported_modes_raise(scenes):
         tscene.build_scene(load_scene(path), "cpu", mode="bvh")
 
 
-def test_envmap_raises(scenes):
+def test_envmap_raises(scenes, tmp_path):
+    """An env_file no longer raises: the Cornell box under a sky (RLE
+    scanlines) with a Direction light builds as JAX's does, one light more
+    and the quads' subspace blocks from 100."""
+    from spcbpt_tpu_torch.scene.hdr import write_hdr
+    from sky_scene import sky_raster
+
     _, _, path = scenes["cornell"]
-    desc = load_scene(path)
-    desc.env_file = "sky.hdr"
-    with pytest.raises(NotImplementedError, match="environment maps"):
-        tscene.build_scene(desc, "cpu")
+    sky = str(tmp_path / "sky.hdr")
+    write_hdr(sky, sky_raster(seed=5, h=32, w=64), rle=True)
+    built = []
+    for build in (lambda d: jscene.build_scene(d, mode="brute"),
+                  lambda d: tscene.build_scene(d, "cpu")):
+        desc = load_scene(path)
+        desc.env_file = sky      # absolute: joined to the scene's root as is
+        desc.env_factor = 0.5
+        desc.lights.append(dataclasses.replace(
+            desc.lights[0], light_type="Direction", direction=(0.0, 0.0, 1.0),
+            emission=(2.0, 2.0, 2.0)))
+        built.append(build(desc))
+    jts, ts = built
+    _assert_scene_equal(ts, jts)
+    assert ts.has_env and ts.num_lights == ts.num_quad_lights + 1 == 2
+    assert int(ts.lights.ss_base[0]) == 100
+    assert abs(float(ts.env.r) - tscene.TARGET_DIAG) < 1e-3
+
+
+@pytest.fixture(scope="module")
+def sky_floor(tmp_path_factory):
+    root = tmp_path_factory.mktemp("sky_floor")
+    return {name: write_sky_floor(str(root / name), **kw) for name, kw in (
+        ("sky", {}), ("sky_direction", dict(direction=True)),
+        ("direction_only", dict(direction=True, sky=False)),
+        ("bare", dict(sky=False)))}
+
+
+@pytest.mark.parametrize("name", ["sky", "sky_direction"])
+def test_sky_scene_build_and_from_jax_match_jax(sky_floor, name):
+    """The sky-lit floor: build_scene equals JAX's (the env's raster, CMF,
+    centre and radius, num_lights, ss_base 100), and from_jax_scene carries
+    the env across."""
+    desc = lambda: load_scene(sky_floor[name])
+    jts = jscene.build_scene(desc(), mode="brute")
+    ts = tscene.build_scene(desc(), "cpu")
+    _assert_scene_equal(ts, jts)
+    assert ts.has_env and ts.num_lights == 2
+    assert int(ts.lights.ss_base[0]) == 100
+    _assert_scene_equal(tscene.from_jax_scene(jts, "cpu"), jts)
+
+
+def test_direction_light_without_sky_is_dropped(sky_floor):
+    """A Direction light lives in the sky's raster: without an env_file the
+    scene is the one without the light, in both packages."""
+    got = tscene.build_scene(load_scene(sky_floor["direction_only"]), "cpu")
+    bare = tscene.build_scene(load_scene(sky_floor["bare"]), "cpu")
+    jts = jscene.build_scene(load_scene(sky_floor["direction_only"]),
+                             mode="brute")
+    _assert_scene_equal(got, jts)
+    _assert_scene_equal(bare, jts)
+    assert not got.has_env and got.num_lights == 1
+    assert int(got.lights.ss_base[0]) == 0
 
 
 def test_load_trace_scene_camera(scenes):
