@@ -116,7 +116,28 @@ Phases, one status line each; any failure raises and exits non-zero:
      room shell, under the same sky and Direction light and one quad
      light; K1 and K2 on its env wavefronts as in phase 18; PT at
      1024x1024, depth 30, 2^17 pool lanes, 4 spp; SPCBPT 256x256, 1 spp
-     from a synthetic trained state.
+     from a synthetic trained state;
+ 20. the close-set network, through K3 (run after phase 15): `render_cli
+     --scene cornell --alg spcbpt --classifier nn --checkpoint
+     smoke_out/cornell_nn.npz` at the CLI's training defaults (the network
+     on up to 500,000 paths in 4,096-path batches, 1 epoch); launch
+     counters over the training alone, the network's seconds, its step
+     losses finite and its objective over those batches lower than the
+     initial network's; SPCBPT 4 spp with `--resume` from that checkpoint
+     within MEAN_VS_PT of phase 6's PT mean, its ms/spp beside the centroid
+     state's of phase 15; one blended first-stage draw of 2^16 lanes on
+     the CPU and on the card (RNG states equal, NN_AGREE of the picks);
+ 21. the mesh path (parallel/tile.py, run after phase 17): this process
+     alone as a 1x1 mesh over NCCL (one card: NCCL takes one rank a
+     card): sharded PT on Cornell 512x512 (K3) and on the interior
+     1024x1024 (K1/K2), each torch.equal to the sequential route; sharded
+     BDPT and SPCBPT on Cornell 512x512 from phase 15's state, finite; the
+     data-parallel Gamma step on 20,000 paths against one process; then
+     `multichip_bench`, which spawns its rank: BASELINE config 5
+     (cornell_glossy 2048x2048 SPCBPT, 1 subframe, MESH_SUB_BLOCKS row
+     blocks, first and warm run) with its peak memory, and one
+     `--equal-time` run at 256x256 against a 64-spp PT reference the phase
+     renders itself (key 'img'); their outputs in smoke_out/multichip_*.
 Each render phase sets every launch counter to 0 just before it renders and
 reads them just after (the profiler's counters start at 0 in its own
 process and are read from its last line); the CLI renders' PNG, HDR and
@@ -170,6 +191,32 @@ GAMMA_ROW_SUM = 1e-5     # trained Gamma's rows sum to 1 within this
 TRAIN_PATHS = 200_000    # render_cli's --train-samples and --q-samples
 Q_PATHS = 500_000
 TRAIN_LANES = 8192       # render_cli's pretrace lanes
+# the close-set network (phase 20): its training's batches and path cap;
+# one blended first-stage draw on the CPU and the card (the pool's 2^16
+# lanes), picks equal on NN_AGREE of them and their pmfs within
+# NN_PMF_RTOL (a pick sits on a float cumsum)
+NN_BATCH = 4096
+NN_MAX_PATHS = 500_000
+NN_DRAW_LANES = 1 << 16
+NN_SEED = 21
+NN_AGREE = 0.999
+NN_PMF_RTOL = 1e-5
+# the mesh path (phase 21): NCCL at world size 1 (one card), PT depth and
+# light paths of the sharded renders (multichip_bench's defaults), the
+# data-parallel step on the CLI's Gamma batch against one process (the
+# gather's backward adds atomically on the card), config 5's row blocks,
+# the equal-time run
+MESH_TIMEOUT_S = 600
+MESH_PT_DIMS = {"cornell": 512, "interior": 1024}
+MESH_PT_DEPTH = 8
+MESH_LIGHT_PATHS = 8192
+DP_PATHS = 20_000
+DP_LOSS_RTOL = 1e-6
+DP_THETA_ATOL = 1e-6
+MESH_SUB_BLOCKS = 4
+EQUAL_TIME_DIM = 256
+EQUAL_TIME_REF_SPP = 64
+EQUAL_TIME_S = 5.0
 BENCH_ARGS = ["--scene", "cornell", "--dim", "256x256", "--ref-spp", "64",
               "--spp", "8", "--algs", "pt,bdpt,spcbpt"]
 # CPU vs card, SPCBPT 64x64 1 spp: the two devices trace the same seeds,
@@ -640,19 +687,15 @@ def phase_kernels(ts, waves, dev):
 
 
 def reset_launches() -> None:
-    from spcbpt_tpu_torch.kernels import (brute_trace, list_walk, ray_walk,
-                                          tile_walk)
+    from spcbpt_tpu_torch import kernels
     from spcbpt_tpu_torch.ops import tile_trace
-    for mod in (ray_walk, brute_trace, tile_walk, list_walk):
-        mod.reset_launches()
+    kernels.reset_launches()
     tile_trace.reset_walk_stats()
 
 
 def read_launches() -> dict:
-    from spcbpt_tpu_torch.kernels import (brute_trace, list_walk, ray_walk,
-                                          tile_walk)
-    return {**ray_walk.LAUNCHES, **brute_trace.LAUNCHES,
-            **tile_walk.LAUNCHES, **list_walk.LAUNCHES}
+    from spcbpt_tpu_torch import kernels
+    return kernels.read_launches()
 
 
 def run_cli(out_dir: str, tag: str, argv: list, spp: int):
@@ -817,7 +860,321 @@ def phase_train(out_dir: str, dev, pt_mean: float, spp: int = 4) -> tuple:
                  f"launches {launches}; {_frames(stats)}")
     assert launches["brute_closest"] > 0 and launches["brute_any"] > 0
     assert rel <= MEAN_VS_PT, (stats["mean_radiance"], pt_mean)
-    return ckpt, tr
+    return ckpt, tr, stats["render_seconds"] * 1e3 / spp
+
+
+def nn_first_stage(ss, dev, n: int = NN_DRAW_LANES):
+    """One blended first-stage draw (lvc.sample_first_stage with the
+    close-set network) of n lanes made from NN_SEED: eye labels, vertices
+    inside the network's scene box, unit normals. Returns (labels, pmf,
+    rng state)."""
+    from spcbpt_tpu_torch.config import NUM_SUBSPACE
+    from spcbpt_tpu_torch.render import lvc
+    from spcbpt_tpu_torch.utils import rng as rng_mod
+
+    rng = np.random.default_rng(NN_SEED)
+    lo, hi = ss.nn.scene_lo.cpu().numpy(), ss.nn.scene_hi.cpu().numpy()
+    pos = rng.uniform(lo, hi, (n, 3)).astype(np.float32)
+    nrm = rng.normal(size=(n, 3))
+    nrm = (nrm / np.linalg.norm(nrm, axis=1, keepdims=True)).astype(
+        np.float32)
+    eye = rng.integers(0, NUM_SUBSPACE, n).astype(np.int32)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    state = rng_mod.seed(torch.arange(n, dtype=torch.int64, device=dev), 9)
+    return lvc.sample_first_stage(ss, t(eye), state, position=t(pos),
+                                  normal=t(nrm))
+
+
+def nn_corpus_losses(train_args, tables) -> tuple:
+    """The mean objective (nn_classifier.corpus_loss) over the batches of
+    one train_from_corpus call, with the network it started from and with
+    the one it returned: the training's losses are each on another batch,
+    so they need not fall step by step."""
+    from spcbpt_tpu_torch.train import nn_classifier as nn
+
+    state, mixed, td, pos, nrm, la, lb, lo, hi = train_args
+    g = torch.as_tensor(mixed, dtype=torch.float32, device=td.pdf0.device)
+    trained = nn.NNParams(tables.w1, tables.b1, tables.w2, tables.b2)
+    out = []
+    with torch.no_grad():
+        for params in (state.params, trained):
+            out.append(float(np.mean([
+                float(nn.corpus_loss(params, state.close_set, g,
+                                     tables.scene_lo, tables.scene_hi,
+                                     tables.blend, b))
+                for b in nn.corpus_batches(td, pos, nrm, la, lb)])))
+    return tuple(out)
+
+
+def phase_nn(out_dir: str, dev, pt_mean: float, centroid_ms_spp: float,
+             spp: int = 4) -> None:
+    """The close-set network: Cornell trained through the CLI at its
+    training defaults with --classifier nn (launch counters over the
+    training alone; the network's losses finite and falling, its
+    seconds), SPCBPT rendered from the saved checkpoint (mean within
+    MEAN_VS_PT of phase 6's PT mean, K3 launches), and one blended
+    first-stage draw of NN_DRAW_LANES lanes on the CPU and on the card
+    (NN_AGREE of the picks equal)."""
+    from spcbpt_tpu_torch import checkpoint
+    from spcbpt_tpu_torch.train import nn_classifier, pipeline
+
+    ckpt = os.path.join(out_dir, "cornell_nn.npz")
+    base = ["--scene", "cornell", "--alg", "spcbpt", "--light-paths",
+            "100000", "--light-depth", "16", "--connection-n", "3",
+            "--max-depth", "16"]
+    seen = {}
+    preprocess, train = pipeline.preprocess, nn_classifier.train_from_corpus
+
+    def counted_preprocess(*a, **kw):
+        reset_launches()
+        out = preprocess(*a, **kw)
+        seen["launches"] = read_launches()
+        return out
+
+    def kept_train(*a, **kw):
+        seen["train_args"] = a
+        seen["tables"], _ = out = train(*a, **kw)
+        return out
+
+    pipeline.preprocess = counted_preprocess
+    nn_classifier.train_from_corpus = kept_train
+    try:
+        stats, _ = run_cli(out_dir, "cornell_nn_train", base + [
+            "--classifier", "nn", "--checkpoint", ckpt], spp)
+    finally:
+        pipeline.preprocess = preprocess
+        nn_classifier.train_from_corpus = train
+    tr, sec = stats["train"], stats["phases"]["preprocess"]
+    losses, k = tr["nn_losses"], seen["launches"]
+    steps = min(tr["n_paths"], NN_MAX_PATHS) // NN_BATCH
+    before, after = nn_corpus_losses(seen["train_args"], seen["tables"])
+    log("nn", f"stages (s): " + ", ".join(
+        f"{name} {v:.3f}" for name, v in sec.items()))
+    log("nn", f"{tr['n_paths']} paths; network: {len(losses)} Adam steps "
+              f"of {NN_BATCH} paths in {sec['nn']:.3f} s, step losses "
+              f"{losses[0]:.6g} -> {losses[-1]:.6g}; mean loss over those "
+              f"batches {before:.6g} with the initial network, {after:.6g} "
+              f"with the trained one ({(after / before - 1) * 100:.3f}%); "
+              f"launches over the training {k}")
+    assert len(losses) == steps > 0, (len(losses), steps)
+    assert np.isfinite(losses).all() and after < before, (before, after)
+    assert sec["nn"] > 0, sec
+    assert k["brute_closest"] > 0 and k["brute_any"] > 0, k
+    assert k["walk_closest"] == k["walk_any"] == 0, k
+    ss = checkpoint.load_subspace_state(ckpt, dev)
+    assert isinstance(ss.nn, nn_classifier.NNTables) and ss.nn.blend == 0.5
+    stats, launches = run_cli(out_dir, "cornell_nn_spcbpt",
+                              base + ["--resume", ckpt], spp)
+    ms_spp = stats["render_seconds"] * 1e3 / spp
+    rel = abs(stats["mean_radiance"] - pt_mean) / pt_mean
+    log("nn", f"spcbpt with the network {stats['width']}x{stats['height']} "
+              f"{spp} spp: {ms_spp:.1f} ms/spp (the centroid state's "
+              f"{centroid_ms_spp:.1f}, x{ms_spp / centroid_ms_spp:.3f}), mean "
+              f"{stats['mean_radiance']:.6f} vs pt {pt_mean:.6f} "
+              f"({rel * 100:.3f}%, bound {MEAN_VS_PT * 100:.0f}%), launches "
+              f"{launches}; {_frames(stats)}")
+    assert launches["brute_closest"] > 0 and launches["brute_any"] > 0
+    assert rel <= MEAN_VS_PT, (stats["mean_radiance"], pt_mean)
+    # the same draw on the CPU and on the card
+    cpu = nn_first_stage(checkpoint.load_subspace_state(ckpt, "cpu"), "cpu")
+    nn_first_stage(ss, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = nn_first_stage(ss, dev)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    (la, pa, sa), (lb, pb, sb) = cpu, [x.cpu() for x in card]
+    same = la == lb
+    agree = float(same.float().mean())
+    err = float(((pa - pb).abs() / pa.abs())[same].max())
+    log("nn", f"first stage of {NN_DRAW_LANES} lanes on the CPU and the "
+              f"card: picks agreeing {agree:.6f} (bound {NN_AGREE}), pmf "
+              f"max relative difference {err:.3g} where they agree, rng "
+              f"states equal {bool(torch.equal(sa, sb))}; card {ms:.2f} ms "
+              f"a draw (host clock, synchronised)")
+    assert torch.equal(sa, sb)
+    assert agree >= NN_AGREE, agree
+    assert err <= NN_PMF_RTOL, err
+
+
+def _sync_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _dp_inputs(dev):
+    """A Gamma training batch of DP_PATHS paths (the CLI's batch), a fifth
+    invalid, and theta from a random Gamma, made from NN_SEED."""
+    from spcbpt_tpu_torch.config import NUM_SUBSPACE, PRETRACE_CONN_PADDING
+    from spcbpt_tpu_torch.train import gamma_train
+
+    rng = np.random.default_rng(NN_SEED)
+    p, c = DP_PATHS, PRETRACE_CONN_PADDING
+    t = lambda a: torch.from_numpy(np.asarray(a)).to(dev)
+    live = rng.random((p, c)) < 0.5
+    batch = gamma_train.GammaTrainData(
+        f_square=t(rng.uniform(0.1, 1, p).astype(np.float32)),
+        pdf0=t(rng.uniform(0.05, 0.5, p).astype(np.float32)),
+        peak=t(np.where(live, rng.uniform(0.1, 2, (p, c)), 0).astype(
+            np.float32)),
+        label_e=t(rng.integers(0, NUM_SUBSPACE ** 2, (p, c)).astype(
+            np.int32)),
+        valid=t(rng.random(p) > 0.2))
+    g = rng.uniform(0.1, 1, (NUM_SUBSPACE, NUM_SUBSPACE))
+    g = g / g.sum(1, keepdims=True)
+    return batch, t(np.log(g / (1 - g)).astype(np.float32))
+
+
+def _mesh_on_nccl(out_dir: str, dev, ckpt: str, pt_mean: float) -> None:
+    """The sharded renders and the data-parallel step on a 1x1 mesh of
+    this process alone over NCCL, each against the sequential route."""
+    import tempfile
+
+    import torch.distributed as dist
+    from spcbpt_tpu_torch import checkpoint
+    from spcbpt_tpu_torch.apps.render_cli import resolve_scene
+    from spcbpt_tpu_torch.parallel import launch
+    from spcbpt_tpu_torch.parallel import tile as par
+    from spcbpt_tpu_torch.scene.scene import load_trace_scene
+    from spcbpt_tpu_torch.train import gamma_train
+
+    store = tempfile.mkdtemp(prefix="nccl_", dir=out_dir)
+    launch.init_rank("cuda", 0, 1, "file://" + os.path.join(store, "store"),
+                     MESH_TIMEOUT_S)
+    try:
+        assert dist.get_backend() == "nccl", dist.get_backend()
+        mesh, seq = par.make_mesh(), par.sequential_mesh(1, 1)
+        assert mesh.shape == {"tile": 1, "spp": 1}
+        for name, keys in (("cornell", ("brute_closest", "brute_any")),
+                           ("interior", ("walk_closest", "walk_any"))):
+            dim = MESH_PT_DIMS[name]
+            ts, _, cam = load_trace_scene(resolve_scene(name), dev)
+            cam.aspect = 1.0
+            render = lambda m, sub=1: par.sharded_pt_render(
+                ts, cam.uvw(), dim, dim, sub, m, max_depth=MESH_PT_DEPTH)
+            render(seq, 0)      # warm-up, another subframe
+            reset_launches()
+            img, ms = _sync_ms(lambda: render(mesh))
+            k = read_launches()
+            ref, ms_seq = _sync_ms(lambda: render(seq))
+            equal = torch.equal(img, ref)
+            log("multichip", f"sharded pt {name} {dim}x{dim} on the NCCL 1x1 "
+                             f"mesh: {ms:.1f} ms (sequential route "
+                             f"{ms_seq:.1f} ms), mean {float(img.mean()):.6f}"
+                             f", torch.equal to the sequential route "
+                             f"{equal}; launches {k}")
+            assert equal and torch.isfinite(img).all()
+            assert all(k[key] > 0 for key in keys), k
+        ts, _, cam = load_trace_scene(resolve_scene("cornell"), dev)
+        cam.aspect = 1.0
+        ss = checkpoint.load_subspace_state(ckpt, dev)
+        dim = MESH_PT_DIMS["cornell"]
+        for alg in ("bdpt", "spcbpt"):
+            reset_launches()
+            img, ms = _sync_ms(lambda: par.sharded_spcbpt_render(
+                ts, ss, cam.uvw(), dim, dim, 1, mesh, MESH_LIGHT_PATHS,
+                max_depth=MESH_PT_DEPTH, uniform=alg == "bdpt"))
+            k = read_launches()
+            m = float(img.mean())
+            log("multichip", f"sharded {alg} cornell {dim}x{dim}, 1 subframe, "
+                             f"{MESH_LIGHT_PATHS} light paths (the trained "
+                             f"state): {ms:.1f} ms, mean {m:.6f} (4-spp PT "
+                             f"{pt_mean:.6f}), finite "
+                             f"{bool(torch.isfinite(img).all())}; launches "
+                             f"{k}")
+            assert torch.isfinite(img).all() and m > 0
+            assert k["brute_closest"] > 0 and k["brute_any"] > 0, k
+        batch, theta0 = _dp_inputs(dev)
+        out = []
+        for step in ("mesh", "one"):
+            theta = theta0.clone().requires_grad_(True)
+            opt = torch.optim.Adam([theta], lr=0.01, betas=(0.9, 0.999),
+                                   eps=1e-8)
+            if step == "mesh":
+                loss, ms = _sync_ms(lambda: par.dp_gamma_train_step(
+                    theta, opt, batch, mesh))
+            else:
+                loss = gamma_train.loss_fn(theta, batch)
+                loss.backward()
+                opt.step()
+            out.append((float(loss.detach()), theta.detach()))
+        (la, ta), (lb, tb) = out
+        rel = abs(la - lb) / abs(lb)
+        diff = float((ta - tb).abs().max())
+        log("multichip", f"dp_gamma_train_step on {DP_PATHS} paths: loss "
+                         f"{la:.8g} vs one process {lb:.8g} ({rel:.2e}), "
+                         f"theta after Adam within {diff:.2e}; {ms:.2f} ms")
+        assert rel <= DP_LOSS_RTOL and diff <= DP_THETA_ATOL, (rel, diff)
+    finally:
+        dist.destroy_process_group()
+
+
+def _bench(out_dir: str, tag: str, argv: list) -> dict:
+    from spcbpt_tpu_torch.apps import multichip_bench
+
+    path = os.path.join(out_dir, f"multichip_{tag}.json")
+    t0 = time.perf_counter()
+    assert multichip_bench.main(argv + ["--json", path]) == 0
+    with open(path) as f:
+        res = json.load(f)
+    log("multichip", f"multichip_bench {' '.join(argv)}: "
+                     f"{time.perf_counter() - t0:.1f} s of command")
+    return res
+
+
+def phase_multichip(out_dir: str, dev, ckpt: str, pt_mean: float) -> None:
+    """The mesh path (parallel/tile.py) over NCCL at world size 1: sharded
+    PT on Cornell 512x512 (K3) and on the interior 1024x1024 (K1/K2), each
+    torch.equal to the sequential route, sharded BDPT/SPCBPT 512x512
+    finite, the data-parallel Gamma step against one process; then
+    multichip_bench, which spawns its ranks: BASELINE config 5
+    (cornell_glossy 2048x2048 SPCBPT, one subframe, MESH_SUB_BLOCKS row
+    blocks) with its ms and peak memory, and one --equal-time run at
+    256x256 against a PT reference this phase renders (key 'img')."""
+    from spcbpt_tpu_torch.apps.render_cli import resolve_scene
+    from spcbpt_tpu_torch.render import pt_pool
+    from spcbpt_tpu_torch.scene.scene import load_trace_scene
+
+    _mesh_on_nccl(out_dir, dev, ckpt, pt_mean)
+    res = _bench(out_dir, "config5", [
+        "--dim", "2048x2048", "--meshes", "1x1", "--mesh-algs", "spcbpt",
+        "--subframes", "1", "--sub-blocks", str(MESH_SUB_BLOCKS),
+        "--checkpoint", ckpt])
+    e = res["meshes"]["1x1"]["spcbpt"]
+    log("multichip", f"config 5, cornell_glossy 2048x2048 spcbpt on the 1x1 "
+                     f"NCCL mesh, {MESH_SUB_BLOCKS} row blocks of "
+                     f"{e['lanes_per_chip'] // MESH_SUB_BLOCKS} lanes: "
+                     f"{e['seconds'] * 1e3:.1f} ms warm (first run "
+                     f"{e['first_seconds'] * 1e3:.1f} ms), mean "
+                     f"{e['mean']:.6f}, peak memory "
+                     f"{e['peak_mem_gb']:.2f} GiB, "
+                     f"{e['mpaths_per_s_total']:.3f} Mpaths/s; launches of "
+                     f"the warm run {e['launches']} (on {res['card']})")
+    assert e["finite"] and e["mean"] > 0, e
+    assert e["launches"]["brute_closest"] > 0, e["launches"]
+    # equal time at 256x256 against a PT reference rendered here
+    ts, _, cam = load_trace_scene(resolve_scene("cornell_glossy"), dev)
+    cam.aspect = 1.0
+    d = EQUAL_TIME_DIM
+    (fsum, count), ms = _sync_ms(lambda: pt_pool.render_pool(
+        ts, cam.uvw(), d, d, EQUAL_TIME_REF_SPP, 12345))
+    ref = os.path.join(out_dir, "equal_time_ref.npz")
+    np.savez(ref, img=(fsum / torch.clamp(count[:, None], min=1))
+             .cpu().numpy())
+    log("multichip", f"PT reference cornell_glossy {d}x{d}, "
+                     f"{EQUAL_TIME_REF_SPP} spp in {ms:.0f} ms")
+    res = _bench(out_dir, "equal_time", [
+        "--dim", f"{d}x{d}", "--meshes", "1x1", "--mesh-algs", "pt",
+        "--subframes", "1", "--equal-time", str(EQUAL_TIME_S), "--ref-npz",
+        ref, "--checkpoint", ckpt])
+    for alg, r in res["equal_time"]["algs"].items():
+        log("multichip", f"equal time {EQUAL_TIME_S} s, {d}x{d}: {alg} "
+                         f"relMSE {r['relmse']:.6f} at {r['subframes']} "
+                         f"subframes in {r['seconds']:.2f} s")
+        assert np.isfinite(r["relmse"]) and r["subframes"] >= 1, (alg, r)
 
 
 def phase_cpu_vs_card_pretrace(devices=("cpu", "cuda")) -> None:
@@ -2306,7 +2663,9 @@ def main() -> int:
     list_launches = phase_profiler()
     launches, walk_stats = phase_main_path(out_dir)
     brute_launches, state_path, pt_mean = phase_cornell(out_dir, dev)
-    trained_path, plain_train = phase_train(out_dir, dev, pt_mean)
+    trained_path, plain_train, centroid_ms = phase_train(out_dir, dev,
+                                                         pt_mean)
+    phase_nn(out_dir, dev, pt_mean, centroid_ms)
     launches.update({k: brute_launches[k]
                      for k in ("brute_closest", "brute_any")})
     cove_stats, cove_state = phase_cove(out_dir, dev)
@@ -2321,6 +2680,7 @@ def main() -> int:
     phase_tile_cpu_vs_card(out_dir)
     phase_cpu_vs_card_pretrace()
     phase_benchmark(out_dir, trained_path)
+    phase_multichip(out_dir, dev, trained_path, pt_mean)
     sky_paths = write_sky_scenes(out_dir)
     phase_sky_cornell(out_dir, dev, sky_paths, plain_train)
     phase_sky_furnished(out_dir, dev, sky_paths)

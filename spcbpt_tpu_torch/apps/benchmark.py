@@ -52,8 +52,8 @@ def build_argparser():
                         "without train_optimal_E)")
     p.add_argument("--classifier", default="centroid",
                    choices=["centroid", "nn"],
-                   help="'nn' (the close-set refinement network) is not "
-                        "ported yet")
+                   help="'nn' additionally trains the close-set refinement "
+                        "network (blended first-stage sampling)")
     p.add_argument("--second-stage", default="auto",
                    choices=["auto", "mixture", "uniform", "weighted"])
     p.add_argument("--discard", type=float, default=0.001,
@@ -87,9 +87,6 @@ def main(argv=None):
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
     algs = args.algs.split(",")
-    if "spcbpt" in algs and args.classifier == "nn":
-        raise SystemExit("--classifier nn: the close-set network is not "
-                         "ported yet; use --classifier centroid")
     device = torch.device(args.device)
 
     from .. import checkpoint as ckpt_mod
@@ -216,7 +213,8 @@ def main(argv=None):
             ts, uvw, width, height, cfg,
             lt_paths=min(args.light_paths, 50_000),
             lt_depth=args.light_depth,
-            gamma_cfg={"epochs": args.gamma_epochs}, verbose=True)
+            gamma_cfg={"epochs": args.gamma_epochs},
+            nn_train=args.classifier == "nn", verbose=True)
         results["train_seconds"] = pstats.seconds
         print(f"[train] {time.time()-t0:.0f}s {pstats.seconds}", flush=True)
         if args.checkpoint:

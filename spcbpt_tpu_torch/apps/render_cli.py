@@ -7,7 +7,8 @@ card is present. `--alg spcbpt` trains the subspace state first (pretrace,
 trees, Q, Gamma: train/pipeline.py, 8,192 pretrace lanes, at most 50,000
 light paths of depth 8 per Q launch), unless `--resume` loads one (a
 checkpoint of either package); `--checkpoint` saves the trained state.
-The close-set network (`--classifier nn`) is not ported.
+`--classifier nn` also trains the close-set network (train/nn_classifier.py)
+and renders with its blended first stage.
 
 BDPT and SPCBPT render one light-vertex cache per frame, as the JAX CLI
 does: frame s traces `--light-paths` light sub-paths with seed
@@ -56,8 +57,8 @@ def build_argparser():
     p.add_argument("--q-samples", type=int, default=500_000)
     p.add_argument("--classifier", default="centroid",
                    choices=["centroid", "nn"],
-                   help="'nn' (the close-set refinement network) is not "
-                        "ported yet")
+                   help="'nn' additionally trains the close-set refinement "
+                        "network (blended first-stage sampling)")
     p.add_argument("--checkpoint", default=None,
                    help="save trained state (npz) here after preprocessing")
     p.add_argument("--resume", default=None,
@@ -99,10 +100,6 @@ def main(argv=None):
     args = build_argparser().parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
-    if args.alg == "spcbpt" and not args.resume \
-            and args.classifier == "nn":
-        raise SystemExit("--classifier nn: the close-set network is not "
-                         "ported yet; use --classifier centroid")
     device = torch.device(args.device)
 
     from ..config import PT_MAX_DEPTH, PretraceConfig
@@ -155,14 +152,15 @@ def main(argv=None):
         ss, pstats = pipeline.preprocess(
             ts, (eye, U, V, W), width, height, cfg,
             lt_paths=min(args.light_paths, 50_000),
-            lt_depth=min(args.light_depth, 8), verbose=True)
+            lt_depth=min(args.light_depth, 8),
+            nn_train=args.classifier == "nn", verbose=True)
         stats["phases"]["preprocess"] = pstats.seconds
         stats["train"] = dict(
             n_paths=pstats.n_paths, n_conns=pstats.n_conns,
             q_paths=pstats.q_paths, gamma_losses=pstats.gamma_losses,
             pretrace_launches=pstats.pretrace_launches,
             q_launches=pstats.q_launches, second_stage=pstats.second_stage,
-            flux_dr=pstats.flux_dr)
+            flux_dr=pstats.flux_dr, nn_losses=pstats.nn_losses)
         print(f"[train] done: {pstats.seconds}", flush=True)
         if args.checkpoint:
             checkpoint.save_subspace_state(args.checkpoint, ss)

@@ -25,6 +25,7 @@ import torch
 from ..config import NUM_SUBSPACE
 from ..ops.cmf import segment_pmf, segment_searchsorted
 from ..train import classify
+from ..train import nn_classifier as nn_mod
 from ..utils import rng as rng_mod
 from ..utils import vec
 from .vertex import LightVertices, pack_matrix, reshape_flat
@@ -175,10 +176,30 @@ def sample_first_stage(ss: classify.SubspaceState, eye_subspace, state,
     """Pick a light subspace from the eye subspace's Gamma row: O(1) alias
     tables when published (identical distribution to the reference's CMF
     binary search, cuProg.h:290-302), else the CMF bisection. Returns
-    (light_subspace, pmf, state). The close-set network (ss.nn) is not
-    ported."""
-    if ss.nn is not None:
-        raise NotImplementedError("the nn classifier is not ported yet")
+    (light_subspace, pmf, state).
+
+    When ss.nn is set (the close-set network, train/nn_classifier) and the
+    eye vertex is supplied, samples the blended mixture
+        (1-b) * Gamma_row + b * nn_close(x)
+    and reports its exact pmf. Each draw takes r_sel, r_cl and then the
+    row sampler's own draw, in JAX's order."""
+    if ss.nn is not None and position is not None:
+        row = eye_subspace.long()
+        probs, ids = nn_mod.close_probs(ss.nn, row, position, normal)
+        r_sel, state = rng_mod.next_float(state)
+        r_cl, state = rng_mod.next_float(state)
+        # close-set categorical via the row's cumulative sum (K=32 lanes)
+        cum = torch.cumsum(probs, dim=-1)
+        k = torch.sum(cum < r_cl[..., None] * cum[..., -1:], dim=-1)
+        k = torch.clamp(k, 0, probs.shape[-1] - 1)
+        l_nn = torch.gather(ids, -1, k[..., None])[..., 0]
+        l_row, _, state = sample_first_stage(ss.replace(nn=None),
+                                             eye_subspace, state)
+        b = ss.nn.blend
+        l = torch.where(r_sel < b, l_nn, l_row).to(torch.int32)
+        pmf = ((1.0 - b) * classify.gamma_block(ss, row, l)
+               + b * nn_mod.close_pmf_of(probs, ids, l))
+        return l, pmf, state
     r, state = rng_mod.next_float(state)
     row = eye_subspace.long()
     if ss.alias_pack is not None:

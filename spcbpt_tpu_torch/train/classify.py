@@ -6,9 +6,9 @@ one (N,6)x(6,C) product; classTree_host.h:302-352, classTree_common.h:82-90)
 and SubspaceState, which carries Q, Gamma as row CMFs and the published
 lookup tables (subspaceMacroInfo, optixPathTracer.h:166-189), with the
 untrained defaults (label 0, gamma_ss == 1). `synthetic_trained_state`
-makes a fully trained-shaped state without training; the training
-pipeline itself is not ported yet. `from_jax_state` carries a JAX
-SubspaceState over, array by array.
+makes a fully trained-shaped state without training (train/pipeline.py
+trains one). `from_jax_state` carries a JAX SubspaceState over, array by
+array.
 
 The label product runs in full float32 on every device: `classify` raises
 on a CUDA tensor while TF32 matmuls are allowed (`use_fp32_matmul` turns
@@ -51,7 +51,10 @@ class SubspaceState:
     # derived by publish_tables, not serialized
     gamma_pmf: torch.Tensor = None       # (NUM_SUBSPACE, NUM_SUBSPACE)
     alias_pack: torch.Tensor = None      # (NUM_SUBSPACE, NUM_SUBSPACE, 4)
-    nn: object = None                    # close-set network: not ported
+    # close-set refinement network (nn_classifier.NNTables): when set, the
+    # first-stage light-subspace pick blends Gamma with its distribution
+    # (lvc.sample_first_stage) — reference C21 behind --classifier nn
+    nn: object = None
     trained: bool = False
     # the second-stage sampler this state is calibrated for: "mixture",
     # "uniform" or "weighted"; rmis and the renderers key off it
@@ -63,9 +66,17 @@ class SubspaceState:
 
 def use_fp32_matmul() -> None:
     """Full-float32 matrix products on the card (no TF32), as `classify`
-    requires."""
+    and the close-set network require."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+
+
+def require_fp32_matmul(t: torch.Tensor) -> None:
+    """Raises when a product on the card would take TF32 inputs."""
+    if t.is_cuda and (torch.backends.cuda.matmul.allow_tf32 or
+                      torch.get_float32_matmul_precision() != "highest"):
+        raise RuntimeError("full-float32 matmuls are needed on the card: "
+                           "call classify.use_fp32_matmul() first")
 
 
 def dummy_classifier(n_labels: int = 1, device="cpu") -> Classifier:
@@ -158,10 +169,7 @@ def classify(c: Classifier, pos, normal):
     cloud as in the JAX package (the score is translation-invariant, and
     |ci|^2 - 2 p.ci loses the label information once |coords|^2 * eps
     reaches the spacing between scores)."""
-    if pos.is_cuda and (torch.backends.cuda.matmul.allow_tf32 or
-                        torch.get_float32_matmul_precision() != "highest"):
-        raise RuntimeError("classify needs full-float32 matmuls on the card: "
-                           "call classify.use_fp32_matmul() first")
+    require_fp32_matmul(pos)
     anchor = torch.mean(c.centers_pos, dim=0)
     feat = torch.cat([pos - anchor, normal * (0.5 * c.diag2)], dim=-1)
     cpos = c.centers_pos - anchor
@@ -266,10 +274,9 @@ def build_classifier(pos: np.ndarray, normal: np.ndarray, weight: np.ndarray,
 
 def from_jax_state(jss, device) -> SubspaceState:
     """The port's SubspaceState from a JAX spcbpt_tpu SubspaceState, whose
-    arrays are read as numpy (no jax import here). The close-set network
-    is not ported."""
-    if jss.nn is not None:
-        raise NotImplementedError("the nn classifier is not ported yet")
+    arrays are read as numpy (no jax import here), its close-set network
+    included."""
+    from . import nn_classifier
 
     def t(x, dt=torch.float32):
         return None if x is None else torch.tensor(np.asarray(x), dtype=dt,
@@ -285,4 +292,6 @@ def from_jax_state(jss, device) -> SubspaceState:
         cmf_gamma=t(jss.cmf_gamma), alias_prob=t(jss.alias_prob),
         alias_idx=t(jss.alias_idx, torch.int32), inv_occ=t(jss.inv_occ),
         gamma_pmf=t(jss.gamma_pmf), alias_pack=t(jss.alias_pack),
+        nn=None if jss.nn is None
+        else nn_classifier.from_jax_tables(jss.nn, device),
         trained=bool(jss.trained), second_stage=str(jss.second_stage))

@@ -10,11 +10,13 @@ preprocessing() (optixPathTracer.cpp:552-608):
   5. estimate Q from light-trace launches until target_q_samples paths
   6. initialize Gamma from contribution integrals, train with Adam
   7. publish Q + CMFGamma in a trained SubspaceState
+  8. optionally (nn_train, --classifier nn) train the close-set network
+     against the conservative-mixed Gamma (train/nn_classifier.py)
 
 `preprocess` runs stage 1 on the scene's device and keeps the accepted rows
 of each launch as numpy arrays on the host; `fit_from_corpus` runs stages
-2-7 on such a corpus, so a corpus traced elsewhere (the JAX package's) can
-be fitted too. The close-set network (nn_train) is not ported.
+2-8 on such a corpus, so a corpus traced elsewhere (the JAX package's) can
+be fitted too.
 """
 from __future__ import annotations
 
@@ -28,12 +30,13 @@ from ..config import CONSERVATIVE_RATE, NUM_SUBSPACE, PretraceConfig
 from ..render import light_trace
 from ..render.autotune import select_second_stage
 from ..scene.scene import TraceScene
-from . import classify, gamma_train, pretrace, qgamma
+from . import classify, gamma_train, nn_classifier, pretrace, qgamma
 
 MAX_PRETRACE_LAUNCHES = 20_000
 MAX_Q_LAUNCHES = 200
 Q_FRAME_OFFSET = 7777
 LABEL_CHUNK = 1 << 18
+NN_SEED = 12345
 
 
 @dataclasses.dataclass
@@ -68,13 +71,6 @@ class _Stage:
     def __exit__(self, *exc):
         self._sync()
         self.stats.seconds[self.name] = time.perf_counter() - self.t0
-
-
-def _no_nn(nn_train: bool) -> None:
-    if nn_train:
-        raise NotImplementedError(
-            "the close-set network (--classifier nn) is not ported yet "
-            "(ROADMAP.md, Queue 1 item 5)")
 
 
 def pretrace_corpus(ts: TraceScene, cam_uvw, cfg: PretraceConfig,
@@ -125,9 +121,8 @@ def fit_from_corpus(ts: TraceScene, data: pretrace.PretraceBatch,
                     gamma_cfg=None, nn_train: bool = False,
                     verbose: bool = False,
                     stats: PreprocessStats | None = None):
-    """Stages 2-7 on a corpus of numpy arrays (a PretraceBatch of accepted
+    """Stages 2-8 on a corpus of numpy arrays (a PretraceBatch of accepted
     rows). Returns (SubspaceState with trained=True, PreprocessStats)."""
-    _no_nn(nn_train)
     cfg = cfg or PretraceConfig()
     stats = stats or PreprocessStats()
     dev = ts.device
@@ -224,6 +219,24 @@ def fit_from_corpus(ts: TraceScene, data: pretrace.PretraceBatch,
     if verbose:
         print(f"[train] second stage '{second}' "
               f"(flux DR {sel_stats['flux_dr']:.2f})", flush=True)
+
+    # --- 8. optional close-set refinement network (C21) ---
+    if nn_train:
+        with _Stage(stats, "nn", dev):
+            # scene AABB over all three triangle vertices, as in JAX
+            verts = torch.cat([ts.tri_p0, ts.tri_p0 + ts.tri_e1,
+                               ts.tri_p0 + ts.tri_e2])
+            nn_state = nn_classifier.init_params(
+                np.random.default_rng(NN_SEED), mixed, device=dev)
+            nn_tables, stats.nn_losses = nn_classifier.train_from_corpus(
+                nn_state, mixed, td, data.a_position, data.a_normal,
+                label_a, label_b, torch.amin(verts, dim=0),
+                torch.amax(verts, dim=0))
+            ss = ss.replace(nn=nn_tables)
+        if verbose and stats.nn_losses:
+            print(f"[train] nn close-set refinement: loss "
+                  f"{stats.nn_losses[0]:.4g} -> {stats.nn_losses[-1]:.4g} "
+                  f"({len(stats.nn_losses)} steps)", flush=True)
     return ss, stats
 
 
@@ -233,14 +246,13 @@ def preprocess(ts: TraceScene, cam_uvw, width: int, height: int,
                gamma_cfg=None, nn_train: bool = False,
                verbose: bool = False):
     """Returns (SubspaceState with trained=True, PreprocessStats)."""
-    _no_nn(nn_train)
     cfg = cfg or PretraceConfig()
     stats = PreprocessStats()
     t_all = time.perf_counter()
     with _Stage(stats, "pretrace", ts.device):
         data = pretrace_corpus(ts, cam_uvw, cfg, stats, verbose)
     ss, stats = fit_from_corpus(ts, data, width, height, cfg, lt_paths,
-                                lt_depth, gamma_cfg, verbose=verbose,
-                                stats=stats)
+                                lt_depth, gamma_cfg, nn_train=nn_train,
+                                verbose=verbose, stats=stats)
     stats.seconds["total"] = time.perf_counter() - t_all
     return ss, stats

@@ -186,11 +186,14 @@ def test_render_cli_trains_from_the_scene(tmp_path):
     np.testing.assert_allclose(np.asarray(jss.cmf_gamma)[:, -1], 1.0)
 
 
-def test_nn_classifier_is_refused(trained, tmp_path):
-    with pytest.raises(SystemExit, match="not ported"):
-        render_cli.main(["--device", "cpu", "--alg", "spcbpt",
-                         "--classifier", "nn", "--out",
+def test_nn_classifier_is_refused(monkeypatch, tmp_path):
+    """--classifier nn runs (tests/test_torch_nn_pipeline.py) but never in
+    place of the card: --device cuda without one refuses, in the CLI and
+    in the benchmark."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        render_cli.main(["--alg", "spcbpt", "--classifier", "nn", "--out",
                          str(tmp_path / "x.png")])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        tpipe.preprocess(trained["ts"], trained["uvw"], 32, 32,
-                         PretraceConfig(**SIZE), nn_train=True)
+    from spcbpt_tpu_torch.apps import benchmark
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        benchmark.main(["--algs", "spcbpt", "--classifier", "nn"])

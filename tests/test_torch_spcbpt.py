@@ -182,10 +182,25 @@ def test_render_cli_spcbpt_resume_writes_png(cornell, tmp_path):
     assert all(f["light_ms"] > 0 and f["eye_ms"] > 0 for f in s["frames"])
 
 
-def test_render_cli_spcbpt_needs_resume(tmp_path):
-    """Without --resume, --alg spcbpt trains its state; only the close-set
-    network, which is not ported, still needs a state from elsewhere."""
-    with pytest.raises(SystemExit, match="not ported"):
-        render_cli.main(["--device", "cpu", "--alg", "spcbpt",
-                         "--classifier", "nn", "--out",
-                         str(tmp_path / "x.png")])
+def test_render_cli_spcbpt_needs_resume(cornell, tmp_path):
+    """Without --resume, --alg spcbpt trains its state (with --classifier
+    nn, the close-set network too); with --resume the whole state, the
+    network included, comes from the checkpoint and nothing is trained."""
+    from spcbpt_tpu_torch.train import nn_classifier as tnn
+
+    _, ts, _, _, tss = cornell
+    nt = tnn.tables_from_state(
+        tnn.init_params(np.random.default_rng(1), tss.gamma_pmf.numpy()),
+        -np.ones(3), 2 * np.ones(3))
+    state = tmp_path / "nn.npz"
+    checkpoint.save_subspace_state(str(state), tss.replace(nn=nt))
+    stats = tmp_path / "s.json"
+    assert render_cli.main([
+        "--device", "cpu", "--alg", "spcbpt", "--classifier", "nn",
+        "--resume", str(state), "--dim", "8x8", "--spp", "1",
+        "--light-paths", "500", "--out", str(tmp_path / "x.png"),
+        "--stats-json", str(stats)]) == 0
+    s = json.loads(stats.read_text())
+    assert s["finite"] and s["mean_radiance"] > 0
+    assert "train" not in s and "preprocess" not in s["phases"]
+    assert checkpoint.load_subspace_state(str(state)).nn.blend == 0.5
