@@ -137,7 +137,33 @@ Phases, one status line each; any failure raises and exits non-zero:
      (cornell_glossy 2048x2048 SPCBPT, 1 subframe, MESH_SUB_BLOCKS row
      blocks, first and warm run) with its peak memory, and one
      `--equal-time` run at 256x256 against a 64-spp PT reference the phase
-     renders itself (key 'img'); their outputs in smoke_out/multichip_*.
+     renders itself (key 'img'); their outputs in smoke_out/multichip_*;
+ 22. partitioned walk sets: the Python copy of K1/K2's shared memory a block
+     (kernels.ray_walk.shared_bytes) against the library's
+     ray_walk_shared_bytes at SHARED_CHECK; the scale-10 interior (203,792
+     triangles, 2,256 clusters, more than one K1/K2 block holds) in walk
+     mode, split into parts; K1/K2 over the parts torch.equal to their
+     plain versions on its camera 512x512 and bounce 2^17 wavefronts (hit
+     and occluded shares at least MIN_HIT_SHARE), each walk alone
+     (graph_ms) beside its call; `render_cli --scene <it> --alg pt --dim
+     1024x1024 --max-depth 30 --spp 2`: exact counts, finite, K1/K2
+     launches a whole number of times the parts;
+ 23. the bvh mode (ops/traverse.py, plain torch on the card) on the scale-4
+     interior's camera 512x512 wavefront against K1 (BVH_AGREE of the
+     triangles, t within BVH_T_RTOL where they agree) and K2 (BVH_AGREE);
+     the ms of each;
+ 24. render_waves against render_pool on Cornell 512x512, 4 spp, the same
+     seeds (WAVES_AGREE of the pixels within WAVES_RTOL); the ms of each;
+ 25. the terminal viewer headless (apps/viewer.main, output captured):
+     Cornell 512x512 from phase 15's state, four frames each of PT, BDPT
+     and SPCBPT (Space between), then w, c, q; each algorithm's frame
+     lines reach 4 samples, its PT film equals `render_cli --spp 4` PT on
+     the same seeds (WAVES_AGREE, WAVES_RTOL), BDPT and SPCBPT means within
+     MEAN_VS_PT of it; then PT on the scale-10 interior at 1024x1024, 3
+     frames, through K1/K2 over its parts;
+ 26. utils/profiling on the card: the viewer session's PhaseTimer within
+     TIMER_RTOL of its frame lines, a fenced phase at least the device time
+     of the work it queued, and device_trace's Chrome trace naming K3.
 Each render phase sets every launch counter to 0 just before it renders and
 reads them just after (the profiler's counters start at 0 in its own
 process and are read from its last line); the CLI renders' PNG, HDR and
@@ -147,7 +173,8 @@ plain version's visits on the same inputs, see PEAK_F32_FLOPS; the K6
 forms and K5 closest, which test fewer pairs than their plain version,
 take the bound of their own tests (their groups' optional rounds output)
 and K4's single round that of its live lanes, each carrying the plain
-version's beside it as plain_bound_ms;
+version's beside it as plain_bound_ms; K1's and K2's rows carry their
+launches on phase 22's partitioned render as parts_launches;
 K3's rows bound the live work of their inputs stage by stage and carry
 every lane against every triangle as plain_bound_ms, and the shares of
 live pairs failing at det, at u and at v; every row gives the kernel alone
@@ -290,6 +317,28 @@ MIN_HIT_SHARE = 0.2      # least share of hit lanes and of occluded lanes
 # the first forms timed beside K5 closest and K4's single round: kernel ->
 # its form in tile_walk_variants.py
 FIRST_FORMS = {"K5 closest": "old_closest", "K4 round": "old_round"}
+# the partitioned walk: the procedural interior at scale 10, whose 2,256
+# clusters one K1/K2 block cannot hold and whose 203,792 triangles JAX splits
+# at WALK_MAX_TRIS into two parts
+PARTS_SCALE = 10
+PARTS_TRIS = 203_792
+PARTS_DIM = 1024
+PARTS_SPP = 2
+# cluster counts at which the Python copy of shared_bytes is held to the
+# library's: around a group of 8, the cap, the scale-4 / 8 / 10 / 12 sets
+SHARED_CHECK = (1, 7, 8, 9, 64, 368, 1441, 2233, 2234, 2235, 2256, 3386)
+BVH_AGREE = 0.999        # bvh mode vs K1/K2: share of lanes agreeing
+BVH_T_RTOL = 1e-4        # and t, relative, where the triangles agree
+WAVES_SPP = 4
+WAVES_AGREE = 0.999      # render_waves vs render_pool: pixels within
+WAVES_RTOL = 1e-4        # this relative difference
+VIEWER_DIM = 512
+VIEWER_DEPTH = 16        # the viewer's --max-depth: PT, BDPT, SPCBPT alike
+# four frames of each algorithm ('x' is no key), then fly, print, quit
+VIEWER_KEYS = "xxx " + "xxx " + "xxx" + "wcq"
+VIEWER_FRAMES = 20       # a bound on the session; 'q' ends it after 14
+VIEWER_PARTS_FRAMES = 3
+TIMER_RTOL = 0.1         # PhaseTimer per frame vs the frame's own line
 
 
 _T0 = time.perf_counter()
@@ -562,6 +611,7 @@ def phase_kernels(ts, waves, dev):
     from spcbpt_tpu_torch.ops import clusters, intersect, ray_walk
 
     cs = ts.clusters_walk
+    assert isinstance(cs, clusters.ClusterSet), "the scale-4 set is one part"
     sizes = clusters.cluster_sizes(cs, ts.num_tris)
     results = {}
     for name, o, d, tmax in waves:
@@ -2625,6 +2675,333 @@ def phase_sky_furnished(out_dir: str, dev, paths: dict) -> dict:
     return launches
 
 
+def phase_parts(out_dir: str, dev) -> tuple:
+    """The partitioned walk: the Python copy of K1/K2's shared memory
+    against the library's; the scale-10 interior in walk mode, split into
+    parts; K1/K2 over the parts torch.equal to their plain versions on the
+    camera 512x512 and bounce 2^17 wavefronts, each part's walk timed alone
+    and called; PT 1024x1024, depth 30 through render_cli. Returns (the
+    scene's path, its part count, the render's launches)."""
+    from spcbpt_tpu_torch.apps.render_cli import generate_interior
+    from spcbpt_tpu_torch.kernels import ray_walk as kernels
+    from spcbpt_tpu_torch.ops import clusters, ray_walk
+    from spcbpt_tpu_torch.scene.scene import load_trace_scene
+
+    lib = kernels._lib()
+    for c in SHARED_CHECK:
+        assert kernels.shared_bytes(c) == lib.ray_walk_shared_bytes(c), c
+    log("parts", f"shared_bytes (Python copy) equals ray_walk_shared_bytes "
+                 f"at C = {SHARED_CHECK}; a part holds at most "
+                 f"{clusters.MAX_CLUSTERS} clusters "
+                 f"({kernels.shared_bytes(clusters.MAX_CLUSTERS)} of "
+                 f"{kernels.MAX_SHARED} bytes)")
+    t0 = time.perf_counter()
+    path = generate_interior(os.path.join(out_dir, "interior10"), PARTS_SCALE)
+    t1 = time.perf_counter()
+    ts, _, cam = load_trace_scene(path, dev, mode="walk")
+    cam.aspect = 1.0
+    parts = ts.clusters_walk
+    log("parts", f"interior scale {PARTS_SCALE}: {ts.num_tris} tris, "
+                 f"generated in {t1 - t0:.1f} s, loaded in "
+                 f"{time.perf_counter() - t1:.1f} s; {parts.num_clusters} "
+                 f"clusters in {len(parts.parts)} parts: " + ", ".join(
+                     f"clusters {a}-{b - 1} ({int(p.tri_count.sum())} tris)"
+                     for (a, b), p in zip(parts.bounds, parts.parts)))
+    assert ts.num_tris == PARTS_TRIS, ts.num_tris
+    assert isinstance(parts, clusters.ClusterParts) and len(parts.parts) >= 2
+    assert max(b - a for a, b in parts.bounds) <= clusters.MAX_CLUSTERS
+
+    for name, o, d, tmax in wavefronts(ts, cam, dev):
+        n = o.shape[0]
+        tmin = torch.full((n,), 1e-3, device=dev)
+        for cull in (True, False):
+            got = ray_walk.walk_closest_parts(parts, o, d, tmin, tmax, cull,
+                                              sort_rays=True)
+            ref = ray_walk.walk_closest_parts_plain(parts, o, d, tmin, tmax,
+                                                    cull, sort_rays=True)
+            torch.cuda.synchronize()
+            for f in ("tri", "t", "u", "v"):
+                assert torch.equal(getattr(got, f), getattr(ref, f)), \
+                    f"K1 parts {name} cull={cull}: {f} differs from the plain version"
+            assert (got.tri[tmax < tmin] == -1).all(), "dead lane hit"
+            hits = (ref.tri >= 0).float().mean().item()
+            log("parts", f"K1 over the parts, {name} cull={cull}: equal to "
+                         f"the plain version, hits {hits:.4f}")
+            assert hits >= MIN_HIT_SHARE, (name, cull, hits)
+        tseg = brute_segments(name, ref, tmax, n, dev)
+        occ = ray_walk.walk_any_parts(parts, o, d, tmin, tseg, sort_rays=True)
+        occ_p = ray_walk.walk_any_parts_plain(parts, o, d, tmin, tseg,
+                                              sort_rays=True)
+        torch.cuda.synchronize()
+        assert torch.equal(occ, occ_p), \
+            f"K2 parts {name}: occlusion differs from the plain version"
+        occluded = occ.float().mean().item()
+        assert occluded >= MIN_HIT_SHARE, (name, occluded)
+        # the parts walk alone on the prepared rays, and the whole call
+        po, pd, ptmn, ptmx, _, _ = ray_walk.prepare(parts, o, d, tmin, tmax,
+                                                    True)
+        pseg = ray_walk.prepare(parts, o, d, tmin, tseg, True)[3]
+        walk1 = lambda: ray_walk.closest_parts_rows(parts, po, pd, ptmn,
+                                                    ptmx, False)
+        walk2 = lambda: ray_walk.any_parts_rows(parts, po, pd, ptmn, pseg)
+        k1, k2 = graph_ms(walk1), graph_ms(walk2)
+        c1 = cuda_ms(lambda: ray_walk.walk_closest_parts(
+            parts, o, d, tmin, tmax, False, sort_rays=True), 10)
+        c2 = cuda_ms(lambda: ray_walk.walk_any_parts(
+            parts, o, d, tmin, tseg, sort_rays=True), 10)
+        p1 = cuda_ms(lambda: ray_walk.closest_parts_rows(
+            parts, po, pd, ptmn, ptmx, False, ray_walk.closest_rows_plain), 1)
+        log("parts", f"{name} ({n} rays, occluded {occluded:.4f}, K2 equal "
+                     f"to its plain version): K1 over {len(parts.parts)} "
+                     f"parts {k1:.4f} ms alone, call (sort + K1s + unsort) "
+                     f"{c1:.4f} ms, plain rows {p1:.3f} ms; K2 {k2:.4f} ms "
+                     f"alone, call {c2:.4f} ms")
+
+    ray_walk.PLAIN_CALLS["row_entries"] = 0
+    stats, launches = run_cli(out_dir, "interior10_pt", [
+        "--scene", path, "--alg", "pt", "--dim", f"{PARTS_DIM}x{PARTS_DIM}",
+        "--max-depth", "30"], PARTS_SPP)
+    assert ray_walk.PLAIN_CALLS["row_entries"] == 0, ray_walk.PLAIN_CALLS
+    k = len(parts.parts)
+    log("parts", f"interior scale {PARTS_SCALE} pt {PARTS_DIM}x{PARTS_DIM} "
+                 f"{PARTS_SPP} spp: "
+                 f"{stats['render_seconds'] * 1e3 / PARTS_SPP:.1f} ms/spp, "
+                 f"{stats['samples_per_second'] / 1e6:.3f} Mpaths/s, mean "
+                 f"{stats['mean_radiance']:.6f}; launches {launches}, "
+                 f"{launches['walk_closest'] // k} K1 and "
+                 f"{launches['walk_any'] // k} K2 a part")
+    for kern in ("walk_closest", "walk_any"):
+        assert launches[kern] > 0 and launches[kern] % k == 0, launches
+    return path, k, launches
+
+
+def phase_bvh(ts, cam, dev) -> None:
+    """The bvh mode (ops/traverse.py, plain torch on the card) on the
+    scale-4 interior's camera 512x512 wavefront against K1/K2: the
+    triangles agree on BVH_AGREE of the lanes, t within BVH_T_RTOL where
+    they agree; the occlusion on BVH_AGREE of the lanes."""
+    from spcbpt_tpu_torch.ops import ray_walk, traverse
+
+    name, o, d, tmax = camera_wavefront(cam, dev)
+    n = o.shape[0]
+    tmin = torch.full((n,), 1e-3, device=dev)
+    tree = (ts.bvh_min, ts.bvh_max, ts.bvh_skip, ts.bvh_leaf_start,
+            ts.bvh_leaf_count, ts.tri_p0, ts.tri_e1, ts.tri_e2)
+    cs = ts.clusters_walk
+    for _ in range(2):      # the second call is timed
+        got, b1 = _sync_ms(lambda: traverse.bvh_closest(o, d, tmin, tmax,
+                                                        *tree, False))
+        ref, w1 = _sync_ms(lambda: ray_walk.walk_closest(
+            cs, o, d, tmin, tmax, False, sort_rays=True))
+    same = got.tri == ref.tri
+    agree = same.float().mean().item()
+    both = same & (ref.tri >= 0)
+    rel = ((got.t - ref.t).abs() / ref.t.abs())[both].max().item()
+    log("bvh", f"{name}: bvh_closest {b1:.1f} ms, walk_closest (K1) "
+               f"{w1:.1f} ms; triangles agree on {agree:.6f}, max relative "
+               f"|dt| {rel:.3g} where they agree (hits "
+               f"{(ref.tri >= 0).float().mean().item():.4f})")
+    assert agree >= BVH_AGREE and rel <= BVH_T_RTOL, (agree, rel)
+    tseg = brute_segments(name, ref, tmax, n, dev)
+    for _ in range(2):
+        occ, b2 = _sync_ms(lambda: traverse.bvh_any(o, d, tmin, tseg, *tree))
+        occ_k, w2 = _sync_ms(lambda: ray_walk.walk_any(cs, o, d, tmin, tseg,
+                                                       sort_rays=True))
+    agree = (occ == occ_k).float().mean().item()
+    log("bvh", f"{name}: bvh_any {b2:.1f} ms, walk_any (K2) {w2:.1f} ms; "
+               f"occlusion agrees on {agree:.6f} (occluded "
+               f"{occ_k.float().mean().item():.4f})")
+    assert agree >= BVH_AGREE, agree
+
+
+def phase_waves(cts, ccam, dev) -> None:
+    """render_waves against render_pool on Cornell 512x512 through K3, the
+    same seeds: WAVES_AGREE of the pixels within WAVES_RTOL."""
+    from spcbpt_tpu_torch.render import pt_pool
+
+    uvw = ccam.uvw()
+    side = CAMERA_DIM
+    reset_launches()
+    (wf, wc), w_ms = _sync_ms(lambda: pt_pool.render_waves(
+        cts, uvw, side, side, WAVES_SPP, 0))
+    w_launches = read_launches()
+    (pf, pc), p_ms = _sync_ms(lambda: pt_pool.render_pool(
+        cts, uvw, side, side, WAVES_SPP, 0))
+    assert torch.equal(wc, pc) and bool((wc == WAVES_SPP).all())
+    a, b = wf / WAVES_SPP, pf / pc[:, None]
+    assert bool(torch.isfinite(a).all())
+    err = (a - b).abs() / b.abs().clamp(min=1e-30)
+    within = torch.where(a == b, 0.0, err) <= WAVES_RTOL
+    share = within.all(dim=1).float().mean().item()
+    log("waves", f"cornell {side}x{side} {WAVES_SPP} spp: render_waves "
+                 f"{w_ms:.1f} ms ({w_launches['brute_closest']} K3 closest, "
+                 f"{w_launches['brute_any']} any), render_pool {p_ms:.1f} "
+                 f"ms; pixels within {WAVES_RTOL:g} relative {share:.6f}, "
+                 f"means {a.mean().item():.6f} / {b.mean().item():.6f}")
+    assert w_launches["brute_closest"] > 0 and w_launches["brute_any"] > 0
+    assert share >= WAVES_AGREE, share
+
+
+FRAME_LINE = re.compile(r"^\[(pt|bdpt|spcbpt)\] (\d+)x(\d+) spp +(\d+) \| "
+                        r"+([\d.]+) ms/frame")
+
+
+def run_viewer(argv: list, timer=None) -> tuple:
+    """viewer.main in this process, its output captured, every film kept
+    as it stood before each reset; returns (the [alg] lines as (alg, spp,
+    ms), the films (subframes, accum) in order, the final film's, the
+    output)."""
+    import contextlib
+    import io
+    from spcbpt_tpu_torch.apps import viewer
+    from spcbpt_tpu_torch.render.film import Film
+
+    films = []
+    reset = Film.reset
+
+    def kept_reset(self):
+        if self.subframe:
+            films.append((self.subframe, self.accum.clone()))
+        reset(self)
+
+    made = []
+    init = Film.__post_init__
+
+    def kept_init(self):
+        made.append(self)
+        init(self)
+
+    out = io.StringIO()
+    Film.reset, Film.__post_init__ = kept_reset, kept_init
+    try:
+        with contextlib.redirect_stdout(out):
+            assert viewer.main(argv, timer=timer) == 0
+    finally:
+        Film.reset, Film.__post_init__ = reset, init
+    text = out.getvalue()
+    lines = [(m.group(1), int(m.group(4)), float(m.group(5)))
+             for m in map(FRAME_LINE.match, text.splitlines()) if m]
+    films.append((made[0].subframe, made[0].accum))
+    return lines, films, text
+
+
+def phase_viewer(out_dir: str, dev, state_path: str, parts_path: str,
+                 n_parts: int) -> tuple:
+    """The terminal viewer headless: Cornell 512x512 from the trained state,
+    four frames each of PT, BDPT and SPCBPT (Space between), then w, c, q;
+    the PT film against render_cli's PT at 4 spp on the same seeds, the
+    BDPT and SPCBPT means within MEAN_VS_PT of its; then PT on the scale-10
+    interior at 1024x1024 over its parts. Returns (the Cornell session's
+    PhaseTimer, its frame lines)."""
+    from spcbpt_tpu_torch.utils.profiling import PhaseTimer
+
+    timer = PhaseTimer()
+    reset_launches()
+    lines, films, text = run_viewer([
+        "--scene", "cornell", "--dim", f"{VIEWER_DIM}x{VIEWER_DIM}",
+        "--max-depth", str(VIEWER_DEPTH), "--resume", state_path, "--keys",
+        VIEWER_KEYS, "--frames", str(VIEWER_FRAMES)], timer)
+    launches = read_launches()
+    for alg in ("pt", "bdpt", "spcbpt"):
+        ms = [m for a, _, m in lines if a == alg]
+        log("viewer", f"cornell {VIEWER_DIM}x{VIEWER_DIM} {alg}: "
+                      f"{len(ms)} frames, ms/frame " +
+                      ", ".join(f"{m:.1f}" for m in ms))
+    spps = {alg: [s for a, s, _ in lines if a == alg]
+            for alg in ("pt", "bdpt", "spcbpt")}
+    assert spps == {"pt": [1, 2, 3, 4], "bdpt": [1, 2, 3, 4],
+                    "spcbpt": [1, 2, 3, 4, 1, 2]}, spps
+    assert "[camera]" in text, text[-2000:]
+    assert [f[0] for f in films] == [4, 4, 4, 2], [f[0] for f in films]
+    assert launches["brute_closest"] > 0 and launches["brute_any"] > 0
+    means = {alg: films[i][1].mean().item()
+             for i, alg in enumerate(("pt", "bdpt", "spcbpt"))}
+    assert all(torch.isfinite(f[1]).all() for f in films)
+
+    stats, _ = run_cli(out_dir, "viewer_pt_ref", [
+        "--scene", "cornell", "--alg", "pt", "--dim",
+        f"{VIEWER_DIM}x{VIEWER_DIM}", "--max-depth", str(VIEWER_DEPTH)], 4)
+    ref = torch.from_numpy(np.load(os.path.join(
+        out_dir, "viewer_pt_ref.npz"))["radiance"].copy()).to(dev)
+    pt = films[0][1].reshape(VIEWER_DIM, VIEWER_DIM, 3).flip(0)
+    err = (pt - ref).abs() / ref.abs().clamp(min=1e-30)
+    share = (torch.where(pt == ref, 0.0, err) <= WAVES_RTOL).all(
+        dim=-1).float().mean().item()
+    log("viewer", f"PT film (4 frames) vs render_cli --spp 4: pixels within "
+                  f"{WAVES_RTOL:g} relative {share:.6f}; means pt "
+                  f"{means['pt']:.6f}, bdpt {means['bdpt']:.6f}, spcbpt "
+                  f"{means['spcbpt']:.6f}; launches {launches}")
+    assert share >= WAVES_AGREE, share
+    for alg in ("bdpt", "spcbpt"):
+        rel = abs(means[alg] - means["pt"]) / means["pt"]
+        assert rel <= MEAN_VS_PT, (alg, means)
+
+    reset_launches()
+    big, big_films, _ = run_viewer([
+        "--scene", parts_path, "--dim", f"{PARTS_DIM}x{PARTS_DIM}",
+        "--frames", str(VIEWER_PARTS_FRAMES)])
+    launches = read_launches()
+    log("viewer", f"interior scale {PARTS_SCALE} pt {PARTS_DIM}x{PARTS_DIM}: "
+                  "ms/frame " + ", ".join(f"{m:.1f}" for _, _, m in big) +
+                  f"; launches {launches}, {launches['walk_closest'] // n_parts}"
+                  f" K1 and {launches['walk_any'] // n_parts} K2 a part")
+    assert [s for _, s, _ in big] == list(range(1, VIEWER_PARTS_FRAMES + 1))
+    assert bool(torch.isfinite(big_films[-1][1]).all())
+    for kern in ("walk_closest", "walk_any"):
+        assert launches[kern] > 0 and launches[kern] % n_parts == 0, launches
+    return timer, lines
+
+
+def phase_profiling(out_dir: str, cts, timer, lines) -> None:
+    """utils/profiling on the card: the viewer's PhaseTimer against its own
+    frame lines (TIMER_RTOL), the fence holding a timer until queued device
+    work ends, and device_trace naming a K3 launch of a brute-mode trace."""
+    from spcbpt_tpu_torch.scene.scene import trace_closest
+    from spcbpt_tpu_torch.utils.profiling import PhaseTimer, device_trace
+
+    for alg in ("pt", "bdpt", "spcbpt"):
+        ms = sum(m for a, _, m in lines if a == alg)
+        got = timer.totals[alg] * 1e3
+        log("profiling", f"viewer {alg}: PhaseTimer {got:.1f} ms over "
+                         f"{timer.counts[alg]} frames, the frames' lines "
+                         f"{ms:.1f} ms")
+        assert timer.counts[alg] == sum(1 for a, _, _ in lines if a == alg)
+        assert abs(got - ms) <= TIMER_RTOL * ms, (alg, got, ms)
+    # a fence must wait for queued work: 20 float32 products of 4096^2
+    dev = cts.device
+    x = torch.randn(4096, 4096, device=dev) / 64.0
+    ms = cuda_ms(lambda: x @ x, 20)
+    probe = PhaseTimer()
+    torch.cuda.synchronize()
+    with probe.phase("matmuls") as h:
+        y = x
+        for _ in range(20):
+            y = x @ y
+        h["fence"] = (y, [{"y": y}])
+    got = probe.totals["matmuls"] * 1e3
+    log("profiling", f"fenced phase of 20 products {got:.2f} ms, their "
+                     f"device time {20 * ms:.2f} ms (CUDA events)")
+    assert got >= 0.9 * 20 * ms, (got, ms)
+    # a device trace of one brute-mode closest-hit call names K3's kernel
+    # (a window may come back with no device activity: taken again)
+    logdir = os.path.join(out_dir, "device_trace")
+    o = torch.zeros((1024, 3), device=dev)
+    d = torch.nn.functional.normalize(torch.randn(1024, 3, device=dev), dim=1)
+    for _ in range(PROFILER_WINDOWS):
+        with device_trace(logdir, dev) as prof:
+            trace_closest(cts, o, d, 1e-3, 1e16, False)
+        names = {ev.name for ev in prof.events()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA}
+        if names:
+            break
+    with open(os.path.join(logdir, "trace.json")) as f:
+        trace = f.read()
+    k3 = sorted(nm for nm in names if "closest_kernel" in nm)
+    log("profiling", f"device_trace: device activities {sorted(names)}; "
+                     f"trace.json {len(trace)} bytes")
+    assert k3 and "closest_kernel" in trace, names
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -2684,6 +3061,12 @@ def main() -> int:
     sky_paths = write_sky_scenes(out_dir)
     phase_sky_cornell(out_dir, dev, sky_paths, plain_train)
     phase_sky_furnished(out_dir, dev, sky_paths)
+    parts_path, n_parts, parts_launches = phase_parts(out_dir, dev)
+    phase_bvh(ts, cam, dev)
+    phase_waves(cts, ccam, dev)
+    timer, frame_lines = phase_viewer(out_dir, dev, trained_path, parts_path,
+                                      n_parts)
+    phase_profiling(out_dir, cts, timer, frame_lines)
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     sources = {"walk_closest": "ray_walk.cu", "walk_any": "ray_walk.cu",
@@ -2708,6 +3091,9 @@ def main() -> int:
                 "list_walk_closest_stream": "spcbpt_tpu/ops/pallas_walk.py:97",
                 "list_walk_any": "spcbpt_tpu/ops/pallas_walk.py:207",
                 "list_walk_any_stream": "spcbpt_tpu/ops/pallas_walk.py:235"}
+    # K1/K2 also carry their launches on the partitioned render
+    for k in ("walk_closest", "walk_any"):
+        numbers[k]["parts_launches"] = parts_launches[k]
     kernels = [dict(name=k, route="cuda",
                     source=f"spcbpt_tpu_torch/csrc/{sources[k]}",
                     replaces=replaces[k], launches=launches[k], **numbers[k])

@@ -37,6 +37,7 @@ import torch
 
 from ..kernels import list_walk as kernels
 from ..ops import bsdf, bvh, pallas_walk, tile_trace
+from ..ops.clusters import ClusterSet
 from ..render.common import camera_rays
 from ..scene.scene import load_trace_scene, local_geometry
 from ..utils import rng
@@ -83,6 +84,9 @@ def _scenes(scale: int, dev, root: str):
     tts, _, cam = load_trace_scene(path, dev, mode="tile")
     route = bvh.BUILD_ROUTE
     wts, _, _ = load_trace_scene(path, dev, mode="walk")
+    if not isinstance(wts.clusters_walk, ClusterSet):
+        raise SystemExit(f"interior scale {scale}: its walk set is split "
+                         f"into parts; the list walk takes one set")
     # one BVH over one triangle order: both sets index the same triangles
     assert torch.equal(tts.tri_p0, wts.tri_p0), "cluster sets disagree"
     return tts, wts, cam, route

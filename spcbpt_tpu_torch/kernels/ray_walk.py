@@ -19,8 +19,24 @@ from . import build
 
 ROW = 8
 BLOCK_RAYS = 64            # 8 rows, one warp each
+WARPS = BLOCK_RAYS // ROW
+GROUP = 8                  # clusters per group box of the entry phase
 MAX_SHARED = 232_448       # dynamic shared memory a Hopper block can take
 LAUNCHES = {"walk_closest": 0, "walk_any": 0}
+
+
+def shared_bytes(c: int) -> int:
+    """Python copy of csrc/ray_walk.cu's shared_bytes (the CPU has no
+    kernel library; chip_smoke.py holds it to ray_walk_shared_bytes): 32
+    bytes a cluster box and a group box, and per warp a list of C (entry,
+    id) pairs and the groups in reach."""
+    g = -(-c // GROUP)
+    return 32 * (c + g) + WARPS * (8 * c + 4 * g)
+
+
+# the most clusters one K1/K2 block holds: the cap of a cluster set's part
+MAX_CLUSTERS = max(c for c in range(1, MAX_SHARED // 32)
+                   if shared_bytes(c) <= MAX_SHARED)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -11,8 +11,11 @@ sets, as the JAX scene builds them:
     the raw (C, 16, 128) triangle blocks that kernels K4/K5 read.
 The list walk (ops/pallas_walk.py, kernel K6) takes either set and reads
 its (C, 16, 128) blocks on the device (`blocks()`).
-One cluster set takes a scene of any size: the JAX package's partitioning
-exists only for the TPU's VMEM.
+A large scene's row-walk set is split into `ClusterParts`
+(`build_cluster_parts`): contiguous ranges of the whole set's clusters, cut
+by JAX's rule (at most `part_max_tris` triangles a part) and by the
+clusters one K1/K2 block holds in shared memory (`MAX_CLUSTERS`); the
+row walk walks the parts in turn (ops/ray_walk.walk_closest_parts).
 
 The coefficient trick (`pack_coefficients`): for a triangle (p0, e1, e2)
 with n = e1 x e2, the Moller-Trumbore numerators and determinant are linear
@@ -31,6 +34,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..kernels.ray_walk import MAX_CLUSTERS
 from .bvh import FlatBVH
 
 SLOTS = 128   # triangle slots per cluster
@@ -108,6 +112,43 @@ class ClusterSet:
                    tri_count=t(count, torch.int32),
                    tri_slots=t(slots.reshape(c, SLOTS, 12)),
                    tri_block=tri_block)
+
+
+@dataclasses.dataclass
+class ClusterParts:
+    """A row-walk set split into parts: `parts[i]` is the ClusterSet of the
+    whole set's clusters bounds[i][0]:bounds[i][1], its tensors views of the
+    whole set's (tri_begin stays the global triangle id)."""
+    whole: ClusterSet
+    bounds: tuple            # ((first cluster, end), ...) per part
+    parts: tuple             # ClusterSet per part
+
+    @classmethod
+    def split(cls, whole: ClusterSet, bounds) -> "ClusterParts":
+        def part(a, b):
+            return ClusterSet(
+                cmin=whole.cmin[a:b], cmax=whole.cmax[a:b],
+                tri_begin=whole.tri_begin[a:b],
+                tri_count=whole.tri_count[a:b],
+                tri_slots=whole.tri_slots[a:b],
+                tri_block=whole.tri_block[a:b])
+        bounds = tuple((int(a), int(b)) for a, b in bounds)
+        return cls(whole=whole, bounds=bounds,
+                   parts=tuple(part(a, b) for a, b in bounds))
+
+    # the boxes of all parts (the coherence sort's bounds)
+    @property
+    def cmin(self) -> torch.Tensor:
+        return self.whole.cmin
+
+    @property
+    def cmax(self) -> torch.Tensor:
+        return self.whole.cmax
+
+    @property
+    def num_clusters(self) -> int:
+        """Clusters of all parts."""
+        return self.whole.num_clusters
 
 
 @dataclasses.dataclass
@@ -243,6 +284,41 @@ def build_clusters(flat: FlatBVH, p0: np.ndarray, e1: np.ndarray,
                                             with_coeff=False)
     return ClusterSet.from_arrays(cmin, cmax, tri_block, begin, len(p0),
                                   device)
+
+
+def part_bounds(begin, end, part_max_tris: int,
+                max_clusters: int = MAX_CLUSTERS) -> list:
+    """Cut consecutive clusters, triangles begin[i]:end[i], into ranges:
+    JAX's rule (a new part wherever a cluster would end more than
+    part_max_tris triangles past its part's first triangle), and at most
+    max_clusters clusters a part (what one K1/K2 block holds in shared
+    memory). Returns [(first cluster, end), ...]."""
+    bounds, first = [], 0
+    base = int(begin[0]) if len(begin) else 0
+    for i, (lo, hi) in enumerate(zip(begin.tolist(), end.tolist())):
+        if i > first and (hi - base > part_max_tris
+                          or i - first >= max_clusters):
+            bounds.append((first, i))
+            first, base = i, lo
+    bounds.append((first, len(begin)))
+    return bounds
+
+
+def build_cluster_parts(flat: FlatBVH, p0, e1, e2, max_tris: int = SLOTS,
+                        part_max_tris: int = 120_000,
+                        max_clusters: int = MAX_CLUSTERS,
+                        device="cpu") -> ClusterParts:
+    """The row walk's set of a large scene (JAX's build_cluster_parts): the
+    BVH cut once into clusters of at most max_tris triangles, then split by
+    `part_bounds`. Where max_clusters does not bind, the parts are JAX's,
+    whose tri_begin is local to the part (add JAX's tri_base)."""
+    cmin, cmax, tri_block, begin, _ = _pack(flat, p0, e1, e2, max_tris,
+                                            with_coeff=False)
+    whole = ClusterSet.from_arrays(cmin, cmax, tri_block, begin, len(p0),
+                                   device)
+    end = np.append(begin[1:], len(p0))
+    return ClusterParts.split(whole, part_bounds(begin, end, part_max_tris,
+                                                 max_clusters))
 
 
 def build_tile_clusters(flat: FlatBVH, p0: np.ndarray, e1: np.ndarray,

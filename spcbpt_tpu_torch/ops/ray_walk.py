@@ -17,13 +17,18 @@ The walk itself runs where its tensors live:
     ray_walk.py:98-227) that reproduces their triangle ids and tie-breaks.
     The card checks the kernels against it (`walk_closest_plain` /
     `walk_any_plain` run it on any device).
+A large scene's parts (ops/clusters.ClusterParts) are walked by
+`walk_closest_parts` / `walk_any_parts`, as JAX's functions of those
+names: one sort over the boxes of all parts and one padding, then the parts
+in turn, each a K1/K2 launch on the card (`*_parts_plain` take the plain
+rows).
 """
 from __future__ import annotations
 
 import torch
 
 from ..kernels import ray_walk as kernels
-from .clusters import SLOTS, ClusterSet, log_visits
+from .clusters import SLOTS, ClusterParts, ClusterSet, log_visits
 from .intersect import Hit
 from .tile_trace import _as_lanes, _hit, _pad_rays, sort_rays_live, unsort
 
@@ -196,13 +201,50 @@ def _any_rows(cs, o, d, tmn, tmx):
                            cs.tri_slots)
 
 
+def closest_parts_rows(parts: ClusterParts, o, d, tmn, tmx, cull,
+                       rows_fn=_closest_rows):
+    """Closest hits over the parts in turn on prepared rays: each part's
+    walk takes tmax tightened by the best t so far, and a later part wins
+    only with a strictly smaller t -> (t, tri, u, v)."""
+    best = None
+    for cs in parts.parts:
+        cur = tmx if best is None else torch.minimum(tmx, best[0])
+        out = rows_fn(cs, o, d, tmn, cur, cull)
+        if best is None:
+            best = out
+        else:
+            better = out[0] < best[0]
+            best = tuple(torch.where(better, a, b) for a, b in zip(out, best))
+    return best
+
+
+def any_parts_rows(parts: ClusterParts, o, d, tmn, tmx, rows_fn=_any_rows):
+    """Occlusion over the parts in turn on prepared rays: rays already
+    occluded walk no later part (tmax -1) -> int32 flags."""
+    occ = None
+    for cs in parts.parts:
+        cur = tmx if occ is None else torch.where(occ > 0, -1.0, tmx)
+        flags = rows_fn(cs, o, d, tmn, cur)
+        occ = flags if occ is None else occ | flags
+    return occ
+
+
+def _closest_parts_plain(parts, o, d, tmn, tmx, cull):
+    return closest_parts_rows(parts, o, d, tmn, tmx, cull, closest_rows_plain)
+
+
+def _any_parts_plain(parts, o, d, tmn, tmx):
+    return any_parts_rows(parts, o, d, tmn, tmx, any_rows_plain)
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
 
 def prepare(cs, origins, dirs, tmin, tmax, sort_rays):
-    """Sort (optional) and pad: the rays of the row walk as the wrappers
-    give them to either route. Returns the padded contiguous (origins, dirs,
+    """Sort (optional; by the boxes of `cs`, a set or all of a set's
+    parts) and pad: the rays of the row walk as the wrappers give them to
+    either route. Returns the padded contiguous (origins, dirs,
     tmin, tmax), the original count and the sort permutation (None without
     sort)."""
     n = origins.shape[0]
@@ -260,3 +302,34 @@ def walk_any_plain(cs: ClusterSet, origins, dirs, tmin, tmax,
                    sort_rays: bool = False):
     """walk_any through the plain version on any device."""
     return _any(cs, origins, dirs, tmin, tmax, sort_rays, any_rows_plain)
+
+
+def walk_closest_parts(parts: ClusterParts, origins, dirs, tmin, tmax,
+                       cull_backface: bool = True,
+                       sort_rays: bool = False) -> Hit:
+    """Closest-hit traversal over a large scene's parts: K1 once per part
+    on the card, its plain version on CPU."""
+    return _closest(parts, origins, dirs, tmin, tmax, cull_backface,
+                    sort_rays, closest_parts_rows)
+
+
+def walk_any_parts(parts: ClusterParts, origins, dirs, tmin, tmax,
+                   sort_rays: bool = False):
+    """Any-hit traversal over a large scene's parts: K2 once per part on
+    the card, its plain version on CPU."""
+    return _any(parts, origins, dirs, tmin, tmax, sort_rays, any_parts_rows)
+
+
+def walk_closest_parts_plain(parts: ClusterParts, origins, dirs, tmin, tmax,
+                             cull_backface: bool = True,
+                             sort_rays: bool = False) -> Hit:
+    """walk_closest_parts through the plain version on any device."""
+    return _closest(parts, origins, dirs, tmin, tmax, cull_backface,
+                    sort_rays, _closest_parts_plain)
+
+
+def walk_any_parts_plain(parts: ClusterParts, origins, dirs, tmin, tmax,
+                         sort_rays: bool = False):
+    """walk_any_parts through the plain version on any device."""
+    return _any(parts, origins, dirs, tmin, tmax, sort_rays,
+                _any_parts_plain)

@@ -5,9 +5,12 @@ numpy exactly as the JAX package does (triangle order, material table,
 quad lights, texture stack, cluster packing) and places the result on a
 given device; `from_jax_scene` carries a JAX TraceScene over, array by
 array. Traversal modes: `brute` (ops/brute_trace, kernel K3 on the
-card), `walk` (ops/ray_walk, kernels K1/K2 on the card) and `tile`
-(ops/tile_trace and ops/pallas_tile, kernels K4/K5 on the card; chosen
-explicitly, as in JAX); the `bvh` mode is not ported yet. A scene with an
+card), `walk` (ops/ray_walk, kernels K1/K2 on the card; above
+WALK_MAX_TRIS triangles, or above the clusters one K1/K2 block holds, its
+cluster set is split into parts, walked in turn), `tile` (ops/tile_trace
+and ops/pallas_tile, kernels K4/K5 on the card) and `bvh` (ops/traverse,
+plain torch on either device); `tile` and `bvh` are taken only by name, as
+in JAX's builds for an accelerator. A scene with an
 `env_file` loads its HDR sky (scene/hdr.py) and builds an EnvMap
 (scene/envmap.py) around the scene's bounds, with its `Direction` lights
 baked into the raster; the sky is one more light of the uniform pick.
@@ -16,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -24,7 +27,8 @@ import torch
 from ..config import NUM_SUBSPACE_LIGHTSOURCE
 from ..ops import bvh as bvh_mod
 from ..ops import clusters as clusters_mod
-from ..ops import brute_trace, intersect, pallas_tile, ray_walk, tile_trace
+from ..ops import (brute_trace, intersect, pallas_tile, ray_walk, tile_trace,
+                   traverse)
 from ..utils import vec
 from . import obj as obj_mod
 from .camera import Camera
@@ -43,6 +47,9 @@ BRUTE_FORCE_MAX_TRIS_CUDA = 512
 # TILE_LANES)
 CLUSTER_TRI_K = 32
 TILE_LANES = 256
+# the row walk's set is split into parts of at most this many triangles
+# (the JAX scene's WALK_MAX_TRIS)
+WALK_MAX_TRIS = 120_000
 TARGET_DIAG = 10.0  # normalized scene bbox diagonal (house-like units)
 
 
@@ -106,10 +113,18 @@ class TraceScene:
     tex_w: torch.Tensor       # (NT,) int32
     lights: QuadLights
     env: EnvMap               # the sky (dummy_envmap() without one)
+    # the skip-link BVH (every mode; the `bvh` mode walks it)
+    bvh_min: torch.Tensor     # (nodes, 3)
+    bvh_max: torch.Tensor     # (nodes, 3)
+    bvh_skip: torch.Tensor    # (nodes,) int32
+    bvh_leaf_start: torch.Tensor  # (nodes,) int32, -1 off a leaf
+    bvh_leaf_count: torch.Tensor  # (nodes,) int32
     # K=32 cluster set of the tile walk (mode "tile"; None otherwise)
     clusters: Optional[clusters_mod.TileClusterSet] = None
-    # K=128 cluster set of the row walk (mode "walk"; None otherwise)
-    clusters_walk: Optional[clusters_mod.ClusterSet] = None
+    # K=128 cluster set of the row walk, or its parts (mode "walk"; None
+    # otherwise)
+    clusters_walk: Optional[Union[clusters_mod.ClusterSet,
+                                  clusters_mod.ClusterParts]] = None
     num_lights: int = 0       # quads + 1 with a sky
     num_quad_lights: int = 0
     has_env: bool = False
@@ -134,6 +149,11 @@ class TraceScene:
 # default; no caller with presorted rays is ported yet.
 
 
+def _bvh(ts: TraceScene) -> tuple:
+    return (ts.bvh_min, ts.bvh_max, ts.bvh_skip, ts.bvh_leaf_start,
+            ts.bvh_leaf_count)
+
+
 def trace_closest(ts: TraceScene, origins, dirs, tmin, tmax,
                   cull_backface: bool = True) -> intersect.Hit:
     if ts.mode == "brute":
@@ -150,8 +170,16 @@ def trace_closest(ts: TraceScene, origins, dirs, tmin, tmax,
             ts.clusters, origins, dirs, tmin, tmax, cull_backface,
             tile=TILE_LANES, use_kernel=origins.device.type != "cpu",
             sort_rays=True)
-    return ray_walk.walk_closest(ts.clusters_walk, origins, dirs, tmin, tmax,
-                                 cull_backface, sort_rays=True)
+    if ts.mode == "walk":
+        if isinstance(ts.clusters_walk, clusters_mod.ClusterParts):
+            return ray_walk.walk_closest_parts(ts.clusters_walk, origins,
+                                               dirs, tmin, tmax,
+                                               cull_backface, sort_rays=True)
+        return ray_walk.walk_closest(ts.clusters_walk, origins, dirs, tmin,
+                                     tmax, cull_backface, sort_rays=True)
+    return traverse.bvh_closest(origins, dirs, tmin, tmax, *_bvh(ts),
+                                ts.tri_p0, ts.tri_e1, ts.tri_e2,
+                                cull_backface)
 
 
 def trace_any(ts: TraceScene, origins, dirs, tmin, tmax):
@@ -168,8 +196,14 @@ def trace_any(ts: TraceScene, origins, dirs, tmin, tmax):
                                           tmax, sort_rays=True)
         return tile_trace.tile_any(ts.clusters, origins, dirs, tmin, tmax,
                                    tile=TILE_LANES, sort_rays=True)
-    return ray_walk.walk_any(ts.clusters_walk, origins, dirs, tmin, tmax,
-                             sort_rays=True)
+    if ts.mode == "walk":
+        if isinstance(ts.clusters_walk, clusters_mod.ClusterParts):
+            return ray_walk.walk_any_parts(ts.clusters_walk, origins, dirs,
+                                           tmin, tmax, sort_rays=True)
+        return ray_walk.walk_any(ts.clusters_walk, origins, dirs, tmin, tmax,
+                                 sort_rays=True)
+    return traverse.bvh_any(origins, dirs, tmin, tmax, *_bvh(ts), ts.tri_p0,
+                            ts.tri_e1, ts.tri_e2)
 
 
 def visibility(ts: TraceScene, pos_a, pos_b, eps: float = 1e-3, mask=None):
@@ -301,8 +335,8 @@ def select_mode(num_tris: int, device) -> str:
 
 
 def _check_mode(mode: str) -> None:
-    if mode not in ("brute", "walk", "tile"):
-        raise NotImplementedError(f"traversal mode '{mode}' is not ported yet")
+    if mode not in ("brute", "walk", "tile", "bvh"):
+        raise ValueError(f"unknown traversal mode '{mode}'")
 
 
 def build_scene(desc: SceneDesc, device, data_dir: Optional[str] = None,
@@ -467,9 +501,13 @@ def build_scene(desc: SceneDesc, device, data_dir: Optional[str] = None,
             flat, p0[order], e1[order], e2[order], max_tris=CLUSTER_TRI_K,
             device=device)
     elif mode == "walk":
-        cset_walk = clusters_mod.build_clusters(
+        # one part (the whole set) unless the scene is above WALK_MAX_TRIS
+        # or above the clusters one K1/K2 block holds
+        cset_walk = clusters_mod.build_cluster_parts(
             flat, p0[order], e1[order], e2[order], max_tris=128,
-            device=device)
+            part_max_tris=WALK_MAX_TRIS, device=device)
+        if len(cset_walk.parts) == 1:
+            cset_walk = cset_walk.whole
 
     def dev(x, dt=torch.float32):
         return torch.tensor(np.asarray(x), dtype=dt, device=device)
@@ -484,6 +522,10 @@ def build_scene(desc: SceneDesc, device, data_dir: Optional[str] = None,
         tex_h=dev(tex_hw[:, 0], torch.int32),
         tex_w=dev(tex_hw[:, 1], torch.int32),
         lights=_tensors_of(QuadLights, lights, device), env=env,
+        bvh_min=dev(flat.bounds_min), bvh_max=dev(flat.bounds_max),
+        bvh_skip=dev(flat.skip, torch.int32),
+        bvh_leaf_start=dev(flat.leaf_start, torch.int32),
+        bvh_leaf_count=dev(flat.leaf_count, torch.int32),
         clusters=cset, clusters_walk=cset_walk,
         num_lights=L + (1 if has_env else 0), num_quad_lights=L,
         has_env=has_env, mode=mode,
@@ -506,9 +548,10 @@ def load_trace_scene(scene_path: str, device, mode: Optional[str] = None):
 
 def from_jax_scene(jts, device) -> TraceScene:
     """The port's TraceScene from a JAX spcbpt_tpu TraceScene, whose arrays
-    are read as numpy (no jax import here). Modes brute, walk and tile;
-    the walk takes one cluster set. The sky (or the dummy map) comes
-    across with the rest."""
+    are read as numpy (no jax import here). Every mode; a walk set split
+    into parts (JAX's tuple) comes across as ClusterParts with global
+    triangle ids. The sky (or the dummy map) and the BVH come across with
+    the rest."""
     _check_mode(jts.mode)
     a = np.asarray
     cset = cset_walk = None
@@ -519,12 +562,16 @@ def from_jax_scene(jts, device) -> TraceScene:
             c.tri_k, device)
     elif jts.mode == "walk":
         cw = jts.clusters_walk
-        if isinstance(cw, tuple):
-            raise NotImplementedError("partitioned cluster sets are not "
-                                      "ported: the port walks one set")
+        parts = cw if isinstance(cw, tuple) else (cw,)
+        cat = lambda f: np.concatenate([a(getattr(p, f)) for p in parts])
+        begin = np.concatenate([a(p.tri_begin) + p.tri_base for p in parts])
         cset_walk = clusters_mod.ClusterSet.from_arrays(
-            a(cw.cmin), a(cw.cmax), a(cw.tri_block), a(cw.tri_begin),
+            cat("cmin"), cat("cmax"), cat("tri_block"), begin,
             jts.tri_p0.shape[0], device)
+        if isinstance(cw, tuple):
+            ends = np.cumsum([p.num_clusters for p in parts])
+            cset_walk = clusters_mod.ClusterParts.split(
+                cset_walk, zip(np.append(0, ends[:-1]), ends))
 
     def dev(x, dt=torch.float32):
         return torch.tensor(a(x), dtype=dt, device=device)
@@ -543,6 +590,10 @@ def from_jax_scene(jts, device) -> TraceScene:
         env=envmap_from_arrays(a(jts.env.tex), a(jts.env.cmf),
                                a(jts.env.center), a(jts.env.r),
                                a(jts.env.valid), device),
+        bvh_min=dev(jts.bvh_min), bvh_max=dev(jts.bvh_max),
+        bvh_skip=dev(jts.bvh_skip, torch.int32),
+        bvh_leaf_start=dev(jts.bvh_leaf_start, torch.int32),
+        bvh_leaf_count=dev(jts.bvh_leaf_count, torch.int32),
         clusters=cset, clusters_walk=cset_walk,
         num_lights=jts.num_lights, num_quad_lights=jts.num_quad_lights,
         has_env=bool(jts.has_env), mode=jts.mode,

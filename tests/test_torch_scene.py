@@ -24,7 +24,8 @@ from sky_scene import write_sky_floor
 torch.set_num_threads(1)
 
 _GEOM = ("tri_p0", "tri_e1", "tri_e2", "tri_n", "tri_uv", "tri_mat",
-         "tri_light", "textures", "tex_h", "tex_w")
+         "tri_light", "textures", "tex_h", "tex_w", "bvh_min", "bvh_max",
+         "bvh_skip", "bvh_leaf_start", "bvh_leaf_count")
 _CLUSTERS = ("cmin", "cmax", "tri_block", "tri_begin")
 
 
@@ -99,9 +100,14 @@ def test_mode_selection():
 
 
 def test_unported_modes_raise(scenes):
+    """An unknown mode name raises; `bvh` builds, its arrays JAX's."""
     _, _, path = scenes["cornell"]
-    with pytest.raises(NotImplementedError):
-        tscene.build_scene(load_scene(path), "cpu", mode="bvh")
+    with pytest.raises(ValueError):
+        tscene.build_scene(load_scene(path), "cpu", mode="kd-tree")
+    ts = tscene.build_scene(load_scene(path), "cpu", mode="bvh")
+    jts = jscene.build_scene(load_scene(path), mode="bvh")
+    assert ts.mode == "bvh"
+    _assert_scene_equal(ts, jts)
 
 
 def test_envmap_raises(scenes, tmp_path):
