@@ -163,7 +163,19 @@ Phases, one status line each; any failure raises and exits non-zero:
      frames, through K1/K2 over its parts;
  26. utils/profiling on the card: the viewer session's PhaseTimer within
      TIMER_RTOL of its frame lines, a fenced phase at least the device time
-     of the work it queued, and device_trace's Chrome trace naming K3.
+     of the work it queued, and device_trace's Chrome trace naming K3 (in
+     a process of its own);
+ 27. the traversal benchmark (apps/bench.main at its defaults, in this
+     process): its three JSON lines, every key of BENCH_KEYS, nothing
+     skipped, camera hits at least bench.HIT_SHARE, the subdivided
+     interiors in BENCH_PARTS parts, K4's walk, K1 and K2 launched; then K4
+     alone at the metric's K = 16 (2,640 clusters) on its 512x512 camera
+     wavefront, torch.equal to its plain version, its rounds the plain
+     walk's visits, alone and called, bounded by the plain walk's visits;
+ 28. apps/time_frames at its defaults (the interior 512x512: PT depth 12,
+     uniform BDPT at 16,384 and 65,536 light paths): its card line and
+     three timing lines, every frame one finite sample a pixel, K1 and K2
+     launched.
 Each render phase sets every launch counter to 0 just before it renders and
 reads them just after (the profiler's counters start at 0 in its own
 process and are read from its last line); the CLI renders' PNG, HDR and
@@ -174,7 +186,9 @@ forms and K5 closest, which test fewer pairs than their plain version,
 take the bound of their own tests (their groups' optional rounds output)
 and K4's single round that of its live lanes, each carrying the plain
 version's beside it as plain_bound_ms; K1's and K2's rows carry their
-launches on phase 22's partitioned render as parts_launches;
+launches on phase 22's partitioned render as parts_launches, on
+the bench as bench_launches and on time_frames as time_frames_launches,
+K4's walk its K = 16 row of phase 27 as `bench`;
 K3's rows bound the live work of their inputs stage by stage and carry
 every lane against every triangle as plain_bound_ms, and the shares of
 live pairs failing at det, at u and at v; every row gives the kernel alone
@@ -185,6 +199,8 @@ and the single round's rows their first form alone as first_form_ms), and
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import re
@@ -339,6 +355,13 @@ VIEWER_KEYS = "xxx " + "xxx " + "xxx" + "wcq"
 VIEWER_FRAMES = 20       # a bound on the session; 'q' ends it after 14
 VIEWER_PARTS_FRAMES = 3
 TIMER_RTOL = 0.1         # PhaseTimer per frame vs the frame's own line
+# apps/bench's final line: the keys it must hold, and the part counts of its
+# two subdivided interiors (130,304 and 521,216 triangles)
+BENCH_KEYS = ("metric", "value", "unit", "backend", "device", "tile",
+              "kernel", "wavefront", "hits", "skipped", "mrays_512",
+              "secondary_mrays_walk", "mrays_parts_130k_p2",
+              "mrays_parts_521k_p5", "pt_ms_per_spp_512", "bench_seconds")
+BENCH_PARTS = (2, 5)
 
 
 _T0 = time.perf_counter()
@@ -349,10 +372,8 @@ def log(phase: str, msg: str) -> None:
 
 
 def nvidia_smi_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
+    from spcbpt_tpu_torch.utils.profiling import nvidia_smi_line as line
+    return line()
 
 
 def phase_environment() -> str:
@@ -472,6 +493,16 @@ def bound(tests: int, nbytes: int, slab_tests: int = 0,
     return dict(bound_ms=max(ops_ms, bytes_ms),
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                 library_ms=None)
+
+
+def k4_walk_bound(tests: int, tile_visits: int, tris_seen: int, tiles: int,
+                  lanes: int, clusters: int) -> dict:
+    """bound() of K4's whole walk: the plain walk's `tests` and its
+    `tile_visits`; bytes: the rays, the visit order it reads (one entry and
+    id per visit and the stopping one per tile), a round count per tile,
+    tri_begin and tri_count, the visited clusters' triangles, the hits."""
+    return bound(tests, lanes * (RAY_BYTES + 16) + (tile_visits + tiles) * 8
+                 + tiles * 4 + clusters * 8 + tris_seen * TRI_BYTES)
 
 
 def slab_tests(row_e, live) -> int:
@@ -1800,20 +1831,17 @@ def phase_tile_kernels(tts, wts, waves, dev, first_forms) -> dict:
                     f"(sort + prepare + walk + unsort) {walk4:.3f} ms")
         k4w, k4_ms, k5c, k5a = (alone[k] for k in calls)
         c4w, c4_ms, c5c, c5a = (call[k] for k in calls)
-        # bytes: rays (K4: the visit order it reads, one entry and id per
-        # round and the stopping one per tile, a round count per tile,
-        # tri_begin and tri_count; K5: the cluster boxes, and tri_begin for
-        # the closest hit or tri_count for the any hit), the visited
-        # clusters' triangles, hits or flags
+        # K5's bytes: rays, the cluster boxes, and tri_begin for the
+        # closest hit or tri_count for the any hit, the visited clusters'
+        # triangles, hits or flags
         nq, c, nt4 = qo.shape[0], cs.num_clusters, o_t.shape[0]
         lanes = nt4 * o_t.shape[1]
         if name.startswith("bounce"):
             t4, tri4, v4 = visits(plain_walk, sizes)
             r4, trir, _ = visits(lambda: round_p(False), sizes)
-            results["tile_round_walk"].update(ms=k4w, call_ms=c4w,
-                                              plain_ms=walk4_p, **bound(
-                t4, lanes * (RAY_BYTES + 16) + (v4 + nt4) * 8 + nt4 * 4
-                + c * 8 + tri4 * TRI_BYTES))
+            results["tile_round_walk"].update(
+                ms=k4w, call_ms=c4w, plain_ms=walk4_p,
+                **k4_walk_bound(t4, v4, tri4, nt4, lanes, c))
             # the round: the plain version's tests (every lane of a running
             # tile) as plain_bound_ms; the kernel's own work as bound_ms:
             # the live lanes of running tiles against their cluster's
@@ -2952,12 +2980,36 @@ def phase_viewer(out_dir: str, dev, state_path: str, parts_path: str,
     return timer, lines
 
 
+def device_trace_names(logdir: str) -> list:
+    """The device activities in utils/profiling.device_trace's window (its
+    Chrome trace written to logdir) over one brute-mode trace_closest call
+    on Cornell after a warm one; a window with no device activity is taken
+    again, up to PROFILER_WINDOWS times."""
+    from spcbpt_tpu_torch.apps.render_cli import resolve_scene
+    from spcbpt_tpu_torch.scene.scene import load_trace_scene, trace_closest
+    from spcbpt_tpu_torch.utils.profiling import device_trace
+
+    dev = torch.device("cuda", 0)
+    cts, _, _ = load_trace_scene(resolve_scene("cornell"), dev)
+    o = torch.zeros((1024, 3), device=dev)
+    d = torch.nn.functional.normalize(torch.randn(1024, 3, device=dev), dim=1)
+    trace_closest(cts, o, d, 1e-3, 1e16, False)
+    for _ in range(PROFILER_WINDOWS):
+        with device_trace(logdir, dev) as prof:
+            trace_closest(cts, o, d, 1e-3, 1e16, False)
+        names = sorted({ev.name for ev in prof.events()
+                        if ev.device_type == torch.autograd.DeviceType.CUDA})
+        if names:
+            break
+    return names
+
+
 def phase_profiling(out_dir: str, cts, timer, lines) -> None:
     """utils/profiling on the card: the viewer's PhaseTimer against its own
     frame lines (TIMER_RTOL), the fence holding a timer until queued device
-    work ends, and device_trace naming a K3 launch of a brute-mode trace."""
-    from spcbpt_tpu_torch.scene.scene import trace_closest
-    from spcbpt_tpu_torch.utils.profiling import PhaseTimer, device_trace
+    work ends, and device_trace naming a K3 launch of a brute-mode trace
+    (device_trace_names, in a process of its own)."""
+    from spcbpt_tpu_torch.utils.profiling import PhaseTimer
 
     for alg in ("pt", "bdpt", "spcbpt"):
         ms = sum(m for a, _, m in lines if a == alg)
@@ -2982,24 +3034,150 @@ def phase_profiling(out_dir: str, cts, timer, lines) -> None:
     log("profiling", f"fenced phase of 20 products {got:.2f} ms, their "
                      f"device time {20 * ms:.2f} ms (CUDA events)")
     assert got >= 0.9 * 20 * ms, (got, ms)
-    # a device trace of one brute-mode closest-hit call names K3's kernel
-    # (a window may come back with no device activity: taken again)
+    # a device trace of one brute-mode closest-hit call names K3's kernel;
+    # taken in a process of its own: late in this one (after the NCCL
+    # world of phase 21) every window once came back with no device
+    # activity at all
     logdir = os.path.join(out_dir, "device_trace")
-    o = torch.zeros((1024, 3), device=dev)
-    d = torch.nn.functional.normalize(torch.randn(1024, 3, device=dev), dim=1)
-    for _ in range(PROFILER_WINDOWS):
-        with device_trace(logdir, dev) as prof:
-            trace_closest(cts, o, d, 1e-3, 1e16, False)
-        names = {ev.name for ev in prof.events()
-                 if ev.device_type == torch.autograd.DeviceType.CUDA}
-        if names:
-            break
+    out = subprocess.run(
+        [sys.executable, "-c", "import json, chip_smoke; print(json.dumps("
+         f"chip_smoke.device_trace_names({logdir!r})))"],
+        cwd=REPO, capture_output=True, text=True, timeout=PROFILER_TIMEOUT,
+        env=dict(os.environ, PYTHONPATH=REPO))
+    assert out.returncode == 0, out.stderr[-4000:]
+    names = json.loads(out.stdout.splitlines()[-1])
     with open(os.path.join(logdir, "trace.json")) as f:
         trace = f.read()
     k3 = sorted(nm for nm in names if "closest_kernel" in nm)
-    log("profiling", f"device_trace: device activities {sorted(names)}; "
+    log("profiling", f"device_trace: device activities {names}; "
                      f"trace.json {len(trace)} bytes")
     assert k3 and "closest_kernel" in trace, names
+
+
+def run_captured(fn, tag: str):
+    """fn() with its standard output captured, then logged line by line
+    under `tag`; returns (fn's result, the lines)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn()
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(tag, line)
+    return result, lines
+
+
+def phase_bench(ts, cam, smi: str) -> tuple:
+    """The port's traversal benchmark (apps/bench.main at its defaults, in
+    this process, launch counters from 0): its three lines, every key
+    (BENCH_KEYS), nothing skipped, the hit share, the part counts
+    (BENCH_PARTS), K4, K1 and K2 launched; then K4 alone at the metric's
+    K = 16 on its 512x512 camera wavefront (frame 0, tiles of 256):
+    torch.equal to its plain version, its rounds the plain walk's visits,
+    alone (graph_ms) and called, bounded by the plain walk's visits.
+    Returns (the bench's launches, the K=16 row)."""
+    from spcbpt_tpu_torch.apps import bench
+    from spcbpt_tpu_torch.kernels import tile_walk as kernels
+    from spcbpt_tpu_torch.ops import clusters, pallas_tile, tile_trace
+
+    reset_launches()
+    rc, lines = run_captured(lambda: bench.main([]), "bench")
+    launches = read_launches()
+    out = [json.loads(line) for line in lines if line.startswith("{")]
+    assert rc == 0 and len(out) == 3, lines
+    final = out[-1]
+    missing = [k for k in BENCH_KEYS if k not in final]
+    assert not missing, missing
+    assert final["skipped"] == [], final["skipped"]
+    assert final["hits"] >= bench.HIT_SHARE, final["hits"]
+    assert final["tile"] == 256 and final["kernel"] == "tile_round_walk"
+    assert (out[0]["wavefront"], final["wavefront"]) == ("512x512",
+                                                         "1024x1024")
+    parts = sorted(int(k.rsplit("_p", 1)[1]) for k in final
+                   if k.startswith("mrays_parts_"))
+    assert tuple(parts) == BENCH_PARTS, parts
+    numbers = [final[k] for k in BENCH_KEYS if k.startswith(
+        ("value", "mrays_", "secondary_", "pt_"))]
+    assert all(np.isfinite(x) and x > 0 for x in numbers), final
+    for k in ("tile_round_walk", "walk_closest", "walk_any"):
+        assert launches[k] > 0, launches
+    log("bench", f"nvidia-smi: {smi}; launches {launches}")
+
+    cs = bench.tile_clusters(ts)
+    side = CAMERA_DIM
+    o, d = bench.camera_wavefront(cam, side, 0, 32, ts.device)
+    n = side * side
+    tmin = torch.full((n,), 1e-3, device=ts.device)
+    tmax = torch.full((n,), 1e16, device=ts.device)
+    sizes = clusters.cluster_sizes(cs, ts.num_tris)
+    tile_trace.ROUND_LOG = rounds = []
+    try:
+        k4 = tile_trace.tile_closest(cs, o, d, tmin, tmax, True,
+                                     tile=bench.TILE, use_kernel=True)
+    finally:
+        tile_trace.ROUND_LOG = None
+    p4 = []
+    tests, tris_seen, tile_visits = visits(
+        lambda: p4.append(tile_trace.tile_closest_plain(
+            cs, o, d, tmin, tmax, True, tile=bench.TILE)), sizes)
+    p4 = p4[0]
+    for f in ("tri", "t", "u", "v"):
+        assert torch.equal(getattr(k4, f), getattr(p4, f)), \
+            f"K4 walk at K={cs.tri_k}: {f} differs from plain"
+    assert int(rounds[0].sum()) == tile_visits, \
+        (int(rounds[0].sum()), tile_visits)
+    po, pd, ptn, ptx, _ = tile_trace._pad_rays(o, d, tmin, tmax, bench.TILE)
+    entries_s, ids_s, o_t, d_t, tmin_t, tmax_t, _, _ = tile_trace._prepare(
+        cs, po, pd, ptn, ptx, bench.TILE)
+    w_args = (o_t, d_t, tmin_t, tmax_t, entries_s, ids_s, cs.tri_block,
+              cs.tri_begin, cs.tri_count, cs.tri_k, True)
+    plain_walk = lambda: tile_trace._in_buckets(
+        lambda *a: tile_trace._round_walk(
+            *a, True, pallas_tile.mt_round_blocks_plain))(
+        cs, entries_s, ids_s, o_t, d_t, tmin_t, tmax_t)
+    row = dict(
+        k=cs.tri_k, clusters=cs.num_clusters, wavefront=f"camera{side}",
+        max_abs_err=(k4.t - p4.t).abs().max().item(),
+        ms=graph_ms(lambda: kernels.round_walk(*w_args)),
+        call_ms=cuda_ms(lambda: tile_trace.tile_closest(
+            cs, o, d, tmin, tmax, True, tile=bench.TILE, use_kernel=True),
+            10),
+        plain_ms=cuda_ms(plain_walk, 1),
+        launches=launches["tile_round_walk"],
+        **k4_walk_bound(tests, tile_visits, tris_seen, o_t.shape[0],
+                        o_t.shape[0] * o_t.shape[1], cs.num_clusters))
+    log("bench", f"K4 walk at K={cs.tri_k} ({cs.num_clusters} clusters) on "
+                 f"the camera {side}x{side} wavefront, tiles of "
+                 f"{bench.TILE}: equal to its plain version, rounds sum "
+                 f"{tile_visits} = the plain walk's visits ({tests} "
+                 f"ray-triangle tests); alone {row['ms']:.4f} ms, call "
+                 f"{row['call_ms']:.4f} ms, plain {row['plain_ms']:.1f} ms, "
+                 f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+                 f"hits {(k4.tri >= 0).float().mean().item():.4f}")
+    return launches, row
+
+
+def phase_time_frames(smi: str) -> dict:
+    """apps/time_frames at its defaults (the interior 512x512: PT depth 12,
+    uniform BDPT at 16,384 and 65,536 light paths; 4 timed frames each after
+    a warm one), in this process, launch counters from 0: every frame one
+    finite sample a pixel, K1 and K2 launched. Returns the launches."""
+    from spcbpt_tpu_torch.apps import time_frames
+
+    reset_launches()
+    frames, lines = run_captured(lambda: time_frames.run(
+        time_frames.build_argparser().parse_args([])), "time_frames")
+    launches = read_launches()
+    assert [f[0] for f in frames] == ["pt", "bdpt lp=16384",
+                                      "bdpt lp=65536"], lines
+    assert len(lines) == 4 and lines[0] == f"card: {smi}", lines
+    for label, _, (film, count) in frames:
+        assert torch.equal(count, torch.ones_like(count)), label
+        assert torch.isfinite(film).all() and film.mean().item() > 0, label
+    assert launches["walk_closest"] > 0 and launches["walk_any"] > 0, \
+        launches
+    log("time_frames", f"every frame one finite sample a pixel; launches "
+                       f"{launches}")
+    return launches
 
 
 def main() -> int:
@@ -3067,6 +3245,8 @@ def main() -> int:
     timer, frame_lines = phase_viewer(out_dir, dev, trained_path, parts_path,
                                       n_parts)
     phase_profiling(out_dir, cts, timer, frame_lines)
+    bench_launches, k16 = phase_bench(ts, cam, smi)
+    frames_launches = phase_time_frames(smi)
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     sources = {"walk_closest": "ray_walk.cu", "walk_any": "ray_walk.cu",
@@ -3091,9 +3271,13 @@ def main() -> int:
                 "list_walk_closest_stream": "spcbpt_tpu/ops/pallas_walk.py:97",
                 "list_walk_any": "spcbpt_tpu/ops/pallas_walk.py:207",
                 "list_walk_any_stream": "spcbpt_tpu/ops/pallas_walk.py:235"}
-    # K1/K2 also carry their launches on the partitioned render
+    # K1/K2 also carry their launches on the partitioned render, the bench
+    # and time_frames; K4's walk its bench row (K = 16, camera 512x512)
     for k in ("walk_closest", "walk_any"):
         numbers[k]["parts_launches"] = parts_launches[k]
+        numbers[k]["bench_launches"] = bench_launches[k]
+        numbers[k]["time_frames_launches"] = frames_launches[k]
+    numbers["tile_round_walk"]["bench"] = k16
     kernels = [dict(name=k, route="cuda",
                     source=f"spcbpt_tpu_torch/csrc/{sources[k]}",
                     replaces=replaces[k], launches=launches[k], **numbers[k])

@@ -24,7 +24,6 @@ from __future__ import annotations
 import argparse
 import collections
 import json
-import subprocess
 import sys
 import time
 
@@ -34,6 +33,7 @@ from ..kernels import ray_walk as kernels
 from ..kernels import tile_walk as tile_kernels
 from ..ops import pallas_tile, ray_walk, tile_trace
 from ..render import pt_pool
+from ..utils.profiling import nvidia_smi_line
 
 # (module, attribute, stage): the functions timed by stage_breakdown. Each is
 # looked up through its module at call time, so replacing the attribute
@@ -192,11 +192,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     render()
     torch.cuda.synchronize()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True).stdout
     out = {"card": torch.cuda.get_device_name(0),
-           "nvidia_smi": smi.strip().splitlines()[0], "scene": SCENE,
+           "nvidia_smi": nvidia_smi_line(), "scene": SCENE,
            "num_tris": ts.num_tris, "mode": ts.mode, "dim": DIM, "spp": SPP,
            "wall_ms": (time.perf_counter() - t0) * 1e3,
            "launches": dict(launch_mod.LAUNCHES),

@@ -91,6 +91,20 @@ def generate_interior(root: str, scale: int) -> str:
     return generate(root, scale=scale)
 
 
+def load_interior(scale: int, device):
+    """The procedural interior at `scale` (4: the builtin scene; others
+    generated in a temporary directory) on `device`, in the mode its size
+    picks: (TraceScene, Camera), the camera square."""
+    import tempfile
+    from ..scene.scene import load_trace_scene
+    with tempfile.TemporaryDirectory() as root:
+        path = (resolve_scene("interior") if scale == 4
+                else generate_interior(root, scale))
+        ts, _, cam = load_trace_scene(path, device)
+    cam.aspect = 1.0
+    return ts, cam
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)

@@ -91,14 +91,17 @@ class KeySource:
             return self.scripted.pop(0) if self.scripted else None
         if not self._raw:
             return None
-        r, _, _ = select.select([sys.stdin], [], [], 0)
+        # bytes straight from the tty: sys.stdin.read(1) would take every
+        # pending byte into its buffer, where select no longer sees them,
+        # losing the keys after the first of a burst and an arrow's "[A"
+        r, _, _ = select.select([self._fd], [], [], 0)
         if not r:
             return None
-        ch = sys.stdin.read(1)
+        ch = os.read(self._fd, 1).decode(errors="replace")
         if ch == ESC:                      # arrow keys: ESC [ A/B/C/D
-            r, _, _ = select.select([sys.stdin], [], [], 0.01)
+            r, _, _ = select.select([self._fd], [], [], 0.01)
             if r:
-                seq = sys.stdin.read(2)
+                seq = os.read(self._fd, 2).decode(errors="replace")
                 return {"[A": "UP", "[B": "DOWN",
                         "[C": "RIGHT", "[D": "LEFT"}.get(seq, ESC)
         return ch

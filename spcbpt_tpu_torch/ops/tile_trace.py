@@ -41,6 +41,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..kernels import tile_walk as kernels
@@ -63,6 +64,14 @@ ROUND_LOG: Optional[list] = None
 def reset_walk_stats() -> None:
     for k in WALK_STATS:
         WALK_STATS[k] = 0
+
+
+def block_order(width: int, height: int, bw: int = 8, bh: int = 8):
+    """Permutation turning row-major pixel lanes into bw x bh blocks
+    (numpy, host-side; apply as rays[perm], invert with argsort)."""
+    idx = np.arange(width * height).reshape(height, width)
+    return (idx.reshape(height // bh, bh, width // bw, bw)
+            .transpose(0, 2, 1, 3).reshape(-1))
 
 
 # ---------------------------------------------------------------------------

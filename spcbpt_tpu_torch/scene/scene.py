@@ -149,6 +149,18 @@ class TraceScene:
 # default; no caller with presorted rays is ported yet.
 
 
+def wavefront_key(ts: TraceScene, origins, dirs):
+    """Coherence sort key for a wavefront (tile_trace.ray_sort_key over the
+    active set's cluster boxes), or None when the traversal mode has no use
+    for sorted rays (brute/bvh). A walk set split into parts keys on the
+    boxes of all its parts in order, as JAX concatenates its tuple's."""
+    cs = ts.clusters_walk if ts.mode == "walk" else (
+        ts.clusters if ts.mode == "tile" else None)
+    if cs is None:
+        return None
+    return tile_trace.ray_sort_key(cs.cmin, cs.cmax, origins, dirs)
+
+
 def _bvh(ts: TraceScene) -> tuple:
     return (ts.bvh_min, ts.bvh_max, ts.bvh_skip, ts.bvh_leaf_start,
             ts.bvh_leaf_count)

@@ -69,3 +69,10 @@ def rel_mse(img, ref, eps: float = 1e-2, discard: float = 0.0) -> float:
         k = max(1, int(len(d) * (1.0 - discard)))
         d = np.partition(d, k - 1)[:k]
     return float(np.mean(d))
+
+
+def mape(img, ref, eps: float = 1e-2) -> float:
+    """Mean absolute percentage error against a reference image."""
+    img = np.asarray(img, np.float64)
+    ref = np.asarray(ref, np.float64)
+    return float(np.mean(np.abs(img - ref) / (ref + eps)))

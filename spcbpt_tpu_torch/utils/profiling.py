@@ -11,10 +11,21 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
+import subprocess
 import time
 from collections import defaultdict
 
 import torch
+
+
+def nvidia_smi_line() -> str:
+    """The first card's name and power limit, as `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` gives them: the
+    label of every time measured on it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
 
 
 def _cuda_devices(x, out: set) -> set:

@@ -40,6 +40,8 @@ def test_port_imports_without_jax():
     mods = _port_modules()
     assert "spcbpt_tpu_torch.ops.ray_walk" in mods
     assert "spcbpt_tpu_torch.apps.render_cli" in mods
+    assert "spcbpt_tpu_torch.apps.bench" in mods
+    assert "spcbpt_tpu_torch.apps.time_frames" in mods
     # modules present before the port is imported (a site hook may preload
     # some) are not the port's doing
     code = (

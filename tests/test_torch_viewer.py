@@ -1,7 +1,13 @@
 """The port's terminal viewer (apps/viewer.py) against the JAX package's:
 the camera moves and the ANSI frame on the same inputs, a scripted headless
 session on the CPU, and a PT-only session's film."""
+import contextlib
+import os
+import pty
+import signal
 import struct
+import sys
+import termios
 import zlib
 
 import numpy as np
@@ -116,3 +122,65 @@ def test_pt_session_matches_jax(monkeypatch, capsys):
     assert np.isfinite(a).all() and a.mean() > 0.01
     err = np.abs(a - b) / np.maximum(np.abs(b), 1e-30)
     assert (np.where(a == b, 0.0, err) <= 1e-4).all(axis=-1).mean() >= 0.99
+
+
+TTY_LIMIT_S = 120     # the interactive session's own time limit
+TTY_FRAMES = 30       # a bound on its frames: 5 keys end it after 5
+
+
+class _KeyTimer:
+    """A PhaseTimer stand-in (utils.profiling.PhaseTimer's interface) that
+    types `keys` into the pty's master at the first frame, once the viewer
+    has put the tty in cbreak mode (which flushes earlier input), and
+    records the tty's local flags at each frame."""
+
+    def __init__(self, master, slave, keys: bytes):
+        self.master, self.slave, self.keys = master, slave, keys
+        self.lflags = []
+
+    @contextlib.contextmanager
+    def phase(self, name):
+        self.lflags.append(termios.tcgetattr(self.slave)[3])
+        if len(self.lflags) == 1:
+            os.write(self.master, self.keys)
+        yield {}
+
+
+def _alarm(signum, frame):
+    raise TimeoutError(f"the tty session ran past {TTY_LIMIT_S} s")
+
+
+def test_interactive_tty_session(monkeypatch, capsys):
+    """The interactive loop (KeySource on a tty): stdin on a pty's slave,
+    keys typed into its master at once during the first frame: c (pose),
+    the up arrow (ESC [ A: orbit), c, Space (PT -> BDPT), q. The two poses differ, the frames
+    after Space are BDPT's, the loop ran in cbreak mode and the terminal's
+    settings are restored on exit."""
+    master, slave = pty.openpty()
+    saved = termios.tcgetattr(slave)
+    old = signal.signal(signal.SIGALRM, _alarm)
+    signal.alarm(TTY_LIMIT_S)
+    try:
+        with open(slave, "r", closefd=False) as stdin:
+            monkeypatch.setattr(sys, "stdin", stdin)
+            timer = _KeyTimer(master, slave, b"c\x1b[Ac q")
+            assert tviewer.main(["--scene", "cornell", "--dim", "16x16",
+                                 "--max-depth", "2", "--light-paths", "256",
+                                 "--frames", str(TTY_FRAMES), "--device",
+                                 "cpu"], timer=timer) == 0
+        restored = termios.tcgetattr(slave)
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, old)
+        os.close(master)
+        os.close(slave)
+    out = capsys.readouterr().out.splitlines()
+    poses = [l for l in out if l.startswith("[camera]")]
+    algs = [l.split("]")[0][1:] for l in out
+            if l.startswith(("[pt]", "[bdpt]", "[spcbpt]"))]
+    assert len(poses) == 2 and poses[0] != poses[1], poses
+    assert algs == ["pt"] * 4 + ["bdpt"], algs
+    assert all(not lf & termios.ICANON and not lf & termios.ECHO
+               for lf in timer.lflags), timer.lflags
+    assert saved[3] & termios.ICANON
+    assert restored == saved
