@@ -167,15 +167,33 @@ Phases, one status line each; any failure raises and exits non-zero:
      a process of its own);
  27. the traversal benchmark (apps/bench.main at its defaults, in this
      process): its three JSON lines, every key of BENCH_KEYS, nothing
-     skipped, camera hits at least bench.HIT_SHARE, the subdivided
-     interiors in BENCH_PARTS parts, K4's walk, K1 and K2 launched; then K4
-     alone at the metric's K = 16 (2,640 clusters) on its 512x512 camera
-     wavefront, torch.equal to its plain version, its rounds the plain
+     skipped, the frozen metric at tiles of BENCH_TILE, camera hits at
+     least bench.HIT_SHARE, the subdivided interiors in BENCH_PARTS parts,
+     K4's walk (on its 256- and 1,024-thread blocks: mrays_tile1024), K1
+     and K2 launched; then K4 alone at the metric's K = 16 (2,640
+     clusters) on its 512x512 camera wavefront, at tiles of 256 and of
+     JAX_TILE, torch.equal to its plain version, its rounds the plain
      walk's visits, alone and called, bounded by the plain walk's visits;
  28. apps/time_frames at its defaults (the interior 512x512: PT depth 12,
      uniform BDPT at 16,384 and 65,536 light paths): its card line and
      three timing lines, every frame one finite sample a pixel, K1 and K2
-     launched.
+     launched;
+ 29. the tile mode at every tile and size JAX's takes (phase_tile_scale):
+     K4's walk at tiles of K4_TILES rays (100 padded to 128 lanes) on the
+     scale-4 bounce wavefront, torch.equal to tile_closest_plain, its
+     rounds the plain walk's visits, on the block kernels.round_block
+     names; timed at K4_WIDE with the single round there equal to its
+     plain version; the interior at TILE_SCALE (399,856 triangles, 17,197
+     tile clusters: more than one K5 block holds) in tile and walk mode: on
+     its camera 512x512 and 2^16-ray connection wavefronts (a third
+     masked) K5 any over the parts torch.equal to the plain walk over the
+     whole set, K5 closest over the parts torch.equal to its plain version
+     over them and on PARTS_TRI_AGREE of the lanes to the whole set's,
+     hit and occluded shares at least MIN_HIT_SHARE; K5 any over the parts
+     alone, called, plain, bounded by the plain walk's visits; PT 512x512,
+     depth 8, 1 spp in tile mode (launch counters from 0: K4 and K5 any,
+     a whole number of K5 launches a part) and in walk mode from the same
+     seeds, means within TILE_MEAN_PT.
 Each render phase sets every launch counter to 0 just before it renders and
 reads them just after (the profiler's counters start at 0 in its own
 process and are read from its last line); the CLI renders' PNG, HDR and
@@ -188,7 +206,11 @@ and K4's single round that of its live lanes, each carrying the plain
 version's beside it as plain_bound_ms; K1's and K2's rows carry their
 launches on phase 22's partitioned render as parts_launches, on
 the bench as bench_launches and on time_frames as time_frames_launches,
-K4's walk its K = 16 row of phase 27 as `bench`;
+K4's walk its K = 16 row of phase 27 as `bench`; rows for K4's walk at
+512 and 1,024 rays a tile (phase 29's bounce wavefront; launches: those
+on each block over the bench; the 1,024 row its K = 16 row of phase 27 as
+`bench`) and for K5 any over the parts (phase 29's connection wavefront;
+launches: its tile-mode render's);
 K3's rows bound the live work of their inputs stage by stage and carry
 every lane against every triangle as plain_bound_ms, and the shares of
 live pairs failing at det, at u and at v; every row gives the kernel alone
@@ -223,7 +245,7 @@ CAMERA_DIM = 512
 BRUTE_SUBSET = 4096
 TRI_AGREE = 0.999        # share of subset lanes with brute force's triangle
 OCC_AGREE = 0.9999       # share of subset lanes with brute force's occlusion
-CONN_RAYS = 3 << 16      # connection wavefront: 3 draws x 2^16 pool lanes
+CONN_DRAWS = 3           # connection wavefront: 3 draws x 2^16 pool lanes
 # BDPT and SPCBPT are unbiased, like PT: their Cornell means at 512x512,
 # 4 spp must lie within 2% of PT's (the JAX package's record is 0.3%).
 MEAN_VS_PT = 0.02
@@ -359,9 +381,29 @@ TIMER_RTOL = 0.1         # PhaseTimer per frame vs the frame's own line
 # two subdivided interiors (130,304 and 521,216 triangles)
 BENCH_KEYS = ("metric", "value", "unit", "backend", "device", "tile",
               "kernel", "wavefront", "hits", "skipped", "mrays_512",
-              "secondary_mrays_walk", "mrays_parts_130k_p2",
-              "mrays_parts_521k_p5", "pt_ms_per_spp_512", "bench_seconds")
+              "mrays_tile1024", "secondary_mrays_walk",
+              "mrays_parts_130k_p2", "mrays_parts_521k_p5",
+              "pt_ms_per_spp_512", "bench_seconds")
 BENCH_PARTS = (2, 5)
+BENCH_TILE = 256         # the frozen metric's tile
+JAX_TILE = 1024          # the JAX bench's tile (mrays_tile1024)
+# the tile mode at every size and tile JAX takes (phase 29): K4's walk at
+# these tiles (100 padded to 128 lanes) on the scale-4 bounce wavefront,
+# timed at the wide ones; the interior at scale 14, whose tile clusters
+# (17,197) are more than one K5 block holds, in tile and walk mode
+K4_TILES = (32, 64, 100, 256, 512, 1024)
+K4_WIDE = (512, 1024)
+TILE_SCALE = 14
+TILE_SCALE_TRIS = 399_856
+TILE_SCALE_DIM = 512
+TILE_SCALE_DEPTH = 8
+# K5 closest over parts against the whole set (its plain version): a later
+# part wins only with a strictly smaller t, so a ray meeting triangles of
+# two parts at the same t keeps the earlier part's
+PARTS_TRI_AGREE = 0.9999
+# the numbers of a kernel's row in the kernels line
+ROW_KEYS = ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
 
 
 _T0 = time.perf_counter()
@@ -418,6 +460,24 @@ def phase_environment() -> str:
     return smi
 
 
+def kernel_name(mangled: str) -> str:
+    """The name of a kernel in ptxas's log, from its mangled symbol: the
+    function's own name inside its namespace, with an int template
+    argument as <N> (round_walk_kernel<1024>); the symbol as it is where
+    it does not parse."""
+    m = re.match(r"_ZN(\d+)", mangled)
+    if not m:
+        return mangled
+    pos = m.end() + int(m.group(1))
+    m = re.match(r"(\d+)", mangled[pos:])
+    if not m:
+        return mangled
+    start = pos + m.end()
+    name = mangled[start:start + int(m.group(1))]
+    arg = re.match(r"ILi(\d+)E", mangled[start + len(name):])
+    return f"{name}<{arg.group(1)}>" if arg else name
+
+
 def phase_build() -> dict:
     """Builds the kernels, the native library and the first forms of K5
     closest and K4's single round (tile_walk_variants.py: FIRST_FORMS) in
@@ -443,9 +503,13 @@ def phase_build() -> dict:
         info = infos[name]
         log("build", f"csrc/{name}.cu -> sm_90a in {info['seconds']:.2f} s "
                      f"(cached={info['cached']})")
+        fn = ""
         for line in info["ptxas"].splitlines():
+            entry = re.search(r"Compiling entry function '(\w+)'", line)
+            if entry:
+                fn = kernel_name(entry.group(1))
             if "registers" in line or "spill" in line:
-                log("build", "ptxas: " + line.strip())
+                log("build", f"ptxas: {fn}: " + line.strip())
     log("build", f"all kernels ready in {time.perf_counter() - t0:.2f} s "
                  f"(with the first forms {sorted(first)})")
     return first
@@ -1357,9 +1421,9 @@ def phase_cove(out_dir: str, dev) -> tuple:
     return stats, state_path
 
 
-def connection_wavefront(ts, cam, dev):
-    """(name, origins, dirs, tmax): 3 x 2^16 segments from primary hits to
-    shuffled hit points, a third of them masked (tmax = -1), as the
+def connection_wavefront(ts, cam, dev, draws: int = CONN_DRAWS):
+    """(name, origins, dirs, tmax): draws x 2^16 segments from primary hits
+    to shuffled hit points, a third of them masked (tmax = -1), as the
     connection wavefront's visibility test builds them."""
     from spcbpt_tpu_torch.render.common import camera_rays
     from spcbpt_tpu_torch.scene.scene import local_geometry, trace_closest
@@ -1370,15 +1434,17 @@ def connection_wavefront(ts, cam, dev):
     hit = trace_closest(ts, o, d, 1e-3, 1e16, True)
     p = local_geometry(ts, hit, o, d)["P"]
     rs = np.random.RandomState(2)
-    a = p.repeat(3, 1)
-    b = p[torch.from_numpy(rs.randint(0, p.shape[0], CONN_RAYS)).to(dev)]
+    rays = draws * p.shape[0]
+    a = p.repeat(draws, 1)
+    b = p[torch.from_numpy(rs.randint(0, p.shape[0], rays)).to(dev)]
     seg = b - a
     dist = torch.sqrt(torch.clamp(vec.dot(seg, seg), min=1e-30))
     dirs = seg / dist[:, None]
     tmax = dist - 1e-3
-    masked = torch.from_numpy(rs.rand(CONN_RAYS) < 1 / 3).to(dev)
+    masked = torch.from_numpy(rs.rand(rays) < 1 / 3).to(dev)
     tmax = torch.where(masked, -1.0, tmax)
-    return ("connection3x2^16", a.contiguous(), dirs.contiguous(), tmax)
+    name = "connection2^16" if draws == 1 else f"connection{draws}x2^16"
+    return (name, a.contiguous(), dirs.contiguous(), tmax)
 
 
 def brute_wavefronts(cts, ccam, its, icam, dev) -> list:
@@ -3070,18 +3136,21 @@ def phase_bench(ts, cam, smi: str) -> tuple:
     """The port's traversal benchmark (apps/bench.main at its defaults, in
     this process, launch counters from 0): its three lines, every key
     (BENCH_KEYS), nothing skipped, the hit share, the part counts
-    (BENCH_PARTS), K4, K1 and K2 launched; then K4 alone at the metric's
-    K = 16 on its 512x512 camera wavefront (frame 0, tiles of 256):
-    torch.equal to its plain version, its rounds the plain walk's visits,
-    alone (graph_ms) and called, bounded by the plain walk's visits.
-    Returns (the bench's launches, the K=16 row)."""
+    (BENCH_PARTS), K4 (on the blocks of both tiles), K1 and K2 launched;
+    then K4 at the metric's K = 16 on its 512x512 camera wavefront (frame
+    0) at tiles of 256 and of 1,024 (k4_tile_check): torch.equal to its
+    plain version, its rounds the plain walk's visits, alone (graph_ms)
+    and called, bounded by the plain walk's visits. Returns (the bench's
+    launches, K4's walk launches by block over the bench, the K=16 rows at
+    tiles of 256 and of 1,024, each with its block's launches)."""
     from spcbpt_tpu_torch.apps import bench
     from spcbpt_tpu_torch.kernels import tile_walk as kernels
-    from spcbpt_tpu_torch.ops import clusters, pallas_tile, tile_trace
+    from spcbpt_tpu_torch.ops import clusters
 
     reset_launches()
     rc, lines = run_captured(lambda: bench.main([]), "bench")
     launches = read_launches()
+    blocks = dict(kernels.ROUND_WALK_BLOCKS)
     out = [json.loads(line) for line in lines if line.startswith("{")]
     assert rc == 0 and len(out) == 3, lines
     final = out[-1]
@@ -3089,7 +3158,8 @@ def phase_bench(ts, cam, smi: str) -> tuple:
     assert not missing, missing
     assert final["skipped"] == [], final["skipped"]
     assert final["hits"] >= bench.HIT_SHARE, final["hits"]
-    assert final["tile"] == 256 and final["kernel"] == "tile_round_walk"
+    assert final["tile"] == BENCH_TILE == bench.TILE
+    assert final["kernel"] == "tile_round_walk" and bench.JAX_TILE == JAX_TILE
     assert (out[0]["wavefront"], final["wavefront"]) == ("512x512",
                                                          "1024x1024")
     parts = sorted(int(k.rsplit("_p", 1)[1]) for k in final
@@ -3100,7 +3170,12 @@ def phase_bench(ts, cam, smi: str) -> tuple:
     assert all(np.isfinite(x) and x > 0 for x in numbers), final
     for k in ("tile_round_walk", "walk_closest", "walk_any"):
         assert launches[k] > 0, launches
-    log("bench", f"nvidia-smi: {smi}; launches {launches}")
+    # K4's walk ran at both tiles: the metric's on the 256-thread instance,
+    # mrays_tile1024 on the 1,024-thread one
+    assert blocks[BENCH_TILE] > 0 and blocks[JAX_TILE] > 0, blocks
+    assert sum(blocks.values()) == launches["tile_round_walk"], blocks
+    log("bench", f"nvidia-smi: {smi}; launches {launches}; K4's walk by "
+                 f"block {blocks}")
 
     cs = bench.tile_clusters(ts)
     side = CAMERA_DIM
@@ -3109,51 +3184,23 @@ def phase_bench(ts, cam, smi: str) -> tuple:
     tmin = torch.full((n,), 1e-3, device=ts.device)
     tmax = torch.full((n,), 1e16, device=ts.device)
     sizes = clusters.cluster_sizes(cs, ts.num_tris)
-    tile_trace.ROUND_LOG = rounds = []
-    try:
-        k4 = tile_trace.tile_closest(cs, o, d, tmin, tmax, True,
-                                     tile=bench.TILE, use_kernel=True)
-    finally:
-        tile_trace.ROUND_LOG = None
-    p4 = []
-    tests, tris_seen, tile_visits = visits(
-        lambda: p4.append(tile_trace.tile_closest_plain(
-            cs, o, d, tmin, tmax, True, tile=bench.TILE)), sizes)
-    p4 = p4[0]
-    for f in ("tri", "t", "u", "v"):
-        assert torch.equal(getattr(k4, f), getattr(p4, f)), \
-            f"K4 walk at K={cs.tri_k}: {f} differs from plain"
-    assert int(rounds[0].sum()) == tile_visits, \
-        (int(rounds[0].sum()), tile_visits)
-    po, pd, ptn, ptx, _ = tile_trace._pad_rays(o, d, tmin, tmax, bench.TILE)
-    entries_s, ids_s, o_t, d_t, tmin_t, tmax_t, _, _ = tile_trace._prepare(
-        cs, po, pd, ptn, ptx, bench.TILE)
-    w_args = (o_t, d_t, tmin_t, tmax_t, entries_s, ids_s, cs.tri_block,
-              cs.tri_begin, cs.tri_count, cs.tri_k, True)
-    plain_walk = lambda: tile_trace._in_buckets(
-        lambda *a: tile_trace._round_walk(
-            *a, True, pallas_tile.mt_round_blocks_plain))(
-        cs, entries_s, ids_s, o_t, d_t, tmin_t, tmax_t)
-    row = dict(
-        k=cs.tri_k, clusters=cs.num_clusters, wavefront=f"camera{side}",
-        max_abs_err=(k4.t - p4.t).abs().max().item(),
-        ms=graph_ms(lambda: kernels.round_walk(*w_args)),
-        call_ms=cuda_ms(lambda: tile_trace.tile_closest(
-            cs, o, d, tmin, tmax, True, tile=bench.TILE, use_kernel=True),
-            10),
-        plain_ms=cuda_ms(plain_walk, 1),
-        launches=launches["tile_round_walk"],
-        **k4_walk_bound(tests, tile_visits, tris_seen, o_t.shape[0],
-                        o_t.shape[0] * o_t.shape[1], cs.num_clusters))
-    log("bench", f"K4 walk at K={cs.tri_k} ({cs.num_clusters} clusters) on "
-                 f"the camera {side}x{side} wavefront, tiles of "
-                 f"{bench.TILE}: equal to its plain version, rounds sum "
-                 f"{tile_visits} = the plain walk's visits ({tests} "
-                 f"ray-triangle tests); alone {row['ms']:.4f} ms, call "
-                 f"{row['call_ms']:.4f} ms, plain {row['plain_ms']:.1f} ms, "
-                 f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
-                 f"hits {(k4.tri >= 0).float().mean().item():.4f}")
-    return launches, row
+    rows = {}
+    for tile in (BENCH_TILE, JAX_TILE):
+        row = k4_tile_check(cs, sizes, o, d, tmin, tmax, True, tile, False,
+                            True)
+        log("bench", f"K4 walk at K={cs.tri_k} ({cs.num_clusters} clusters) "
+                     f"on the camera {side}x{side} wavefront, tiles of "
+                     f"{tile}: equal to its plain version, rounds sum "
+                     f"{row['visits']} = the plain walk's visits "
+                     f"({row['tests']} ray-triangle tests); alone "
+                     f"{row['ms']:.4f} ms, call {row['call_ms']:.4f} ms, "
+                     f"plain {row['plain_ms']:.1f} ms, bound "
+                     f"{row['bound_ms']:.4f} ms ({row['bound_by']}); hits "
+                     f"{row['hits']:.4f}; round 0 equal to its plain version")
+        rows[tile] = dict(k=cs.tri_k, clusters=cs.num_clusters,
+                          wavefront=f"camera{side}", launches=blocks[tile],
+                          **{k: row[k] for k in ROW_KEYS})
+    return launches, blocks, rows[BENCH_TILE], rows[JAX_TILE]
 
 
 def phase_time_frames(smi: str) -> dict:
@@ -3178,6 +3225,263 @@ def phase_time_frames(smi: str) -> dict:
     log("time_frames", f"every frame one finite sample a pixel; launches "
                        f"{launches}")
     return launches
+
+
+def k4_tile_check(cs, sizes, o, d, tmin, tmax, cull, tile: int,
+                  sort_rays: bool, timed: bool) -> dict:
+    """K4's walk at `tile` rays a tile through tile_closest on the card (one
+    launch, on the instance kernels.round_block gives the tile's lanes; a
+    tile that is not a multiple of 32 padded) torch.equal to
+    tile_closest_plain on the same rays, its tiles' rounds summing to the
+    plain walk's visits. Returns the row of the kernels line: max_abs_err,
+    hits, visits, tests; with `timed` also the walk alone on the prepared
+    tiles (graph_ms), the call, the plain walk (the host loop, one run, its
+    visit log on) and the bound from the plain walk's visits, and K4's
+    single round at this tile (round 0) torch.equal to its plain
+    version."""
+    from spcbpt_tpu_torch.kernels import tile_walk as kernels
+    from spcbpt_tpu_torch.ops import pallas_tile, tile_trace
+
+    lanes = -(-tile // 32) * 32
+    kernels.reset_launches()
+    tile_trace.ROUND_LOG = rounds = []
+    try:
+        k4 = tile_trace.tile_closest(cs, o, d, tmin, tmax, cull, tile=tile,
+                                     use_kernel=True, sort_rays=sort_rays)
+    finally:
+        tile_trace.ROUND_LOG = None
+    blocks = dict(kernels.ROUND_WALK_BLOCKS)
+    assert kernels.LAUNCHES["tile_round_walk"] == 1, kernels.LAUNCHES
+    assert blocks[kernels.round_block(lanes)] == 1, (tile, blocks)
+    p4 = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tests, tris_seen, tile_visits = visits(
+        lambda: p4.append(tile_trace.tile_closest_plain(
+            cs, o, d, tmin, tmax, cull, tile=tile, sort_rays=sort_rays)),
+        sizes)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    p4 = p4[0]
+    for f in ("tri", "t", "u", "v"):
+        assert torch.equal(getattr(k4, f), getattr(p4, f)), \
+            f"K4 walk at tile {tile}: {f} differs from tile_closest_plain"
+    assert int(rounds[0].sum()) == tile_visits, \
+        (tile, int(rounds[0].sum()), tile_visits)
+    row = dict(max_abs_err=(k4.t - p4.t).abs().max().item(),
+               hits=(k4.tri >= 0).float().mean().item(), visits=tile_visits,
+               tests=tests, lanes=lanes)
+    if not timed:
+        return row
+    assert lanes == tile, "the timed tiles are whole warps"
+    args = (o, d, tmin, tmax)
+    if sort_rays:
+        args = tile_trace.sort_rays_live(cs, *args)[1:]
+    args = tile_trace._pad_rays(*args, tile)[:4]
+    entries_s, ids_s, o_t, d_t, tmin_t, tmax_t, _, _ = \
+        tile_trace._prepare(cs, *args, tile)
+    w_args = (o_t, d_t, tmin_t, tmax_t, entries_s, ids_s, cs.tri_block,
+              cs.tri_begin, cs.tri_count, cs.tri_k, cull)
+    run0 = entries_s[:, 0] < 1e30
+    cid0 = ids_s[:, 0].contiguous()
+    got = kernels.tile_round(o_t, d_t, tmin_t, tmax_t, cid0, run0,
+                             cs.tri_block, cs.tri_count, cs.tri_k, cull)
+    ref = pallas_tile.mt_round_blocks_plain(
+        o_t, d_t, cs.tri_block, cs.tri_count, cid0, run0, tmin_t, tmax_t,
+        cs.tri_k, cull)
+    for f, a, b in zip(("t", "u", "v", "dn", "slot"), got, ref):
+        assert torch.equal(a, b), f"K4 round at tile {tile}: {f} differs"
+    nt = o_t.shape[0]
+    row.update(
+        ms=graph_ms(lambda: kernels.round_walk(*w_args)),
+        call_ms=cuda_ms(lambda: tile_trace.tile_closest(
+            cs, o, d, tmin, tmax, cull, tile=tile, use_kernel=True,
+            sort_rays=sort_rays), 5),
+        plain_ms=plain_ms,
+        **k4_walk_bound(tests, tile_visits, tris_seen, nt, nt * tile,
+                        cs.num_clusters))
+    return row
+
+
+def phase_tile_scale(out_dir: str, dev, tts, bounce) -> dict:
+    """The tile mode at every tile and scene size JAX's takes. K4's walk at
+    K4_TILES on the scale-4 bounce wavefront `bounce` (K = 32) against
+    tile_closest_plain, timed at K4_WIDE; the interior at TILE_SCALE in tile
+    mode (more tile clusters than one K5 block holds: K5 over parts) and in
+    walk mode (K1/K2 over parts): on its camera 512x512 and 2^16-ray
+    connection wavefronts, K5 any over parts torch.equal to the plain walk
+    over the whole set, K5 closest over parts torch.equal to its plain
+    version over the same parts and within PARTS_TRI_AGREE of the whole
+    set's, hit and occluded shares at least MIN_HIT_SHARE; K5 any over parts
+    alone, called, plain, bounded by the plain walk's visits; PT
+    TILE_SCALE_DIM^2, depth TILE_SCALE_DEPTH, 1 spp in tile mode (launch
+    counters from 0 around it) and in walk mode, same seeds: exact counts,
+    finite, means within TILE_MEAN_PT. Returns the kernels line's rows
+    (tile_round_walk_512 and _1024, tile_walk_any_parts with its render's
+    launches)."""
+    from spcbpt_tpu_torch.apps.render_cli import generate_interior
+    from spcbpt_tpu_torch.kernels import tile_walk as kernels
+    from spcbpt_tpu_torch.ops import clusters, pallas_tile, tile_trace
+    from spcbpt_tpu_torch.render import pt_pool
+    from spcbpt_tpu_torch.scene.scene import load_trace_scene
+
+    results = {}
+    cs = tts.clusters
+    sizes = clusters.cluster_sizes(cs, tts.num_tris)
+    name, o, d, tmax = bounce
+    tmin = torch.full((o.shape[0],), 1e-3, device=dev)
+    for tile in K4_TILES:
+        row = k4_tile_check(cs, sizes, o, d, tmin, tmax, False, tile, True,
+                            tile in K4_WIDE)
+        extra = (f"; alone {row['ms']:.4f} ms, call {row['call_ms']:.4f} ms,"
+                 f" plain {row['plain_ms']:.1f} ms, bound "
+                 f"{row['bound_ms']:.4f} ms ({row['bound_by']}), round 0 "
+                 f"equal to its plain version" if tile in K4_WIDE else "")
+        log("tile-scale", f"K4 walk, {name}, tiles of {tile} ({row['lanes']}"
+                          f" lanes): equal to tile_closest_plain, rounds sum "
+                          f"{row['visits']} = its visits ({row['tests']} "
+                          f"ray-triangle tests), hits {row['hits']:.4f}"
+                          + extra)
+        if tile in K4_WIDE:
+            results[f"tile_round_walk_{tile}"] = {k: row[k] for k in ROW_KEYS}
+
+    t0 = time.perf_counter()
+    path = generate_interior(os.path.join(out_dir, f"interior{TILE_SCALE}"),
+                             TILE_SCALE)
+    t1 = time.perf_counter()
+    sts, _, cam = load_trace_scene(path, dev, mode="tile")
+    t2 = time.perf_counter()
+    wts, _, _ = load_trace_scene(path, dev, mode="walk")
+    cam.aspect = 1.0
+    scs = sts.clusters
+    parts = pallas_tile.split(scs)
+    log("tile-scale", f"interior scale {TILE_SCALE}: {sts.num_tris} tris, "
+                      f"generated in {t1 - t0:.1f} s, loaded in tile mode in "
+                      f"{t2 - t1:.1f} s, in walk mode in "
+                      f"{time.perf_counter() - t2:.1f} s; "
+                      f"{scs.num_clusters} tile clusters in "
+                      f"{len(parts.parts)} parts of "
+                      f"{[b - a for a, b in parts.bounds]} (a K5 launch "
+                      f"holds {kernels.MAX_ANY_CLUSTERS}); walk mode "
+                      f"{len(wts.clusters_walk.parts)} parts")
+    assert sts.num_tris == TILE_SCALE_TRIS, sts.num_tris
+    assert scs.num_clusters > kernels.MAX_ANY_CLUSTERS, scs.num_clusters
+    assert isinstance(parts, clusters.ClusterParts)
+    assert len(parts.parts) >= 2
+    whole = scs.num_clusters     # max_clusters of the whole set's walk
+    ssizes = clusters.cluster_sizes(scs, sts.num_tris)
+    for name, o, d, tmax in (camera_wavefront(cam, dev),
+                             connection_wavefront(sts, cam, dev, draws=1)):
+        n = o.shape[0]
+        tmin = torch.full((n,), 1e-3, device=dev)
+        k5 = pallas_tile.pallas_closest(scs, o, d, tmin, tmax, False,
+                                        sort_rays=True)
+        p5 = pallas_tile.pallas_closest_plain(scs, o, d, tmin, tmax, False,
+                                              sort_rays=True)
+        w5 = pallas_tile.pallas_closest_plain(scs, o, d, tmin, tmax, False,
+                                              sort_rays=True,
+                                              max_clusters=whole)
+        torch.cuda.synchronize()
+        for f in ("tri", "t", "u", "v"):
+            assert torch.equal(getattr(k5, f), getattr(p5, f)), \
+                f"K5 closest over parts, {name}: {f} differs from plain"
+        same = k5.tri == w5.tri
+        agree = same.float().mean().item()
+        hits = (k5.tri >= 0).float().mean().item()
+        assert torch.equal(k5.t[same], w5.t[same]), name
+        tseg = brute_segments(name, k5, tmax, n, dev)
+        occ = pallas_tile.pallas_any(scs, o, d, tmin, tseg, sort_rays=True)
+        occ_w = pallas_tile.pallas_any_plain(scs, o, d, tmin, tseg,
+                                             sort_rays=True,
+                                             max_clusters=whole)
+        torch.cuda.synchronize()
+        assert torch.equal(occ, occ_w), \
+            f"K5 any over parts, {name}: differs from the whole set's walk"
+        occluded = occ.float().mean().item()
+        log("tile-scale", f"{name}: K5 closest over {len(parts.parts)} "
+                          f"parts equals its plain version over them; tri "
+                          f"agreement with the whole set's walk {agree:.6f} "
+                          f"(bound {PARTS_TRI_AGREE}), hits {hits:.4f}; K5 "
+                          f"any over the parts equals the whole set's walk, "
+                          f"occluded {occluded:.4f}")
+        assert agree >= PARTS_TRI_AGREE, (name, agree)
+        assert hits >= MIN_HIT_SHARE and occluded >= MIN_HIT_SHARE, \
+            (name, hits, occluded)
+        if not name.startswith("connection"):
+            continue
+        # K5 any over the parts alone on the prepared rays, the call, and
+        # the plain walk over the parts (by any_parts_rows' rule), whose
+        # visits, part by part, give the bound
+        qo, qd, qtn, qseg = pallas_tile.prepare(scs, o, d, tmin, tseg,
+                                                True)[:4]
+        walk = lambda: pallas_tile.any_sets(parts, qo, qd, qtn, qseg)
+        got = walk()
+        tests = tris_seen = 0
+        flags = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for (a, b), part in zip(parts.bounds, parts.parts):
+            cur = qseg if flags is None else torch.where(flags > 0, -1.0,
+                                                         qseg)
+            out = []
+            t_, tr_, _ = visits(lambda: out.append(
+                pallas_tile.any_tiles_plain(part, qo, qd, qtn, cur)),
+                ssizes[a:b])
+            flags = out[0] if flags is None else flags | out[0]
+            tests, tris_seen = tests + t_, tris_seen + tr_
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        assert torch.equal(got, flags), "K5 any over parts on prepared rays"
+        nq = qo.shape[0]
+        results["tile_walk_any_parts"] = dict(
+            max_abs_err=(got - flags).abs().max().item(), ms=graph_ms(walk),
+            call_ms=cuda_ms(lambda: pallas_tile.pallas_any(
+                scs, o, d, tmin, tseg, sort_rays=True), 5),
+            plain_ms=plain_ms,
+            **bound(tests, nq * (RAY_BYTES + 4) + whole * 28
+                    + tris_seen * TRI_BYTES))
+        row = results["tile_walk_any_parts"]
+        log("tile-scale", f"{name} ({n} rays): K5 any over "
+                          f"{len(parts.parts)} parts alone {row['ms']:.4f} "
+                          f"ms, call {row['call_ms']:.4f} ms, plain "
+                          f"{plain_ms:.1f} ms; {tests} ray-triangle tests of "
+                          f"the plain walk, bound {row['bound_ms']:.4f} ms "
+                          f"({row['bound_by']})")
+
+    uvw, dim = cam.uvw(), TILE_SCALE_DIM
+    renders = {}
+    for mode, scene in (("tile", sts), ("walk", wts)):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        fsum, count = pt_pool.render_pool(scene, uvw, dim, dim, 1, 0,
+                                          max_depth=TILE_SCALE_DEPTH)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = read_launches()
+        walks = dict(tile_trace.WALK_STATS)
+        assert (count == 1).all(), f"{mode} mode: per-pixel counts"
+        img = fsum / count[:, None]
+        assert torch.isfinite(img).all(), mode
+        renders[mode] = (img.mean().item(), ms, launches, walks)
+    (mean, ms, launches, walks), (ref, wms, wl, _) = (renders["tile"],
+                                                       renders["walk"])
+    rel = abs(mean - ref) / ref
+    log("tile-scale", f"PT {dim}x{dim}, depth {TILE_SCALE_DEPTH}, 1 spp: "
+                      f"tile mode {ms:.1f} ms, mean {mean:.6f}, launches "
+                      f"{launches}; walk mode {wms:.1f} ms, mean {ref:.6f}, "
+                      f"K1 {wl['walk_closest']}, K2 {wl['walk_any']} "
+                      f"launches; {rel * 100:.4f}% apart (bound "
+                      f"{TILE_MEAN_PT * 100:.1f}%)")
+    assert launches["tile_round_walk"] == walks["walks"] > 0, \
+        (launches, walks)
+    assert walks["syncs"] == 0 and launches["tile_round"] == 0, launches
+    k5 = launches["tile_walk_any"]
+    assert k5 > 0 and k5 % len(parts.parts) == 0, launches
+    assert launches["walk_closest"] == launches["walk_any"] == 0, launches
+    assert rel <= TILE_MEAN_PT, (mean, ref)
+    results["tile_walk_any_parts"]["launches"] = k5
+    return results
 
 
 def main() -> int:
@@ -3245,8 +3549,9 @@ def main() -> int:
     timer, frame_lines = phase_viewer(out_dir, dev, trained_path, parts_path,
                                       n_parts)
     phase_profiling(out_dir, cts, timer, frame_lines)
-    bench_launches, k16 = phase_bench(ts, cam, smi)
+    bench_launches, bench_blocks, k16, k16_wide = phase_bench(ts, cam, smi)
     frames_launches = phase_time_frames(smi)
+    numbers.update(phase_tile_scale(out_dir, dev, tts, waves[1]))
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     sources = {"walk_closest": "ray_walk.cu", "walk_any": "ray_walk.cu",
@@ -3258,7 +3563,10 @@ def main() -> int:
                "list_walk_closest": "list_walk.cu",
                "list_walk_closest_stream": "list_walk.cu",
                "list_walk_any": "list_walk.cu",
-               "list_walk_any_stream": "list_walk.cu"}
+               "list_walk_any_stream": "list_walk.cu",
+               "tile_round_walk_512": "tile_walk.cu",
+               "tile_round_walk_1024": "tile_walk.cu",
+               "tile_walk_any_parts": "tile_walk.cu"}
     replaces = {"walk_closest": "spcbpt_tpu/ops/ray_walk.py:144",
                 "walk_any": "spcbpt_tpu/ops/ray_walk.py:197",
                 "brute_closest": "spcbpt_tpu/ops/pallas_trace.py:28",
@@ -3270,7 +3578,10 @@ def main() -> int:
                 "list_walk_closest": "spcbpt_tpu/ops/pallas_walk.py:156",
                 "list_walk_closest_stream": "spcbpt_tpu/ops/pallas_walk.py:97",
                 "list_walk_any": "spcbpt_tpu/ops/pallas_walk.py:207",
-                "list_walk_any_stream": "spcbpt_tpu/ops/pallas_walk.py:235"}
+                "list_walk_any_stream": "spcbpt_tpu/ops/pallas_walk.py:235",
+                "tile_round_walk_512": "spcbpt_tpu/ops/pallas_tile.py:416",
+                "tile_round_walk_1024": "spcbpt_tpu/ops/pallas_tile.py:416",
+                "tile_walk_any_parts": "spcbpt_tpu/ops/pallas_tile.py:236"}
     # K1/K2 also carry their launches on the partitioned render, the bench
     # and time_frames; K4's walk its bench row (K = 16, camera 512x512)
     for k in ("walk_closest", "walk_any"):
@@ -3278,6 +3589,15 @@ def main() -> int:
         numbers[k]["bench_launches"] = bench_launches[k]
         numbers[k]["time_frames_launches"] = frames_launches[k]
     numbers["tile_round_walk"]["bench"] = k16
+    # K4's walk at 512 and 1,024 rays a tile: its launches on those blocks
+    # over the bench (no render takes either tile), the 1,024 row the
+    # bench's K = 16 wavefront beside it; K5 any over parts: its launches
+    # in phase 29's tile-mode render of the scale-14 interior
+    for tile in K4_WIDE:
+        launches[f"tile_round_walk_{tile}"] = bench_blocks[tile]
+    numbers["tile_round_walk_1024"]["bench"] = k16_wide
+    launches["tile_walk_any_parts"] = numbers["tile_walk_any_parts"].pop(
+        "launches")
     kernels = [dict(name=k, route="cuda",
                     source=f"spcbpt_tpu_torch/csrc/{sources[k]}",
                     replaces=replaces[k], launches=launches[k], **numbers[k])

@@ -37,14 +37,14 @@
 // ray's chain of slot tests.
 //
 // What the designs do about it.
-//   tile_round_walk: the whole walk of a 256-ray tile in one block, one
-//     thread per ray, tiles independent (the host loop's lock step over
-//     tiles changes no tile's result), so a walk is one launch with no host
-//     sync. The tile's column of the visit order (entries, ids and the
-//     clusters' triangle counts, sorted near to far by
-//     ops/tile_trace._prepare) is read 256 rounds at a time into shared
-//     memory. Each round: the exact block max of min(best_t, tmax) (warp
-//     shuffles, one shared step, one barrier) decides the stop; the
+//   tile_round_walk: the whole walk of a tile in one block, one thread per
+//     ray, tiles independent (the host loop's lock step over tiles changes
+//     no tile's result), so a walk is one launch with no host sync. The
+//     tile's column of the visit order (entries, ids and the clusters'
+//     triangle counts, sorted near to far by ops/tile_trace._prepare) is
+//     read a block-width of rounds at a time into shared memory. Each
+//     round: the exact block max of min(best_t, tmax) (warp shuffles, one
+//     shared step, one barrier) decides the stop; the
 //     cluster is staged and tested as in tile_round (stage_slots,
 //     closest_in_stage), the next round's cluster in flight with cp.async
 //     while this one is tested (its id is known: the order is fixed); a
@@ -52,6 +52,14 @@
 //     written once, and the tile's round count beside it. Measured on the
 //     card and not kept (tile_walk_variants.py): one buffer filled after
 //     the round's bound is known, and no staging (the slots read from L2).
+//   Tiles of up to 1,024 rays (JAX's tile_closest takes any tile; its
+//     bench runs 1,024). Both K4 kernels are templates on their block size,
+//     one instance each for tiles up to 256 (the tile mode's TILE_LANES),
+//     512 and 1,024: __launch_bounds__ of the largest caps a thread at 64
+//     registers, and that cap stays off the 256-ray instance that every
+//     tile-mode trace runs, which compiles as the one kernel did before.
+//     The walk's block reductions need whole warps: ops/tile_trace pads a
+//     tile to a multiple of 32 rays with lanes whose tmax is -inf.
 //   tile_round: one block per tile, one thread per ray. A tile that runs
 //     stages the first tri_count slots of its cluster's rows 0..8 with
 //     16-byte cp.async copies (stage_slots: at K = 32, 1.15 KB instead of
@@ -64,13 +72,16 @@
 //   tile_walk_closest, tile_walk_any: see the comment above their prologue.
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "group_walk.cuh"
 
 namespace {
 
 constexpr float kTiny = 1e-12f;   // |direction| floor of the slab test
 constexpr int kTile = 128;        // rays per tile of the fused walk
-constexpr int kMaxRoundLanes = 256;  // rays per tile of the round walk
+constexpr int kRoundLanes = 256;      // rays per tile of the tile mode
+constexpr int kMaxRoundLanes = 1024;  // rays per tile of K4: a block's limit
 constexpr int kClosestRays = 8;   // rays per group (a warp) of K5 closest
 constexpr int kClosestSplit = 32 / kClosestRays;  // threads per ray
 constexpr int kClosestThreads = kTile * kClosestSplit;  // a tile's block
@@ -175,7 +186,8 @@ __device__ __forceinline__ float warp_min(float x) {
 // K4: the round walk, one block per tile
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kMaxRoundLanes)
+template <int kLanes>
+__global__ void __launch_bounds__(kLanes)
 round_walk_kernel(const float* __restrict__ o, const float* __restrict__ d,
                   const float* __restrict__ tmin,
                   const float* __restrict__ tmax,
@@ -188,10 +200,10 @@ round_walk_kernel(const float* __restrict__ o, const float* __restrict__ d,
                   int* __restrict__ out_tri, float* __restrict__ out_u,
                   float* __restrict__ out_v, int* __restrict__ out_rounds) {
   extern __shared__ __align__(16) float stage[];  // 2 x 9 x ks floats
-  __shared__ float se[kMaxRoundLanes];  // 256 rounds of the visit order
-  __shared__ int sc[kMaxRoundLanes];
-  __shared__ int sk[kMaxRoundLanes];    // their clusters' triangle counts
-  __shared__ float red[kMaxRoundLanes / 32];
+  __shared__ float se[kLanes];  // a block-width of rounds of the visit order
+  __shared__ int sc[kLanes];
+  __shared__ int sk[kLanes];    // their clusters' triangle counts
+  __shared__ float red[kLanes / 32];
   const int lanes = blockDim.x, tid = threadIdx.x, nw = lanes >> 5;
   const int kq = (tri_k + 3) >> 2, ks = 4 * kq;
   const size_t tile = blockIdx.x;
@@ -209,7 +221,7 @@ round_walk_kernel(const float* __restrict__ o, const float* __restrict__ d,
   int rnd = 0;
   for (; rnd < n_cols; ++rnd) {
     const int j = rnd % lanes;
-    if (j == 0) {  // the next 256 rounds' clusters; the last ones were read
+    if (j == 0) {  // the next `lanes` rounds' clusters; the last ones read
       const int c = rnd + tid;  // before the previous round's second barrier
       se[tid] = c < n_cols ? __ldg(erow + c) : kBig;
       const int id = c < n_cols ? __ldg(irow + c) : 0;
@@ -269,7 +281,8 @@ round_walk_kernel(const float* __restrict__ o, const float* __restrict__ d,
 // K4 alone: one round
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kMaxRoundLanes)
+template <int kLanes>
+__global__ void __launch_bounds__(kLanes)
 round_kernel(const float* __restrict__ o, const float* __restrict__ d,
              const float* __restrict__ tmin,
              const float* __restrict__ tmax_eff,
@@ -364,7 +377,9 @@ round_kernel(const float* __restrict__ o, const float* __restrict__ d,
 //     group's or a ray's own: computed hits lie up to 13,736 ulps below a
 //     ray's own box entry.
 //   * The list holds at most 16,384 clusters: 128 KB of keys in shared
-//     memory, the limit the tile mode has through K5 any.
+//     memory (K5 any the same, beside its two staged blocks). A larger set
+//     is walked in parts of at most that many clusters, one launch a part
+//     (ops/pallas_tile), as the row walk walks its parts.
 //
 // Any hit. Occlusion is per lane and does not depend on the visit order: a
 // lane is occluded where a cluster its tile's entry bounds keep holds a hit
@@ -642,6 +657,18 @@ any_tile_kernel(const float* __restrict__ o, const float* __restrict__ d,
   out_occ[i] = occ ? 1 : 0;
 }
 
+// Launches the instance of a K4 kernel (a template on its block size) that
+// takes a tile of r rays: the least of 256, 512 and 1,024 at or above r.
+template <typename Launch>
+void by_round_lanes(int r, Launch launch) {
+  if (r <= kRoundLanes)
+    launch(std::integral_constant<int, kRoundLanes>());
+  else if (r <= 2 * kRoundLanes)
+    launch(std::integral_constant<int, 2 * kRoundLanes>());
+  else
+    launch(std::integral_constant<int, kMaxRoundLanes>());
+}
+
 // Opt a kernel into `bytes` of dynamic shared memory where that exceeds the
 // default 48 KB; returns the CUDA error (0 on success).
 template <typename Kernel>
@@ -661,7 +688,7 @@ int allow_shared(Kernel kernel, size_t bytes) {
 // K4, the whole walk. o/d (nt, r, 3), tmin/tmax (nt, r) float32; entries
 // (nt, n_cols) float32 and ids (nt, n_cols) int32, each tile's visit order
 // (ascending entries, 1e30 past its reach); blocks (C, 16, 128) float32;
-// tri_begin and tri_count (C,) int32; r a multiple of 32 up to 256,
+// tri_begin and tri_count (C,) int32; r a multiple of 32 up to 1,024,
 // n_cols >= 1, tri_count <= tri_k <= 128. Outputs (nt, r): t, u, v float32
 // and tri int32 (t 1e30, tri -1, u = v = 0 on a miss); rounds (nt,) int32,
 // each tile's visits.
@@ -674,15 +701,18 @@ extern "C" int tile_round_walk(const float* o, const float* d,
                                float* out_t, int* out_tri, float* out_u,
                                float* out_v, int* out_rounds, void* stream) {
   const size_t smem = sizeof(float) * 2 * kTriRows * 4 * ((tri_k + 3) / 4);
-  round_walk_kernel<<<nt, r, smem, static_cast<cudaStream_t>(stream)>>>(
-      o, d, tmin, tmax, entries, ids, blocks, tri_begin, tri_count, n_cols,
-      tri_k, cull, out_t, out_tri, out_u, out_v, out_rounds);
+  by_round_lanes(r, [&](auto lanes) {
+    round_walk_kernel<decltype(lanes)::value>
+        <<<nt, r, smem, static_cast<cudaStream_t>(stream)>>>(
+            o, d, tmin, tmax, entries, ids, blocks, tri_begin, tri_count,
+            n_cols, tri_k, cull, out_t, out_tri, out_u, out_v, out_rounds);
+  });
   return static_cast<int>(cudaGetLastError());
 }
 
 // K4 alone. o/d (nt, r, 3), tmin/tmax_eff (nt, r) float32; cid (nt,) int32;
 // run (nt,) bool; blocks (C, 16, 128) float32; tri_count (C,) int32 as for
-// the walk; 1 <= r <= 256, tri_count <= tri_k <= 128. Outputs (nt, r): t,
+// the walk; 1 <= r <= 1,024, tri_count <= tri_k <= 128. Outputs (nt, r): t,
 // u, v, dn float32 and slot int32 (t 1e30, u = v = 0, dn 1, slot 128 on a
 // miss).
 extern "C" int tile_round(const float* o, const float* d, const float* tmin,
@@ -692,15 +722,19 @@ extern "C" int tile_round(const float* o, const float* d, const float* tmin,
                           int cull, float* out_t, float* out_u, float* out_v,
                           float* out_dn, int* out_slot, void* stream) {
   const size_t smem = sizeof(float) * kTriRows * 4 * ((tri_k + 3) / 4);
-  round_kernel<<<nt, r, smem, static_cast<cudaStream_t>(stream)>>>(
-      o, d, tmin, tmax_eff, cid, run, blocks, tri_count, tri_k, cull, out_t,
-      out_u, out_v, out_dn, out_slot);
+  by_round_lanes(r, [&](auto lanes) {
+    round_kernel<decltype(lanes)::value>
+        <<<nt, r, smem, static_cast<cudaStream_t>(stream)>>>(
+            o, d, tmin, tmax_eff, cid, run, blocks, tri_count, tri_k, cull,
+            out_t, out_u, out_v, out_dn, out_slot);
+  });
   return static_cast<int>(cudaGetLastError());
 }
 
 // K5. o/d (n, 3), tmin/tmax (n,) float32 with n a multiple of 128; cmin/cmax
 // (C, 3) float32; tri_begin and tri_count (C,) int32 as for K4; blocks
-// (C, 16, 128) float32; C at most 16,384. Outputs (n,): t, tri, u, v;
+// (C, 16, 128) float32; C at most 16,384 (a larger set goes in parts,
+// one launch each). Outputs (n,): t, tri, u, v;
 // out_rounds int32 or null: per group ((n / tile_walk_group_rays(), 2)) the
 // positions it walked and the slots its rays tested, summed over the rays.
 extern "C" int tile_walk_group_rays() { return kClosestRays; }

@@ -17,7 +17,11 @@ from . import build
 from .ray_walk import _check, _stream
 
 TILE = 128             # rays per tile of K5
-MAX_ROUND_LANES = 256  # rays per tile of K4: one thread each
+# rays per tile of K4: one thread each, one block a tile; each K4 kernel is
+# built for blocks of 256, 512 and 1,024 threads (ROUND_BLOCKS) and a tile
+# runs on the least of them that holds it
+MAX_ROUND_LANES = 1024
+ROUND_BLOCKS = (256, 512, 1024)
 SLOTS = 128
 # Both K5 kernels keep their tile's candidate list as 8-byte (entry, id)
 # keys in shared memory, padded to a power of two for its sort (K5 any
@@ -25,6 +29,8 @@ SLOTS = 128
 MAX_ANY_CLUSTERS = 1 << 14
 LAUNCHES = {"tile_round_walk": 0, "tile_round": 0, "tile_walk_closest": 0,
             "tile_walk_any": 0}
+# the launches of LAUNCHES["tile_round_walk"] by the block it ran on
+ROUND_WALK_BLOCKS = dict.fromkeys(ROUND_BLOCKS, 0)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,6 +39,13 @@ _I = ctypes.c_int
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for k in ROUND_WALK_BLOCKS:
+        ROUND_WALK_BLOCKS[k] = 0
+
+
+def round_block(r: int) -> int:
+    """The block (threads) of K4's instance that takes a tile of r rays."""
+    return next(b for b in ROUND_BLOCKS if r <= b)
 
 
 @functools.cache
@@ -80,12 +93,13 @@ def round_walk(o, d, tmin, tmax, entries, ids, tri_block, tri_begin,
     ids[i, 0], ids[i, 1], ... of its near-to-far order (entries[i] ascending,
     1e30 past its reach) while the next entry is at most the tile's largest
     min(best_t, tmax), testing each cluster's slots below tri_count; misses
-    keep t 1e30, tri -1, u = v = 0. r is a multiple of 32 up to 256."""
+    keep t 1e30, tri -1, u = v = 0. r is a multiple of 32 up to
+    MAX_ROUND_LANES (ops/tile_trace pads other tiles)."""
     dev = _cuda_device(o)
     nt, r = o.shape[0], o.shape[1]
     if r % 32 or not 0 < r <= MAX_ROUND_LANES:
         raise ValueError(f"tile of {r} rays: the round walk takes a multiple "
-                         f"of 32 up to {MAX_ROUND_LANES}")
+                         f"of 32 up to {MAX_ROUND_LANES} (a block's limit)")
     f32 = torch.float32
     _check("origins", o, f32, (nt, r, 3), dev)
     _check("dirs", d, f32, (nt, r, 3), dev)
@@ -117,6 +131,7 @@ def round_walk(o, d, tmin, tmax, entries, ids, tri_block, tri_begin,
     if err:
         raise RuntimeError(f"tile_round_walk launch failed: CUDA error {err}")
     LAUNCHES["tile_round_walk"] += 1
+    ROUND_WALK_BLOCKS[round_block(r)] += 1
     return t, tri, u, v, rounds
 
 
@@ -128,7 +143,8 @@ def tile_round(o, d, tmin, tmax_eff, cid, run, tri_block, tri_count,
     dev = _cuda_device(o)
     nt, r = o.shape[0], o.shape[1]
     if not 0 < r <= MAX_ROUND_LANES:
-        raise ValueError(f"tile of {r} rays outside 1..{MAX_ROUND_LANES}")
+        raise ValueError(f"tile of {r} rays outside 1..{MAX_ROUND_LANES} "
+                         f"(a block's limit)")
     f32 = torch.float32
     _check("origins", o, f32, (nt, r, 3), dev)
     _check("dirs", d, f32, (nt, r, 3), dev)
@@ -160,7 +176,8 @@ def _check_walk(o, d, tmin, tmax, cmin, cmax, tri_block, tri_count):
     c = tri_block.shape[0]
     if not 0 < c <= MAX_ANY_CLUSTERS:
         raise ValueError(f"{c} clusters outside 1..{MAX_ANY_CLUSTERS} (the "
-                         f"kernels' shared memory)")
+                         f"kernels' shared memory; ops/pallas_tile walks a "
+                         f"larger set in parts)")
     dev = _cuda_device(o)
     n = o.shape[0]
     if n % TILE:

@@ -16,6 +16,10 @@ A large scene's row-walk set is split into `ClusterParts`
 by JAX's rule (at most `part_max_tris` triangles a part) and by the
 clusters one K1/K2 block holds in shared memory (`MAX_CLUSTERS`); the
 row walk walks the parts in turn (ops/ray_walk.walk_closest_parts).
+A tile set above the clusters one K5 block holds in shared memory
+(kernels/tile_walk.MAX_ANY_CLUSTERS) is split into ClusterParts too, of
+near-equal contiguous ranges (`even_bounds`), which the fused walk walks
+in turn (ops/pallas_tile.pallas_any / pallas_closest).
 
 The coefficient trick (`pack_coefficients`): for a triangle (p0, e1, e2)
 with n = e1 x e2, the Moller-Trumbore numerators and determinant are linear
@@ -116,22 +120,23 @@ class ClusterSet:
 
 @dataclasses.dataclass
 class ClusterParts:
-    """A row-walk set split into parts: `parts[i]` is the ClusterSet of the
-    whole set's clusters bounds[i][0]:bounds[i][1], its tensors views of the
-    whole set's (tri_begin stays the global triangle id)."""
-    whole: ClusterSet
+    """A cluster set split into parts: `parts[i]` is the set (a ClusterSet
+    of the row walk, or a TileClusterSet of the tile mode) of the whole
+    set's clusters bounds[i][0]:bounds[i][1], its arrays views of the whole
+    set's (tri_begin stays the global triangle id). Ranges in BVH order
+    are runs of subtrees: each part is spatially coherent."""
+    whole: object
     bounds: tuple            # ((first cluster, end), ...) per part
-    parts: tuple             # ClusterSet per part
+    parts: tuple             # a set of whole's type per part
 
     @classmethod
-    def split(cls, whole: ClusterSet, bounds) -> "ClusterParts":
+    def split(cls, whole, bounds) -> "ClusterParts":
+        arrays = [f.name for f in dataclasses.fields(whole) if isinstance(
+            getattr(whole, f.name), (torch.Tensor, np.ndarray))]
+
         def part(a, b):
-            return ClusterSet(
-                cmin=whole.cmin[a:b], cmax=whole.cmax[a:b],
-                tri_begin=whole.tri_begin[a:b],
-                tri_count=whole.tri_count[a:b],
-                tri_slots=whole.tri_slots[a:b],
-                tri_block=whole.tri_block[a:b])
+            return dataclasses.replace(
+                whole, **{k: getattr(whole, k)[a:b] for k in arrays})
         bounds = tuple((int(a), int(b)) for a, b in bounds)
         return cls(whole=whole, bounds=bounds,
                    parts=tuple(part(a, b) for a, b in bounds))
@@ -302,6 +307,17 @@ def part_bounds(begin, end, part_max_tris: int,
             first, base = i, lo
     bounds.append((first, len(begin)))
     return bounds
+
+
+def even_bounds(count: int, max_clusters: int) -> list:
+    """The fewest near-equal contiguous ranges (their sizes differ by at
+    most one) of `count` clusters with at most max_clusters each:
+    [(first cluster, end), ...]."""
+    if max_clusters < 1:
+        raise ValueError(f"max_clusters {max_clusters} below 1")
+    k = max(1, -(-count // max_clusters))
+    edges = [count * i // k for i in range(k + 1)]
+    return list(zip(edges[:-1], edges[1:]))
 
 
 def build_cluster_parts(flat: FlatBVH, p0, e1, e2, max_tris: int = SLOTS,

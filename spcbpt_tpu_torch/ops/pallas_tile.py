@@ -13,7 +13,16 @@ Port of spcbpt_tpu/ops/pallas_tile.py:
     bounds computed per tile (tile_trace.tile_entries semantics), the
     (entry, id)-lexicographic next cluster each round. Same contract as
     tile_trace.tile_closest / tile_any. Rays are padded to 1,024 lanes (8
-    tiles) as in JAX.
+    tiles) as in JAX. A set of more clusters than one K5 block holds
+    (`kernels.tile_walk.MAX_ANY_CLUSTERS`, or the `max_clusters` given) is
+    split into near-equal parts (clusters.ClusterParts of
+    clusters.even_bounds) and walked part after part, by
+    the rules of the row walk's parts (ops/ray_walk.closest_parts_rows,
+    any_parts_rows), on either device: one sort and one padding over the
+    whole set, then one K5 launch (or plain walk) a part. Occlusion over
+    the parts equals the whole set's bit for bit; a closest hit may differ
+    only where triangles of two parts meet a ray at the same t (the earlier
+    part keeps it).
 
 Each runs where its tensors live: CUDA tensors launch the hand-written
 kernels of csrc/tile_walk.cu (kernels/tile_walk.py), or raise; CPU tensors
@@ -25,12 +34,15 @@ them on any device).
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..kernels import tile_walk as kernels
-from .clusters import SLOTS, TileClusterSet, log_visits
+from .clusters import (SLOTS, ClusterParts, TileClusterSet, even_bounds,
+                       log_visits)
 from .intersect import Hit
-from .ray_walk import _next_cluster
+from .ray_walk import _next_cluster, any_parts_rows, closest_parts_rows
 from .tile_trace import (_as_lanes, _hit, _pad_rays, sort_rays_live,
                          tile_entries, unsort)
 
@@ -229,47 +241,81 @@ def prepare(cs, origins, dirs, tmin, tmax, sort_rays):
     return o, d, tmn, tmx, n, perm
 
 
-def _closest(cs, origins, dirs, tmin, tmax, cull_backface, sort_rays, fn):
+def split(cs: TileClusterSet, max_clusters: Optional[int] = None):
+    """The set as the fused walk takes it: `cs` itself up to max_clusters
+    clusters (default kernels.tile_walk.MAX_ANY_CLUSTERS, read at the call),
+    its near-equal ClusterParts above."""
+    if max_clusters is None:
+        max_clusters = kernels.MAX_ANY_CLUSTERS
+    if cs.num_clusters <= max_clusters:
+        return cs
+    return ClusterParts.split(cs, even_bounds(cs.num_clusters,
+                                              max_clusters))
+
+
+def any_sets(cs, o, d, tmn, tmx, fn=None):
+    """K5 any (or `fn`, its plain version) on prepared rays over `cs` as
+    split() gives it, one walk or the parts in turn -> int32 flags."""
+    fn = fn or _any_tiles
+    if isinstance(cs, ClusterParts):
+        return any_parts_rows(cs, o, d, tmn, tmx, fn)
+    return fn(cs, o, d, tmn, tmx)
+
+
+def _closest(cs, origins, dirs, tmin, tmax, cull_backface, sort_rays, fn,
+             max_clusters):
     o, d, tmn, tmx, n, perm = prepare(cs, origins, dirs, tmin, tmax,
                                       sort_rays)
-    out = [a[:n] for a in fn(cs, o, d, tmn, tmx, cull_backface)]
+    sets = split(cs, max_clusters)
+    if isinstance(sets, ClusterParts):
+        out = closest_parts_rows(sets, o, d, tmn, tmx, cull_backface, fn)
+    else:
+        out = fn(sets, o, d, tmn, tmx, cull_backface)
+    out = [a[:n] for a in out]
     if perm is not None:
         out = [unsort(a, perm) for a in out]
     return _hit(*out)
 
 
-def _any(cs, origins, dirs, tmin, tmax, sort_rays, fn):
+def _any(cs, origins, dirs, tmin, tmax, sort_rays, fn, max_clusters):
     o, d, tmn, tmx, n, perm = prepare(cs, origins, dirs, tmin, tmax,
                                       sort_rays)
-    occ = fn(cs, o, d, tmn, tmx)[:n] > 0
+    occ = any_sets(split(cs, max_clusters), o, d, tmn, tmx, fn)[:n] > 0
     return unsort(occ, perm) if perm is not None else occ
 
 
 def pallas_closest(cs: TileClusterSet, origins, dirs, tmin, tmax,
-                   cull_backface: bool = True,
-                   sort_rays: bool = False) -> Hit:
+                   cull_backface: bool = True, sort_rays: bool = False,
+                   max_clusters: Optional[int] = None) -> Hit:
     """Closest-hit traversal through the fused walk: K5 on the card, its
-    plain version on the CPU. Same contract as tile_trace.tile_closest."""
+    plain version on the CPU; over parts above max_clusters clusters (see
+    split). Same contract as tile_trace.tile_closest."""
     return _closest(cs, origins, dirs, tmin, tmax, cull_backface, sort_rays,
-                    _closest_tiles)
+                    _closest_tiles, max_clusters)
 
 
 def pallas_any(cs: TileClusterSet, origins, dirs, tmin, tmax,
-               sort_rays: bool = False):
+               sort_rays: bool = False, max_clusters: Optional[int] = None):
     """Any-hit (occlusion, never culled) traversal through the fused walk:
-    K5 on the card, its plain version on the CPU. Returns bool."""
-    return _any(cs, origins, dirs, tmin, tmax, sort_rays, _any_tiles)
+    K5 on the card, its plain version on the CPU; over parts above
+    max_clusters clusters. Returns bool."""
+    return _any(cs, origins, dirs, tmin, tmax, sort_rays, _any_tiles,
+                max_clusters)
 
 
 def pallas_closest_plain(cs: TileClusterSet, origins, dirs, tmin, tmax,
-                         cull_backface: bool = True,
-                         sort_rays: bool = False) -> Hit:
-    """pallas_closest through the plain version on any device."""
+                         cull_backface: bool = True, sort_rays: bool = False,
+                         max_clusters: Optional[int] = None) -> Hit:
+    """pallas_closest through the plain version on any device, over the
+    same parts."""
     return _closest(cs, origins, dirs, tmin, tmax, cull_backface, sort_rays,
-                    closest_tiles_plain)
+                    closest_tiles_plain, max_clusters)
 
 
 def pallas_any_plain(cs: TileClusterSet, origins, dirs, tmin, tmax,
-                     sort_rays: bool = False):
-    """pallas_any through the plain version on any device."""
-    return _any(cs, origins, dirs, tmin, tmax, sort_rays, any_tiles_plain)
+                     sort_rays: bool = False,
+                     max_clusters: Optional[int] = None):
+    """pallas_any through the plain version on any device, over the same
+    parts."""
+    return _any(cs, origins, dirs, tmin, tmax, sort_rays, any_tiles_plain,
+                max_clusters)

@@ -205,7 +205,8 @@ def closest_parts_rows(parts: ClusterParts, o, d, tmn, tmx, cull,
                        rows_fn=_closest_rows):
     """Closest hits over the parts in turn on prepared rays: each part's
     walk takes tmax tightened by the best t so far, and a later part wins
-    only with a strictly smaller t -> (t, tri, u, v)."""
+    only with a strictly smaller t -> (t, tri, u, v). The parts may also
+    be tile sets, with K5 closest (ops/pallas_tile) as rows_fn."""
     best = None
     for cs in parts.parts:
         cur = tmx if best is None else torch.minimum(tmx, best[0])
@@ -220,7 +221,8 @@ def closest_parts_rows(parts: ClusterParts, o, d, tmn, tmx, cull,
 
 def any_parts_rows(parts: ClusterParts, o, d, tmn, tmx, rows_fn=_any_rows):
     """Occlusion over the parts in turn on prepared rays: rays already
-    occluded walk no later part (tmax -1) -> int32 flags."""
+    occluded walk no later part (tmax -1) -> int32 flags. The parts may
+    also be tile sets, with K5 any (ops/pallas_tile) as rows_fn."""
     occ = None
     for cs in parts.parts:
         cur = tmx if occ is None else torch.where(occ > 0, -1.0, tmx)

@@ -33,7 +33,10 @@ Three formulations of the closest hit's walk:
     K4 (kernels/tile_walk.round_walk) walks every tile to its end in one
     launch. Tiles are independent, so it equals the host form bit for bit;
     it makes no host sync. WALK_STATS counts its walks; each tile's round
-    count goes to ROUND_LOG while a caller collects it.
+    count goes to ROUND_LOG while a caller collects it. It takes tiles of
+    1 to 1,024 rays (a block's limit), one thread a ray: a tile that is not
+    a multiple of 32 is padded to one with dead lanes (`_padded`), which
+    change no live lane's result and no tile's rounds.
 
 Misses keep t=1e30, tri=-1, u=v=0.
 """
@@ -151,6 +154,31 @@ def _pad_rays(origins, dirs, tmin, tmax, tile):
         # tmax < tmin: padded lanes never hit and never extend the walk
         tmax = torch.cat([tmax, tmax.new_full((pad,), -1.0)])
     return origins, dirs, tmin, tmax, n
+
+
+def _padded(walk, lanes: int):
+    """`walk` (a function of the prepared tiles, as _walk calls it) over
+    each tile's lanes, (NT, R), padded up to `lanes` with dead rays (origin
+    0, direction (1, 0, 0), tmin 0, tmax -inf), its per-lane outputs cut
+    back to the tile's own lanes. A dead lane's min(best_t, tmax) is -inf,
+    so it never raises its tile's bound (the largest over the lanes, one of
+    which is live), and it never hits: the live lanes' results and the
+    tile's rounds are those of the unpadded tile, whatever the live lanes'
+    tmin and tmax. The entries are computed before, over the unpadded
+    tile."""
+    def padded(cs, entries_s, ids_s, o_t, d_t, tmin_t, tmax_t):
+        nt, tile = tmin_t.shape
+        pad = lanes - tile
+        x_axis = d_t.new_tensor([1.0, 0.0, 0.0]).expand(nt, pad, 3)
+        out = walk(cs, entries_s, ids_s,
+                   torch.cat([o_t, o_t.new_zeros((nt, pad, 3))], dim=1),
+                   torch.cat([d_t, x_axis], dim=1),
+                   torch.cat([tmin_t, tmin_t.new_zeros((nt, pad))], dim=1),
+                   torch.cat([tmax_t,
+                              tmax_t.new_full((nt, pad), -float("inf"))],
+                             dim=1))
+        return [a[:, :tile] for a in out]
+    return padded
 
 
 def tile_entries(cs: TileClusterSet, origins, dirs, tmin, tmax, tile: int):
@@ -417,8 +445,14 @@ def _in_buckets(loop):
     return walk
 
 
-def _kernel_walk(cull_backface):
-    """The card's round walk: every tile in one K4 launch, no host sync."""
+def _kernel_walk(cull_backface, tile: int):
+    """The card's round walk: every tile in one K4 launch, no host sync;
+    a tile that is not a multiple of 32 rays is padded to one."""
+    if not 0 < tile <= kernels.MAX_ROUND_LANES:
+        raise ValueError(f"tile of {tile} rays: the round walk on the card "
+                         f"takes tiles of 1 to {kernels.MAX_ROUND_LANES} "
+                         f"rays (a block's limit)")
+
     def walk(cs, entries_s, ids_s, o_t, d_t, tmin_t, tmax_t):
         WALK_STATS["walks"] += 1
         t, tri, u, v, rounds = kernels.round_walk(
@@ -427,7 +461,7 @@ def _kernel_walk(cull_backface):
         if ROUND_LOG is not None:
             ROUND_LOG.append(rounds)
         return t, tri, u, v
-    return walk
+    return _padded(walk, -(-tile // 32) * 32) if tile % 32 else walk
 
 
 def _hit(best_t, best_id, best_u, best_v) -> Hit:
@@ -455,9 +489,9 @@ def tile_closest(cs: TileClusterSet, origins, dirs, tmin, tmax,
                  use_kernel: bool = False, sort_rays: bool = False) -> Hit:
     """Closest-hit traversal; t=1e30 / tri=-1 on a miss. use_kernel=False
     runs the matmul walk (CPU tensors only); use_kernel=True the round walk
-    (K4's whole walk in one launch on CUDA tensors, the host loop over K4's
-    plain round on CPU tensors). sort_rays=True re-orders the wavefront by
-    ray_sort_key_live first."""
+    (K4's whole walk in one launch on CUDA tensors, tiles of up to 1,024
+    rays; the host loop over K4's plain round on CPU tensors).
+    sort_rays=True re-orders the wavefront by ray_sort_key_live first."""
     from . import pallas_tile
 
     if not use_kernel:
@@ -466,7 +500,7 @@ def tile_closest(cs: TileClusterSet, origins, dirs, tmin, tmax,
     elif origins.device.type == "cpu":
         walk = _round_loop(pallas_tile.mt_round, cull_backface)
     else:
-        walk = _kernel_walk(cull_backface)
+        walk = _kernel_walk(cull_backface, tile)
     return _hit(*_walk(cs, origins, dirs, tmin, tmax, tile, sort_rays, walk))
 
 

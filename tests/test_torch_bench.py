@@ -194,7 +194,17 @@ def _lines(capsys) -> list:
             if l.startswith("{")]
 
 
-def test_main_prints_the_bench_lines_on_the_cpu(capsys):
+def test_main_prints_the_bench_lines_on_the_cpu(capsys, monkeypatch):
+    """The three lines at a small size; the camera wavefronts go through
+    K4's walk (its plain version here) at the frozen metric's tile of 256
+    rays, and mrays_tile1024 through the same at JAX's tile of 1,024."""
+    tiles = []
+    closest = ttt.tile_closest
+
+    def spy(cs, o, *a, **k):
+        tiles.append((o.shape[0], k["tile"], k["use_kernel"]))
+        return closest(cs, o, *a, **k)
+    monkeypatch.setattr(ttt, "tile_closest", spy)
     assert bench.main(SMALL_ARGV) == 0
     first, merged, final = _lines(capsys)
     assert first["wavefront"] == "32x32" and merged["wavefront"] == "64x64"
@@ -211,8 +221,24 @@ def test_main_prints_the_bench_lines_on_the_cpu(capsys):
     assert parts == ["mrays_parts_36k_p1", "mrays_parts_9k_p1"]
     numbers = [final[k] for k in parts + ["value", "mrays_32",
                                           "secondary_mrays_walk",
-                                          "pt_ms_per_spp_32"]]
+                                          "pt_ms_per_spp_32",
+                                          "mrays_tile1024"]]
     assert all(np.isfinite(x) and x > 0 for x in numbers), numbers
+    # warm frame and SMALL_ITERS at 32^2, then BIG_ITERS each at 64^2 in
+    # tiles of 256 and of 1,024
+    frames = lambda n, side, tile: [(side * side, tile, True)] * (n + 1)
+    assert tiles[:bench.SMALL_ITERS + 2 * bench.BIG_ITERS + 3] == (
+        frames(bench.SMALL_ITERS, 32, 256) + frames(bench.BIG_ITERS, 64, 256)
+        + frames(bench.BIG_ITERS, 64, 1024))
+
+
+def test_frozen_metric_keeps_its_tile():
+    """K4 takes tiles up to 1,024 rays, JAX's bench tile; the frozen
+    metric stays at the 256 it was first measured at."""
+    from spcbpt_tpu_torch.kernels import tile_walk
+
+    assert bench.TILE == 256
+    assert bench.JAX_TILE == JAX_TILE == tile_walk.MAX_ROUND_LANES
 
 
 def test_budget_gates_list_the_stages_they_skip(capsys):
@@ -220,8 +246,8 @@ def test_budget_gates_list_the_stages_they_skip(capsys):
     skipped, and each is named."""
     assert bench.main(SMALL_ARGV + ["--budget", "0"]) == 0
     first, final = _lines(capsys)
-    assert final["skipped"] == ["headline", "secondary", "parts_level1",
-                                "parts_level2", "pt"]
+    assert final["skipped"] == ["headline", "tile1024", "secondary",
+                                "parts_level1", "parts_level2", "pt"]
     assert final["value"] == first["value"]
     assert not any(k.startswith(("mrays_", "secondary", "pt_"))
                    for k in final)

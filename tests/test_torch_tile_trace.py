@@ -23,6 +23,7 @@ from spcbpt_tpu_torch.kernels import tile_walk as kernels
 from spcbpt_tpu_torch.ops import bvh as tbvh
 from spcbpt_tpu_torch.ops import clusters as tclusters
 from spcbpt_tpu_torch.ops import intersect as tint
+from spcbpt_tpu_torch.ops import pallas_tile
 from spcbpt_tpu_torch.ops import tile_trace as ttt
 from spcbpt_tpu_torch.render import pt_pool as tpool
 from spcbpt_tpu_torch.render.common import camera_rays
@@ -363,3 +364,127 @@ def test_round_walk_binding_refuses_cpu_tensors(case):
     ttt.tile_closest(cs, o, d, tmin, tmax, tile=TILE, use_kernel=True)
     assert not any(kernels.LAUNCHES.values())
     assert ttt.WALK_STATS["walks"] == 1 and ttt.WALK_STATS["syncs"] > 0
+
+
+# ---------------------------------------------------------------------------
+# K4 at every tile JAX takes: tiles up to 1,024 rays, tiles that are not a
+# multiple of 32 padded with dead lanes
+# ---------------------------------------------------------------------------
+
+JAX_TILE = 1024      # the JAX bench's tile (bench.py:284)
+WIDE_SIDE = 64       # a 64^2 camera wavefront: 4,096 rays
+
+
+@pytest.mark.parametrize("tile", [512, 1024])
+def test_round_walk_at_wide_tiles_matches_jax(case, tile):
+    """tile_closest_plain (K4's reference) at tiles of 512 and 1,024 rays
+    against JAX's tile_closest at the JAX bench's tile of 1,024 (its matmul
+    walk) on a 64^2 camera wavefront: triangles on TRI_AGREE of the lanes,
+    t to RTOL_MT where they agree (the round walk against the matmul walk,
+    as tests/test_torch_bench.py holds the bench's wavefront)."""
+    n = WIDE_SIDE * WIDE_SIDE
+    o, d, _ = camera_rays(*case["uvw"], WIDE_SIDE, WIDE_SIDE, 0, block=32)
+    tmin, tmax = np.full(n, 1e-3, np.float32), np.full(n, 1e16, np.float32)
+    ref = jtt.tile_closest(case["jts"].clusters, _j(o), _j(d), _j(tmin),
+                           _j(tmax), True, tile=JAX_TILE)
+    got = ttt.tile_closest_plain(case["ts"].clusters, o, d, _t(tmin),
+                                 _t(tmax), True, tile=tile)
+    ref_tri, ref_t = np.asarray(ref.tri), np.asarray(ref.t)
+    same = got.tri.numpy() == ref_tri
+    assert same.mean() >= TRI_AGREE[True], same.mean()
+    assert (ref_tri >= 0).mean() > 0.9
+    np.testing.assert_allclose(got.t.numpy()[same], ref_t[same],
+                               rtol=RTOL_MT)
+
+
+def _fake_round_walk(calls):
+    """A stand-in for K4's binding on CPU tensors: the transcription of its
+    walk (tests/tile_designs.k4_walk) with the binding's own check of the
+    tile (a multiple of 32 rays); records the lanes it was given."""
+    def round_walk(o_t, d_t, tmin_t, tmax_t, entries, ids, tri_block,
+                   tri_begin, tri_count, tri_k, cull):
+        r = o_t.shape[1]
+        assert r % 32 == 0 and r <= kernels.MAX_ROUND_LANES, r
+        calls.append(r)
+        cs = tclusters.TileClusterSet(
+            cmin=None, cmax=None, coeff=None, tri_block=tri_block,
+            tri_begin=tri_begin, tri_k=tri_k, tri_count=tri_count)
+        rec = {}
+        out = tile_designs.k4_walk(cull, rec)(cs, entries, ids, o_t, d_t,
+                                              tmin_t, tmax_t)
+        return (*out, torch.tensor(rec["rounds"], dtype=torch.int32))
+    return round_walk
+
+
+@pytest.mark.parametrize("tile", [100, 200])
+@pytest.mark.parametrize("form", ["plain", "design", "card_route"])
+def test_padded_tiles_walk_as_unpadded(case, monkeypatch, tile, form):
+    """Tiles of 100 and 200 rays padded to 128 and 224 lanes with dead rays
+    (tile_trace._padded): the round walk's (t, tri, u, v) equal the
+    unpadded walk's bit for bit, and so do the tiles' rounds. `plain`: the
+    host loop over K4's plain round (its visits, round by round);
+    `design`: the transcription of K4's walk (each tile's round count);
+    `card_route`: the card's wrapper (tile_trace._kernel_walk, which pads
+    a tile that is not a multiple of 32) around a stand-in for the binding,
+    its rounds as ROUND_LOG collects them."""
+    cs = case["ts"].clusters
+    args = tuple(map(_t, case["rays"]))
+    lanes = -(-tile // 32) * 32
+    cull = False
+    if form == "plain":
+        logs = []
+        outs = []
+        for pad in (False, True):
+            walk = ttt._round_loop(pallas_tile.mt_round_blocks_plain, cull)
+            tclusters.VISIT_LOG = log = []
+            try:
+                outs.append(ttt._walk(cs, *args, tile, True,
+                                      ttt._padded(walk, lanes) if pad
+                                      else walk))
+            finally:
+                tclusters.VISIT_LOG = None
+            logs.append(log)
+        assert {n for n, _ in logs[0]} == {tile}
+        assert {n for n, _ in logs[1]} == {lanes}
+        assert [c.tolist() for _, c in logs[0]] == \
+            [c.tolist() for _, c in logs[1]]
+        rounds = [sum(len(c) for _, c in log) for log in logs]
+    elif form == "design":
+        recs = [{}, {}]
+        outs = [ttt._walk(cs, *args, tile, True,
+                          ttt._padded(tile_designs.k4_walk(cull, rec), lanes)
+                          if pad else tile_designs.k4_walk(cull, rec))
+                for pad, rec in zip((False, True), recs)]
+        rounds = [rec["rounds"] for rec in recs]
+    else:
+        calls = []
+        monkeypatch.setattr(kernels, "round_walk", _fake_round_walk(calls))
+        rec = {}
+        unpadded = ttt._walk(cs, *args, tile, True,
+                             tile_designs.k4_walk(cull, rec))
+        ttt.ROUND_LOG = log = []
+        try:
+            padded = ttt._walk(cs, *args, tile, True,
+                               ttt._kernel_walk(cull, tile))
+        finally:
+            ttt.ROUND_LOG = None
+        assert calls == [lanes]
+        outs = [unpadded, padded]
+        rounds = [rec["rounds"], log[0].tolist()]
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    assert rounds[0] == rounds[1]
+    assert (outs[0][1] >= 0).any() and outs[0][0].shape == (N_RAYS,)
+
+
+def test_card_walk_refuses_tiles_above_a_block(case):
+    """On the card K4 takes tiles of 1 to 1,024 rays (a block's limit): a
+    larger tile raises with a message that names the limit, before any
+    work (the meta device stands in for the card)."""
+    cs = case["ts"].clusters
+    o = torch.zeros((2048, 3), device="meta")
+    t = torch.zeros((2048,), device="meta")
+    for tile in (0, 1025, 2048):
+        with pytest.raises(ValueError, match="1 to 1024 rays"):
+            ttt.tile_closest(cs, o, o, t, t, tile=tile, use_kernel=True)
+    assert kernels.MAX_ROUND_LANES == 1024

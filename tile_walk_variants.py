@@ -225,7 +225,7 @@ extern "C" int tile_walk_closest_old(const float* o, const float* d,
 
 _OLD_ROUND = _OLD_HELPERS + r'''
 namespace {
-__global__ void __launch_bounds__(kMaxRoundLanes)
+__global__ void __launch_bounds__(kRoundLanes)
 old_round_kernel(const float* __restrict__ o, const float* __restrict__ d,
                  const float* __restrict__ tmin,
                  const float* __restrict__ tmax_eff,
@@ -277,7 +277,7 @@ def _split_round(split: int) -> str:
     return r'''
 namespace {
 template <int kSplit>
-__global__ void __launch_bounds__(kMaxRoundLanes * kSplit)
+__global__ void __launch_bounds__(kRoundLanes * kSplit)
 split_round_kernel(const float* __restrict__ o, const float* __restrict__ d,
                    const float* __restrict__ tmin,
                    const float* __restrict__ tmax_eff,
