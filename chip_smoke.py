@@ -46,9 +46,10 @@ Phases, one status line each; any failure raises and exits non-zero:
      at most 32 triangles): K4's round walk (tile_closest on the card: one
      launch per trace, no host sync, each tile's rounds summing to the
      plain host loop's visits), K4's single round, and the fused walk K5
-     (closest and any hit) against their plain versions on the camera,
-     bounce and connection wavefronts, both cull settings, the bounce
-     wavefront with at least MIN_HIT_SHARE of its lanes hit; against
+     (closest and any hit, K5 any one launch a call) against their plain
+     versions on the camera, bounce and connection wavefronts, both cull
+     settings, the bounce wavefront with at least MIN_HIT_SHARE of its
+     lanes hit and the connection wavefront occluded; against
      brute force on a subset and against the walk mode; each kernel alone
      and each call; K5 closest and the single round beside their first
      forms (FIRST_FORMS, built from tile_walk_variants.py), which must equal
@@ -169,7 +170,7 @@ Phases, one status line each; any failure raises and exits non-zero:
      process): its three JSON lines, every key of BENCH_KEYS, nothing
      skipped, the frozen metric at tiles of BENCH_TILE, camera hits at
      least bench.HIT_SHARE, the subdivided interiors in BENCH_PARTS parts,
-     K4's walk (on its 256- and 1,024-thread blocks: mrays_tile1024), K1
+     K4's walk (on its forms of 1 and 4 CTAs a tile: mrays_tile1024), K1
      and K2 launched; then K4 alone at the metric's K = 16 (2,640
      clusters) on its 512x512 camera wavefront, at tiles of 256 and of
      JAX_TILE, torch.equal to its plain version, its rounds the plain
@@ -179,38 +180,39 @@ Phases, one status line each; any failure raises and exits non-zero:
      three timing lines, every frame one finite sample a pixel, K1 and K2
      launched;
  29. the tile mode at every tile and size JAX's takes (phase_tile_scale):
-     K4's walk at tiles of K4_TILES rays (100 padded to 128 lanes) on the
-     scale-4 bounce wavefront, torch.equal to tile_closest_plain, its
-     rounds the plain walk's visits, on the block kernels.round_block
-     names; timed at K4_WIDE with the single round there equal to its
-     plain version; the interior at TILE_SCALE (399,856 triangles, 17,197
-     tile clusters: more than one K5 block holds) in tile and walk mode: on
-     its camera 512x512 and 2^16-ray connection wavefronts (a third
-     masked) K5 any over the parts torch.equal to the plain walk over the
-     whole set, K5 closest over the parts torch.equal to its plain version
-     over them and on PARTS_TRI_AGREE of the lanes to the whole set's,
-     hit and occluded shares at least MIN_HIT_SHARE; K5 any over the parts
-     alone, called, plain, bounded by the plain walk's visits; PT 512x512,
-     depth 8, 1 spp in tile mode (launch counters from 0: K4 and K5 any,
-     a whole number of K5 launches a part) and in walk mode from the same
-     seeds, means within TILE_MEAN_PT.
+     the library's rule of K4's CTAs a tile (tile_round_walk_ctas) equal
+     to kernels.round_ctas at every tile; K4's walk at tiles of K4_TILES
+     rays (100 padded to 128 lanes) on the scale-4 bounce wavefront,
+     torch.equal to tile_closest_plain, its rounds the plain walk's
+     visits, on the form of kernels.round_ctas CTAs a tile; timed at
+     K4_WIDE with the single round there equal to its plain version; the
+     interior at TILE_SCALE (399,856 triangles, 17,197 tile clusters: more
+     than one K5 closest block holds) in tile and walk mode: on its camera
+     512x512 and 2^16-ray connection wavefronts (a third masked) K5 any in
+     one launch over the whole set torch.equal to the whole set's plain
+     walk, K5 closest over the parts torch.equal to the whole set's plain
+     walk in t, tri, u and v, hit and occluded shares at least
+     MIN_HIT_SHARE; K5 any alone, called, plain, bounded by its own tests
+     (the plain walk's visits beside them); PT 512x512, depth 8, 1 spp in
+     tile mode (launch counters from 0: K4, and K5 any once a trace_any)
+     and in walk mode from the same seeds, means within TILE_MEAN_PT.
 Each render phase sets every launch counter to 0 just before it renders and
 reads them just after (the profiler's counters start at 0 in its own
 process and are read from its last line); the CLI renders' PNG, HDR and
 stats go to smoke_out/. The last three lines are the card as nvidia-smi
 names it, one JSON object with each kernel's numbers (its bound from the
 plain version's visits on the same inputs, see PEAK_F32_FLOPS; the K6
-forms and K5 closest, which test fewer pairs than their plain version,
-take the bound of their own tests (their groups' optional rounds output)
+forms and K5, which test other pairs than their plain version, take the
+bound of their own tests (their groups' or tiles' optional rounds output)
 and K4's single round that of its live lanes, each carrying the plain
 version's beside it as plain_bound_ms; K1's and K2's rows carry their
 launches on phase 22's partitioned render as parts_launches, on
 the bench as bench_launches and on time_frames as time_frames_launches,
 K4's walk its K = 16 row of phase 27 as `bench`; rows for K4's walk at
 512 and 1,024 rays a tile (phase 29's bounce wavefront; launches: those
-on each block over the bench; the 1,024 row its K = 16 row of phase 27 as
-`bench`) and for K5 any over the parts (phase 29's connection wavefront;
-launches: its tile-mode render's);
+on each form over the bench; the 1,024 row its K = 16 row of phase 27 as
+`bench`) and for K5 any on the scale-14 interior (phase 29's connection
+wavefront; launches: its tile-mode render's);
 K3's rows bound the live work of their inputs stage by stage and carry
 every lane against every triangle as plain_bound_ms, and the shares of
 live pairs failing at det, at u and at v; every row gives the kernel alone
@@ -390,17 +392,13 @@ JAX_TILE = 1024          # the JAX bench's tile (mrays_tile1024)
 # the tile mode at every size and tile JAX takes (phase 29): K4's walk at
 # these tiles (100 padded to 128 lanes) on the scale-4 bounce wavefront,
 # timed at the wide ones; the interior at scale 14, whose tile clusters
-# (17,197) are more than one K5 block holds, in tile and walk mode
+# (17,197) are more than one K5 closest block holds, in tile and walk mode
 K4_TILES = (32, 64, 100, 256, 512, 1024)
 K4_WIDE = (512, 1024)
 TILE_SCALE = 14
 TILE_SCALE_TRIS = 399_856
 TILE_SCALE_DIM = 512
 TILE_SCALE_DEPTH = 8
-# K5 closest over parts against the whole set (its plain version): a later
-# part wins only with a strictly smaller t, so a ray meeting triangles of
-# two parts at the same t keeps the earlier part's
-PARTS_TRI_AGREE = 0.9999
 # the numbers of a kernel's row in the kernels line
 ROW_KEYS = ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
@@ -510,6 +508,10 @@ def phase_build() -> dict:
                 fn = kernel_name(entry.group(1))
             if "registers" in line or "spill" in line:
                 log("build", f"ptxas: {fn}: " + line.strip())
+            spill = re.search(r"(\d+) bytes spill stores", line)
+            # K4's walk, on one CTA a tile or a cluster of 2 or 4: no spill
+            assert not (fn.startswith("round_walk_kernel<") and spill
+                        and int(spill.group(1))), f"{fn} spills: {line}"
     log("build", f"all kernels ready in {time.perf_counter() - t0:.2f} s "
                  f"(with the first forms {sorted(first)})")
     return first
@@ -567,6 +569,40 @@ def k4_walk_bound(tests: int, tile_visits: int, tris_seen: int, tiles: int,
     tri_begin and tri_count, the visited clusters' triangles, the hits."""
     return bound(tests, lanes * (RAY_BYTES + 16) + (tile_visits + tiles) * 8
                  + tiles * 4 + clusters * 8 + tris_seen * TRI_BYTES)
+
+
+def any_bound(cs, qo, qd, qtn, qseg, flags, tests, tris_seen, tile_visits,
+              name: str) -> dict:
+    """bound() of K5 any on prepared rays from its own work: the slots its
+    tiles' testing lanes tested (its optional rounds output; the box tests
+    of the chunks it scans, 25 operations each, are not counted, a lower
+    bound), with the plain walk's `tests` (its `tile_visits`) as
+    plain_bound_ms; bytes: the rays, the boxes and tri_count, the
+    triangles of the clusters the plain walk visits (the same set in
+    reach), the flags. Checks the rounds form against `flags` (the plain
+    walk's on the same prepared rays) and logs the tiles' visits beside the
+    plain walk's."""
+    from spcbpt_tpu_torch.kernels import tile_walk as kernels
+    from spcbpt_tpu_torch.ops import pallas_tile
+
+    nq, c = qo.shape[0], cs.num_clusters
+    rounds = torch.empty((nq // pallas_tile.TILE, 2), dtype=torch.int32,
+                         device=qo.device)
+    got = kernels.walk_any(qo, qd, qtn, qseg, cs.cmin, cs.cmax, cs.tri_block,
+                           cs.tri_count, cs.tri_k, rounds)
+    assert torch.equal(got, flags), f"K5 any {name}: the rounds form"
+    own = int(rounds[:, 1].long().sum())
+    nbytes = nq * (RAY_BYTES + 4) + c * 28 + tris_seen * TRI_BYTES
+    row = dict(bound(own, nbytes),
+               plain_bound_ms=bound(tests, nbytes)["bound_ms"])
+    log("tile", f"{name}: K5 any's {nq // pallas_tile.TILE} tiles visited "
+                f"{int(rounds[:, 0].long().sum())} clusters (at most "
+                f"{int(rounds[:, 0].max())}) against the plain walk's "
+                f"{tile_visits}; ray-triangle tests: its own {own}, the "
+                f"plain walk's {tests} ({own / max(tests, 1):.3f}x); bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}), the plain "
+                f"walk's {row['plain_bound_ms']:.4f} ms")
+    return row
 
 
 def slab_tests(row_e, live) -> int:
@@ -1799,11 +1835,14 @@ def phase_tile_kernels(tts, wts, waves, dev, first_forms) -> dict:
                 results["tile_walk_closest"] = dict(
                     max_abs_err=(k5.t - p5.t).abs().max().item())
         tseg = any_segments(name, tmax, n, dev)
+        kernels.reset_launches()
         occ_k = pallas_tile.pallas_any(cs, o, d, tmin, tseg, sort_rays=True)
+        any_launches = kernels.LAUNCHES["tile_walk_any"]
         occ_p = pallas_tile.pallas_any_plain(cs, o, d, tmin, tseg,
                                              sort_rays=True)
         torch.cuda.synchronize()
         assert torch.equal(occ_k, occ_p), f"K5 any {name}: differs from plain"
+        assert any_launches == 1, (name, any_launches)
         occ_w = ray_walk.walk_any(wts.clusters_walk, o, d, tmin, tseg,
                                   sort_rays=True)
         bf = intersect.brute_force_any(o[sub], d[sub], *tris, tmin[sub],
@@ -1815,6 +1854,8 @@ def phase_tile_kernels(tts, wts, waves, dev, first_forms) -> dict:
                     f"brute {bf_agree:.6f}")
         assert bf_agree >= OCC_AGREE, (name, bf_agree)
         if name.startswith("connection"):
+            # the any hit's times are taken here: they must time occlusion
+            assert occ_k.float().mean().item() >= MIN_HIT_SHARE, name
             results["tile_walk_any"] = dict(
                 max_abs_err=(occ_k.int() - occ_p.int()).abs().max().item())
 
@@ -1981,13 +2022,12 @@ def phase_tile_kernels(tts, wts, waves, dev, first_forms) -> dict:
             log("tile", f"{name}: K4 walk {v4} visits of {TILE_LANES} rays "
                         f"({t4} ray-triangle tests)")
         if name.startswith("connection"):
-            t5, tri5, v5 = visits(lambda: pallas_tile.any_tiles_plain(
-                cs, qo, qd, qtn, qseg), sizes)
+            pa = []
+            t5, tri5, v5 = visits(lambda: pa.append(
+                pallas_tile.any_tiles_plain(cs, qo, qd, qtn, qseg)), sizes)
             results["tile_walk_any"].update(ms=k5a, call_ms=c5a,
-                                            plain_ms=p5a, **bound(
-                t5, nq * (RAY_BYTES + 4) + c * 28 + tri5 * TRI_BYTES))
-            log("tile", f"{name}: K5 any {v5} visits of {pallas_tile.TILE} "
-                        f"rays ({t5} ray-triangle tests)")
+                                            plain_ms=p5a, **any_bound(
+                cs, qo, qd, qtn, qseg, pa[0], t5, tri5, v5, name))
     return results
 
 
@@ -3141,8 +3181,8 @@ def phase_bench(ts, cam, smi: str) -> tuple:
     0) at tiles of 256 and of 1,024 (k4_tile_check): torch.equal to its
     plain version, its rounds the plain walk's visits, alone (graph_ms)
     and called, bounded by the plain walk's visits. Returns (the bench's
-    launches, K4's walk launches by block over the bench, the K=16 rows at
-    tiles of 256 and of 1,024, each with its block's launches)."""
+    launches, K4's walk launches by CTAs a tile over the bench, the K=16
+    rows at tiles of 256 and of 1,024, each with its form's launches)."""
     from spcbpt_tpu_torch.apps import bench
     from spcbpt_tpu_torch.kernels import tile_walk as kernels
     from spcbpt_tpu_torch.ops import clusters
@@ -3150,7 +3190,7 @@ def phase_bench(ts, cam, smi: str) -> tuple:
     reset_launches()
     rc, lines = run_captured(lambda: bench.main([]), "bench")
     launches = read_launches()
-    blocks = dict(kernels.ROUND_WALK_BLOCKS)
+    forms = dict(kernels.ROUND_WALK_FORMS)
     out = [json.loads(line) for line in lines if line.startswith("{")]
     assert rc == 0 and len(out) == 3, lines
     final = out[-1]
@@ -3170,12 +3210,14 @@ def phase_bench(ts, cam, smi: str) -> tuple:
     assert all(np.isfinite(x) and x > 0 for x in numbers), final
     for k in ("tile_round_walk", "walk_closest", "walk_any"):
         assert launches[k] > 0, launches
-    # K4's walk ran at both tiles: the metric's on the 256-thread instance,
-    # mrays_tile1024 on the 1,024-thread one
-    assert blocks[BENCH_TILE] > 0 and blocks[JAX_TILE] > 0, blocks
-    assert sum(blocks.values()) == launches["tile_round_walk"], blocks
+    # K4's walk ran at both tiles: the metric's on one CTA a tile,
+    # mrays_tile1024 on clusters of 4
+    ctas = {tile: kernels.round_ctas(tile) for tile in (BENCH_TILE, JAX_TILE)}
+    assert ctas == {BENCH_TILE: 1, JAX_TILE: 4}, ctas
+    assert all(forms[q] > 0 for q in ctas.values()), forms
+    assert sum(forms.values()) == launches["tile_round_walk"], forms
     log("bench", f"nvidia-smi: {smi}; launches {launches}; K4's walk by "
-                 f"block {blocks}")
+                 f"CTAs a tile {forms}")
 
     cs = bench.tile_clusters(ts)
     side = CAMERA_DIM
@@ -3198,9 +3240,10 @@ def phase_bench(ts, cam, smi: str) -> tuple:
                      f"{row['bound_ms']:.4f} ms ({row['bound_by']}); hits "
                      f"{row['hits']:.4f}; round 0 equal to its plain version")
         rows[tile] = dict(k=cs.tri_k, clusters=cs.num_clusters,
-                          wavefront=f"camera{side}", launches=blocks[tile],
+                          wavefront=f"camera{side}",
+                          launches=forms[ctas[tile]],
                           **{k: row[k] for k in ROW_KEYS})
-    return launches, blocks, rows[BENCH_TILE], rows[JAX_TILE]
+    return launches, forms, rows[BENCH_TILE], rows[JAX_TILE]
 
 
 def phase_time_frames(smi: str) -> dict:
@@ -3230,8 +3273,8 @@ def phase_time_frames(smi: str) -> dict:
 def k4_tile_check(cs, sizes, o, d, tmin, tmax, cull, tile: int,
                   sort_rays: bool, timed: bool) -> dict:
     """K4's walk at `tile` rays a tile through tile_closest on the card (one
-    launch, on the instance kernels.round_block gives the tile's lanes; a
-    tile that is not a multiple of 32 padded) torch.equal to
+    launch, on the form of kernels.round_ctas(tile) CTAs a tile; a tile
+    that is not whole warps on each padded) torch.equal to
     tile_closest_plain on the same rays, its tiles' rounds summing to the
     plain walk's visits. Returns the row of the kernels line: max_abs_err,
     hits, visits, tests; with `timed` also the walk alone on the prepared
@@ -3242,7 +3285,7 @@ def k4_tile_check(cs, sizes, o, d, tmin, tmax, cull, tile: int,
     from spcbpt_tpu_torch.kernels import tile_walk as kernels
     from spcbpt_tpu_torch.ops import pallas_tile, tile_trace
 
-    lanes = -(-tile // 32) * 32
+    lanes = kernels.round_lanes(tile)
     kernels.reset_launches()
     tile_trace.ROUND_LOG = rounds = []
     try:
@@ -3250,9 +3293,9 @@ def k4_tile_check(cs, sizes, o, d, tmin, tmax, cull, tile: int,
                                      use_kernel=True, sort_rays=sort_rays)
     finally:
         tile_trace.ROUND_LOG = None
-    blocks = dict(kernels.ROUND_WALK_BLOCKS)
+    forms = dict(kernels.ROUND_WALK_FORMS)
     assert kernels.LAUNCHES["tile_round_walk"] == 1, kernels.LAUNCHES
-    assert blocks[kernels.round_block(lanes)] == 1, (tile, blocks)
+    assert forms[kernels.round_ctas(lanes)] == 1, (tile, forms)
     p4 = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3306,25 +3349,30 @@ def k4_tile_check(cs, sizes, o, d, tmin, tmax, cull, tile: int,
 def phase_tile_scale(out_dir: str, dev, tts, bounce) -> dict:
     """The tile mode at every tile and scene size JAX's takes. K4's walk at
     K4_TILES on the scale-4 bounce wavefront `bounce` (K = 32) against
-    tile_closest_plain, timed at K4_WIDE; the interior at TILE_SCALE in tile
-    mode (more tile clusters than one K5 block holds: K5 over parts) and in
-    walk mode (K1/K2 over parts): on its camera 512x512 and 2^16-ray
-    connection wavefronts, K5 any over parts torch.equal to the plain walk
-    over the whole set, K5 closest over parts torch.equal to its plain
-    version over the same parts and within PARTS_TRI_AGREE of the whole
-    set's, hit and occluded shares at least MIN_HIT_SHARE; K5 any over parts
-    alone, called, plain, bounded by the plain walk's visits; PT
+    tile_closest_plain (the library's rule of CTAs a tile equal to
+    kernels.round_ctas), timed at K4_WIDE; the interior at TILE_SCALE in
+    tile mode (more tile clusters than one K5 closest block holds: K5
+    closest over parts, K5 any whole) and in walk mode (K1/K2 over parts):
+    on its camera 512x512 and 2^16-ray connection wavefronts, K5 any in one
+    launch torch.equal to the plain walk over the whole set, K5 closest
+    over parts torch.equal to the whole set's plain walk (t, tri, u, v),
+    hit and occluded shares at least MIN_HIT_SHARE; K5 any alone, called,
+    plain, bounded by its own tests (the plain walk's beside it); PT
     TILE_SCALE_DIM^2, depth TILE_SCALE_DEPTH, 1 spp in tile mode (launch
-    counters from 0 around it) and in walk mode, same seeds: exact counts,
-    finite, means within TILE_MEAN_PT. Returns the kernels line's rows
-    (tile_round_walk_512 and _1024, tile_walk_any_parts with its render's
-    launches)."""
+    counters from 0 around it: one K5 any launch a trace_any) and in walk
+    mode, same seeds: exact counts, finite, means within TILE_MEAN_PT.
+    Returns the kernels line's rows (tile_round_walk_512 and _1024,
+    tile_walk_any_scale14 with its render's launches)."""
     from spcbpt_tpu_torch.apps.render_cli import generate_interior
     from spcbpt_tpu_torch.kernels import tile_walk as kernels
     from spcbpt_tpu_torch.ops import clusters, pallas_tile, tile_trace
     from spcbpt_tpu_torch.render import pt_pool
     from spcbpt_tpu_torch.scene.scene import load_trace_scene
 
+    rule = [kernels._lib().tile_round_walk_ctas(r)
+            for r in range(1, kernels.MAX_ROUND_LANES + 1)]
+    assert rule == [kernels.round_ctas(r)
+                    for r in range(1, kernels.MAX_ROUND_LANES + 1)]
     results = {}
     cs = tts.clusters
     sizes = clusters.cluster_sizes(cs, tts.num_tris)
@@ -3338,7 +3386,8 @@ def phase_tile_scale(out_dir: str, dev, tts, bounce) -> dict:
                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}), round 0 "
                  f"equal to its plain version" if tile in K4_WIDE else "")
         log("tile-scale", f"K4 walk, {name}, tiles of {tile} ({row['lanes']}"
-                          f" lanes): equal to tile_closest_plain, rounds sum "
+                          f" lanes, {kernels.round_ctas(tile)} CTAs a "
+                          f"tile): equal to tile_closest_plain, rounds sum "
                           f"{row['visits']} = its visits ({row['tests']} "
                           f"ray-triangle tests), hits {row['hits']:.4f}"
                           + extra)
@@ -3359,128 +3408,135 @@ def phase_tile_scale(out_dir: str, dev, tts, bounce) -> dict:
                       f"generated in {t1 - t0:.1f} s, loaded in tile mode in "
                       f"{t2 - t1:.1f} s, in walk mode in "
                       f"{time.perf_counter() - t2:.1f} s; "
-                      f"{scs.num_clusters} tile clusters in "
-                      f"{len(parts.parts)} parts of "
-                      f"{[b - a for a, b in parts.bounds]} (a K5 launch "
-                      f"holds {kernels.MAX_ANY_CLUSTERS}); walk mode "
-                      f"{len(wts.clusters_walk.parts)} parts")
+                      f"{scs.num_clusters} tile clusters: K5 any takes them "
+                      f"whole ({kernels.any_parts(scs.num_clusters)} blocks "
+                      f"a tile), K5 closest in {len(parts.parts)} parts of "
+                      f"{[b - a for a, b in parts.bounds]} (a K5 closest "
+                      f"launch holds {kernels.MAX_CLOSEST_CLUSTERS}); walk "
+                      f"mode {len(wts.clusters_walk.parts)} parts")
     assert sts.num_tris == TILE_SCALE_TRIS, sts.num_tris
-    assert scs.num_clusters > kernels.MAX_ANY_CLUSTERS, scs.num_clusters
+    assert scs.num_clusters > kernels.MAX_CLOSEST_CLUSTERS, scs.num_clusters
     assert isinstance(parts, clusters.ClusterParts)
     assert len(parts.parts) >= 2
-    whole = scs.num_clusters     # max_clusters of the whole set's walk
     ssizes = clusters.cluster_sizes(scs, sts.num_tris)
     for name, o, d, tmax in (camera_wavefront(cam, dev),
                              connection_wavefront(sts, cam, dev, draws=1)):
         n = o.shape[0]
         tmin = torch.full((n,), 1e-3, device=dev)
+        kernels.reset_launches()
         k5 = pallas_tile.pallas_closest(scs, o, d, tmin, tmax, False,
                                         sort_rays=True)
-        p5 = pallas_tile.pallas_closest_plain(scs, o, d, tmin, tmax, False,
-                                              sort_rays=True)
+        closest_launches = kernels.LAUNCHES["tile_walk_closest"]
         w5 = pallas_tile.pallas_closest_plain(scs, o, d, tmin, tmax, False,
                                               sort_rays=True,
-                                              max_clusters=whole)
+                                              max_clusters=scs.num_clusters)
         torch.cuda.synchronize()
         for f in ("tri", "t", "u", "v"):
-            assert torch.equal(getattr(k5, f), getattr(p5, f)), \
-                f"K5 closest over parts, {name}: {f} differs from plain"
-        same = k5.tri == w5.tri
-        agree = same.float().mean().item()
+            assert torch.equal(getattr(k5, f), getattr(w5, f)), \
+                f"K5 closest over parts, {name}: {f} differs from the " \
+                f"whole set's plain walk"
+        assert closest_launches == len(parts.parts), closest_launches
         hits = (k5.tri >= 0).float().mean().item()
-        assert torch.equal(k5.t[same], w5.t[same]), name
         tseg = brute_segments(name, k5, tmax, n, dev)
+        kernels.reset_launches()
         occ = pallas_tile.pallas_any(scs, o, d, tmin, tseg, sort_rays=True)
-        occ_w = pallas_tile.pallas_any_plain(scs, o, d, tmin, tseg,
-                                             sort_rays=True,
-                                             max_clusters=whole)
+        any_launches = kernels.LAUNCHES["tile_walk_any"]
+        # the whole set's plain walk on the rays as pallas_any_plain
+        # prepares them, its visits logged (the plain walk's bound)
+        qo, qd, qtn, qseg, _, perm = pallas_tile.prepare(scs, o, d, tmin,
+                                                         tseg, True)
+        out = []
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tests, tris_seen, tile_visits = visits(lambda: out.append(
+            pallas_tile.any_tiles_plain(scs, qo, qd, qtn, qseg)), ssizes)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        occ_w = tile_trace.unsort(out[0][:n] > 0, perm)
         assert torch.equal(occ, occ_w), \
-            f"K5 any over parts, {name}: differs from the whole set's walk"
+            f"K5 any, {name}: differs from the whole set's plain walk"
+        assert any_launches == 1, any_launches
         occluded = occ.float().mean().item()
         log("tile-scale", f"{name}: K5 closest over {len(parts.parts)} "
-                          f"parts equals its plain version over them; tri "
-                          f"agreement with the whole set's walk {agree:.6f} "
-                          f"(bound {PARTS_TRI_AGREE}), hits {hits:.4f}; K5 "
-                          f"any over the parts equals the whole set's walk, "
-                          f"occluded {occluded:.4f}")
-        assert agree >= PARTS_TRI_AGREE, (name, agree)
+                          f"parts ({closest_launches} launches) equals the "
+                          f"whole set's plain walk in t, tri, u, v; hits "
+                          f"{hits:.4f}; K5 any in one launch over all "
+                          f"{scs.num_clusters} clusters equals the whole "
+                          f"set's plain walk, occluded {occluded:.4f}")
         assert hits >= MIN_HIT_SHARE and occluded >= MIN_HIT_SHARE, \
             (name, hits, occluded)
         if not name.startswith("connection"):
             continue
-        # K5 any over the parts alone on the prepared rays, the call, and
-        # the plain walk over the parts (by any_parts_rows' rule), whose
-        # visits, part by part, give the bound
-        qo, qd, qtn, qseg = pallas_tile.prepare(scs, o, d, tmin, tseg,
-                                                True)[:4]
-        walk = lambda: pallas_tile.any_sets(parts, qo, qd, qtn, qseg)
-        got = walk()
-        tests = tris_seen = 0
-        flags = None
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for (a, b), part in zip(parts.bounds, parts.parts):
-            cur = qseg if flags is None else torch.where(flags > 0, -1.0,
-                                                         qseg)
-            out = []
-            t_, tr_, _ = visits(lambda: out.append(
-                pallas_tile.any_tiles_plain(part, qo, qd, qtn, cur)),
-                ssizes[a:b])
-            flags = out[0] if flags is None else flags | out[0]
-            tests, tris_seen = tests + t_, tris_seen + tr_
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        assert torch.equal(got, flags), "K5 any over parts on prepared rays"
-        nq = qo.shape[0]
-        results["tile_walk_any_parts"] = dict(
-            max_abs_err=(got - flags).abs().max().item(), ms=graph_ms(walk),
+        # K5 any alone on the prepared rays, the call, the plain walk (its
+        # visits give the plain walk's bound), and its own tests' bound
+        walk = lambda: kernels.walk_any(qo, qd, qtn, qseg, scs.cmin,
+                                        scs.cmax, scs.tri_block,
+                                        scs.tri_count, scs.tri_k)
+        flags = out[0]
+        assert torch.equal(walk(), flags), "K5 any on prepared rays"
+        results["tile_walk_any_scale14"] = dict(
+            max_abs_err=(walk() - flags).abs().max().item(),
+            ms=graph_ms(walk),
             call_ms=cuda_ms(lambda: pallas_tile.pallas_any(
                 scs, o, d, tmin, tseg, sort_rays=True), 5),
             plain_ms=plain_ms,
-            **bound(tests, nq * (RAY_BYTES + 4) + whole * 28
-                    + tris_seen * TRI_BYTES))
-        row = results["tile_walk_any_parts"]
+            **any_bound(scs, qo, qd, qtn, qseg, flags, tests, tris_seen,
+                        tile_visits, f"scale {TILE_SCALE} {name}"))
+        row = results["tile_walk_any_scale14"]
         log("tile-scale", f"{name} ({n} rays): K5 any over "
-                          f"{len(parts.parts)} parts alone {row['ms']:.4f} "
-                          f"ms, call {row['call_ms']:.4f} ms, plain "
-                          f"{plain_ms:.1f} ms; {tests} ray-triangle tests of "
-                          f"the plain walk, bound {row['bound_ms']:.4f} ms "
-                          f"({row['bound_by']})")
+                          f"{scs.num_clusters} clusters alone "
+                          f"{row['ms']:.4f} ms, call {row['call_ms']:.4f} "
+                          f"ms, plain {plain_ms:.1f} ms; bound "
+                          f"{row['bound_ms']:.4f} ms ({row['bound_by']}) "
+                          f"from its own tests, the plain walk's "
+                          f"{row['plain_bound_ms']:.4f} ms ({tests} "
+                          f"ray-triangle tests)")
 
     uvw, dim = cam.uvw(), TILE_SCALE_DIM
     renders = {}
+    traced = []
+    pallas_any = pallas_tile.pallas_any
+
+    def counted_any(*a, **k):
+        traced.append(1)
+        return pallas_any(*a, **k)
     for mode, scene in (("tile", sts), ("walk", wts)):
         torch.cuda.synchronize()
         reset_launches()
+        traced.clear()
+        pallas_tile.pallas_any = counted_any
         t0 = time.perf_counter()
-        fsum, count = pt_pool.render_pool(scene, uvw, dim, dim, 1, 0,
-                                          max_depth=TILE_SCALE_DEPTH)
-        torch.cuda.synchronize()
+        try:
+            fsum, count = pt_pool.render_pool(scene, uvw, dim, dim, 1, 0,
+                                              max_depth=TILE_SCALE_DEPTH)
+            torch.cuda.synchronize()
+        finally:
+            pallas_tile.pallas_any = pallas_any
         ms = (time.perf_counter() - t0) * 1e3
         launches = read_launches()
         walks = dict(tile_trace.WALK_STATS)
         assert (count == 1).all(), f"{mode} mode: per-pixel counts"
         img = fsum / count[:, None]
         assert torch.isfinite(img).all(), mode
-        renders[mode] = (img.mean().item(), ms, launches, walks)
-    (mean, ms, launches, walks), (ref, wms, wl, _) = (renders["tile"],
-                                                       renders["walk"])
+        renders[mode] = (img.mean().item(), ms, launches, walks, len(traced))
+    (mean, ms, launches, walks, any_calls), (ref, wms, wl, _, _) = (
+        renders["tile"], renders["walk"])
     rel = abs(mean - ref) / ref
     log("tile-scale", f"PT {dim}x{dim}, depth {TILE_SCALE_DEPTH}, 1 spp: "
                       f"tile mode {ms:.1f} ms, mean {mean:.6f}, launches "
-                      f"{launches}; walk mode {wms:.1f} ms, mean {ref:.6f}, "
-                      f"K1 {wl['walk_closest']}, K2 {wl['walk_any']} "
-                      f"launches; {rel * 100:.4f}% apart (bound "
+                      f"{launches} ({any_calls} any-hit traces); walk mode "
+                      f"{wms:.1f} ms, mean {ref:.6f}, K1 "
+                      f"{wl['walk_closest']}, K2 {wl['walk_any']} launches; "
+                      f"{rel * 100:.4f}% apart (bound "
                       f"{TILE_MEAN_PT * 100:.1f}%)")
     assert launches["tile_round_walk"] == walks["walks"] > 0, \
         (launches, walks)
     assert walks["syncs"] == 0 and launches["tile_round"] == 0, launches
     k5 = launches["tile_walk_any"]
-    assert k5 > 0 and k5 % len(parts.parts) == 0, launches
+    assert k5 == any_calls > 0, (launches, any_calls)
     assert launches["walk_closest"] == launches["walk_any"] == 0, launches
     assert rel <= TILE_MEAN_PT, (mean, ref)
-    results["tile_walk_any_parts"]["launches"] = k5
+    results["tile_walk_any_scale14"]["launches"] = k5
     return results
 
 
@@ -3489,6 +3545,7 @@ def main() -> int:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this script needs an NVIDIA card")
     from spcbpt_tpu_torch.apps.render_cli import resolve_scene
+    from spcbpt_tpu_torch.kernels import tile_walk
     from spcbpt_tpu_torch.ops import bvh
     from spcbpt_tpu_torch.scene.scene import load_trace_scene
 
@@ -3549,7 +3606,7 @@ def main() -> int:
     timer, frame_lines = phase_viewer(out_dir, dev, trained_path, parts_path,
                                       n_parts)
     phase_profiling(out_dir, cts, timer, frame_lines)
-    bench_launches, bench_blocks, k16, k16_wide = phase_bench(ts, cam, smi)
+    bench_launches, bench_forms, k16, k16_wide = phase_bench(ts, cam, smi)
     frames_launches = phase_time_frames(smi)
     numbers.update(phase_tile_scale(out_dir, dev, tts, waves[1]))
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
@@ -3566,7 +3623,7 @@ def main() -> int:
                "list_walk_any_stream": "list_walk.cu",
                "tile_round_walk_512": "tile_walk.cu",
                "tile_round_walk_1024": "tile_walk.cu",
-               "tile_walk_any_parts": "tile_walk.cu"}
+               "tile_walk_any_scale14": "tile_walk.cu"}
     replaces = {"walk_closest": "spcbpt_tpu/ops/ray_walk.py:144",
                 "walk_any": "spcbpt_tpu/ops/ray_walk.py:197",
                 "brute_closest": "spcbpt_tpu/ops/pallas_trace.py:28",
@@ -3581,7 +3638,7 @@ def main() -> int:
                 "list_walk_any_stream": "spcbpt_tpu/ops/pallas_walk.py:235",
                 "tile_round_walk_512": "spcbpt_tpu/ops/pallas_tile.py:416",
                 "tile_round_walk_1024": "spcbpt_tpu/ops/pallas_tile.py:416",
-                "tile_walk_any_parts": "spcbpt_tpu/ops/pallas_tile.py:236"}
+                "tile_walk_any_scale14": "spcbpt_tpu/ops/pallas_tile.py:236"}
     # K1/K2 also carry their launches on the partitioned render, the bench
     # and time_frames; K4's walk its bench row (K = 16, camera 512x512)
     for k in ("walk_closest", "walk_any"):
@@ -3589,14 +3646,15 @@ def main() -> int:
         numbers[k]["bench_launches"] = bench_launches[k]
         numbers[k]["time_frames_launches"] = frames_launches[k]
     numbers["tile_round_walk"]["bench"] = k16
-    # K4's walk at 512 and 1,024 rays a tile: its launches on those blocks
-    # over the bench (no render takes either tile), the 1,024 row the
-    # bench's K = 16 wavefront beside it; K5 any over parts: its launches
-    # in phase 29's tile-mode render of the scale-14 interior
+    # K4's walk at 512 and 1,024 rays a tile: its launches on those forms
+    # (clusters of 2 and 4 CTAs) over the bench (no render takes either
+    # tile), the 1,024 row the bench's K = 16 wavefront beside it; K5 any
+    # on the scale-14 interior: its launches in phase 29's tile-mode render
     for tile in K4_WIDE:
-        launches[f"tile_round_walk_{tile}"] = bench_blocks[tile]
+        launches[f"tile_round_walk_{tile}"] = bench_forms[
+            tile_walk.round_ctas(tile)]
     numbers["tile_round_walk_1024"]["bench"] = k16_wide
-    launches["tile_walk_any_parts"] = numbers["tile_walk_any_parts"].pop(
+    launches["tile_walk_any_scale14"] = numbers["tile_walk_any_scale14"].pop(
         "launches")
     kernels = [dict(name=k, route="cuda",
                     source=f"spcbpt_tpu_torch/csrc/{sources[k]}",

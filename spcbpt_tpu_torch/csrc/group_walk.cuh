@@ -163,13 +163,15 @@ __device__ __forceinline__ const float* round_block(
 
 // --- the closest-hit walk of one group -----------------------------------
 
-// One ray's closest hit (t 1e30, id -1, u = v = 0 on a miss) and its
-// group's walk: the positions it walked and the slots its rays tested,
-// summed over the rays.
+// One ray's closest hit (t 1e30, id -1, u = v = 0 on a miss), the tile's
+// entry bound into the cluster that holds it (kEntry; 1e30 on a miss or
+// without kEntry), and its group's walk: the positions it walked and the
+// slots its rays tested, summed over the rays.
 struct GroupHit {
   float t, u, v;
   int id;
   int rounds, slots;
+  float e;
 };
 
 // The closest-hit walk of one group of kGroupRays rays, one warp: lane =
@@ -184,15 +186,16 @@ struct GroupHit {
 // the list's end or (prune) at an entry past its bound, the warp max of
 // min(best_t, tmax) over its rays, tested before round 0 and after every
 // round. The slots are read in place (resident) or staged into the warp's
-// double buffer `buf` of 2 x kStage floats (kStream, round_block).
-template <int kGroupRays, bool kStream, typename Decode>
+// double buffer `buf` of 2 x kStage floats (kStream, round_block). With
+// kEntry the walk also keeps the entry of the best hit's position.
+template <int kGroupRays, bool kStream, bool kEntry = false, typename Decode>
 __device__ __forceinline__ GroupHit closest_group_walk(
     const Ray& ray, float tmn, float tmx, int n, int cull, int prune,
     const float* __restrict__ blocks, const int* __restrict__ tri_count,
     float* buf, int lane, Decode decode) {
   constexpr int kSplit = 32 / kGroupRays;  // threads per ray
   const int q = lane / kGroupRays;
-  float best_t = kBig, best_u = 0.0f, best_v = 0.0f;
+  float best_t = kBig, best_u = 0.0f, best_v = 0.0f, best_e = kBig;
   int best_id = -1;
   float bound = warp_max(fminf(best_t, tmx));
   int r = 0, slots = 0;
@@ -218,6 +221,7 @@ __device__ __forceinline__ GroupHit closest_group_walk(
       const int c_id = __shfl_sync(kFull, cid, at);
       const int c_cnt = __shfl_sync(kFull, cnt, at);
       const int c_base = __shfl_sync(kFull, base, at);
+      const float c_te = kEntry ? __shfl_sync(kFull, te, at) : kBig;
       const float* s = round_block<kStream>(blocks, buf, r, at, c_id, c_cnt,
                                             open, cid, cnt, lane, staged);
       slots += c_cnt;
@@ -243,6 +247,7 @@ __device__ __forceinline__ GroupHit closest_group_walk(
         best_id = c_base + cs;
         best_u = cu;
         best_v = cv;
+        best_e = c_te;
       }
       bound = warp_max(fminf(best_t, tmx));
       // every lane is done with this stage before it is refilled
@@ -250,7 +255,8 @@ __device__ __forceinline__ GroupHit closest_group_walk(
     }
   }
   if (kStream) wait_all();  // drain a copy ahead of a walk that stopped
-  return GroupHit{best_t, best_u, best_v, best_id, r, kGroupRays * slots};
+  return GroupHit{best_t, best_u, best_v, best_id, r, kGroupRays * slots,
+                  best_e};
 }
 
 }  // namespace

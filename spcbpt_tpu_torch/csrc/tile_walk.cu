@@ -37,9 +37,10 @@
 // ray's chain of slot tests.
 //
 // What the designs do about it.
-//   tile_round_walk: the whole walk of a tile in one block, one thread per
-//     ray, tiles independent (the host loop's lock step over tiles changes
-//     no tile's result), so a walk is one launch with no host sync. The
+//   tile_round_walk: the whole walk of a tile in one block (or a cluster
+//     of blocks, below), one thread per ray, tiles independent (the host
+//     loop's lock step over tiles changes no tile's result), so a walk is
+//     one launch with no host sync. The
 //     tile's column of the visit order (entries, ids and the clusters'
 //     triangle counts, sorted near to far by ops/tile_trace._prepare) is
 //     read a block-width of rounds at a time into shared memory. Each
@@ -53,13 +54,27 @@
 //     card and not kept (tile_walk_variants.py): one buffer filled after
 //     the round's bound is known, and no staging (the slots read from L2).
 //   Tiles of up to 1,024 rays (JAX's tile_closest takes any tile; its
-//     bench runs 1,024). Both K4 kernels are templates on their block size,
-//     one instance each for tiles up to 256 (the tile mode's TILE_LANES),
-//     512 and 1,024: __launch_bounds__ of the largest caps a thread at 64
-//     registers, and that cap stays off the 256-ray instance that every
-//     tile-mode trace runs, which compiles as the one kernel did before.
-//     The walk's block reductions need whole warps: ops/tile_trace pads a
-//     tile to a multiple of 32 rays with lanes whose tmax is -inf.
+//     bench runs 1,024). A tile is one block on one SM, one thread a ray,
+//     up to 256 rays; a tile of 512 or 1,024 rays is a thread block
+//     cluster of kCtas = 2 or 4 CTAs of up to 256 threads, each on its own
+//     SM with its share of the rays (tile_round_walk_ctas): at 1,024 rays
+//     the tiles are fewer than the SMs, and one SM walking a whole tile
+//     (its longest walk 1,370 rounds of 1,024 rays on bounce rays) set the
+//     time. The CTAs walk the same visit order; each round the tile's
+//     bound is the largest of the CTAs' block maxima, read through
+//     distributed shared memory after one cluster barrier, so every CTA
+//     takes the same stop and every ray's hit is the plain walk's. The
+//     kCtas = 1 instance, which every tile-mode trace runs, is the kernel
+//     as it was. Measured on the card and not kept (tile_walk_variants.py):
+//     the first form of tiles above 256 (one thread a ray in blocks of 512
+//     and 1,024: the 1,024 instance capped at 64 registers, spilling, one
+//     block an SM; wide_blocks), and 1 block of 256 threads with 2 or 4
+//     rays a thread (2 blocks an SM at 114 registers, no spill, but a tile
+//     still on one SM, and slower; rays, with and without a ray skipping
+//     clusters past its own bound). The block reductions need whole warps:
+//     ops/tile_trace pads a tile to a multiple of 32 kCtas rays with lanes
+//     whose tmax is -inf. The single round stays a template on its block
+//     (256, 512, 1,024).
 //   tile_round: one block per tile, one thread per ray. A tile that runs
 //     stages the first tri_count slots of its cluster's rows 0..8 with
 //     16-byte cp.async copies (stage_slots: at K = 32, 1.15 KB instead of
@@ -70,6 +85,7 @@
 //     slots) and a ray's slots split over 2 or 4 threads (one wave of
 //     blocks either way: no shorter) are rebuilt by tile_walk_variants.py.
 //   tile_walk_closest, tile_walk_any: see the comment above their prologue.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -78,10 +94,16 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr float kTiny = 1e-12f;   // |direction| floor of the slab test
 constexpr int kTile = 128;        // rays per tile of the fused walk
 constexpr int kRoundLanes = 256;      // rays per tile of the tile mode
 constexpr int kMaxRoundLanes = 1024;  // rays per tile of K4: a block's limit
+constexpr int kAnyStages = 4;     // clusters staged ahead + 1, K5 any
+constexpr int kAnyPartClusters = 256;  // clusters a part of K5 any
+constexpr int kAnyMaxParts = 64;       // parts a tile of K5 any, at most
+constexpr int kAnyCompactRounds = 8;   // K5 any packs its rays this often
 constexpr int kClosestRays = 8;   // rays per group (a warp) of K5 closest
 constexpr int kClosestSplit = 32 / kClosestRays;  // threads per ray
 constexpr int kClosestThreads = kTile * kClosestSplit;  // a tile's block
@@ -176,6 +198,13 @@ __device__ __forceinline__ bool any_in_slots(const Ray& r, const float* s,
   return hit;
 }
 
+// Waits until at most n of this thread's cp.async commit groups are in
+// flight.
+template <int n>
+__device__ __forceinline__ void wait_groups() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
+}
+
 __device__ __forceinline__ float warp_min(float x) {
 #pragma unroll
   for (int m = 16; m >= 1; m >>= 1) x = fminf(x, __shfl_xor_sync(kFull, x, m));
@@ -186,8 +215,8 @@ __device__ __forceinline__ float warp_min(float x) {
 // K4: the round walk, one block per tile
 // ---------------------------------------------------------------------------
 
-template <int kLanes>
-__global__ void __launch_bounds__(kLanes)
+template <int kCtas>
+__global__ void __launch_bounds__(kRoundLanes)
 round_walk_kernel(const float* __restrict__ o, const float* __restrict__ d,
                   const float* __restrict__ tmin,
                   const float* __restrict__ tmax,
@@ -200,14 +229,18 @@ round_walk_kernel(const float* __restrict__ o, const float* __restrict__ d,
                   int* __restrict__ out_tri, float* __restrict__ out_u,
                   float* __restrict__ out_v, int* __restrict__ out_rounds) {
   extern __shared__ __align__(16) float stage[];  // 2 x 9 x ks floats
-  __shared__ float se[kLanes];  // a block-width of rounds of the visit order
-  __shared__ int sc[kLanes];
-  __shared__ int sk[kLanes];    // their clusters' triangle counts
-  __shared__ float red[kLanes / 32];
+  __shared__ float se[kRoundLanes];  // a block-width of rounds of the order
+  __shared__ int sc[kRoundLanes];
+  __shared__ int sk[kRoundLanes];    // their clusters' triangle counts
+  __shared__ float red[kRoundLanes / 32];
+  __shared__ float cbound[2];        // this CTA's bound, by round parity
   const int lanes = blockDim.x, tid = threadIdx.x, nw = lanes >> 5;
   const int kq = (tri_k + 3) >> 2, ks = 4 * kq;
-  const size_t tile = blockIdx.x;
-  const size_t i = tile * lanes + tid;
+  // CTA `part` of the tile's kCtas (a thread block cluster) takes its rays
+  // part * lanes ... part * lanes + lanes - 1
+  const size_t tile = blockIdx.x / kCtas;
+  const int part = blockIdx.x % kCtas;
+  const size_t i = (tile * kCtas + part) * lanes + tid;
   const Ray r = load_ray(o, d, i);
   const float tmn = __ldg(tmin + i), tmx = __ldg(tmax + i);
   const float* erow = entries + tile * n_cols;
@@ -233,6 +266,18 @@ round_walk_kernel(const float* __restrict__ o, const float* __restrict__ d,
     __syncthreads();
     float bound = red[0];
     for (int w = 1; w < nw; ++w) bound = fmaxf(bound, red[w]);
+    if constexpr (kCtas > 1) {
+      // the tile's bound: the largest of its CTAs', read through
+      // distributed shared memory after one cluster barrier; a parity's
+      // slot is written again two rounds on, past the next barrier, when
+      // every CTA has read it
+      cg::cluster_group cluster = cg::this_cluster();
+      if (tid == 0) cbound[rnd & 1] = bound;
+      cluster.sync();
+#pragma unroll
+      for (int p = 0; p < kCtas; ++p)
+        bound = fmaxf(bound, *cluster.map_shared_rank(&cbound[rnd & 1], p));
+    }
     const float e = se[j];
     const int cid = sc[j];
     const int cnt = sk[j];
@@ -270,11 +315,13 @@ round_walk_kernel(const float* __restrict__ o, const float* __restrict__ d,
     }
   }
   wait_all();  // a copy still in flight after the stop
+  if constexpr (kCtas > 1)
+    cg::this_cluster().sync();  // no CTA leaves while another may read it
   out_t[i] = best_t;
   out_tri[i] = best_id;
   out_u[i] = best_u;
   out_v[i] = best_v;
-  if (tid == 0) out_rounds[tile] = rnd;
+  if (tid == 0 && part == 0) out_rounds[tile] = rnd;
 }
 
 // ---------------------------------------------------------------------------
@@ -324,12 +371,14 @@ round_kernel(const float* __restrict__ o, const float* __restrict__ d,
 // K5: the fused walk, closest and any hit
 // ---------------------------------------------------------------------------
 //
-// Both kernels take one 128-ray tile a block and begin with one prologue
-// (tile_order): the block reduces the tile's bounds (tile_trace.
-// tile_entries' hull), tests all C boxes a block-width at a step and
+// K5 closest takes one 128-ray tile a block, K5 any one a tile and part of
+// the set; both begin with the tile's hull (block_hull:
+// tile_trace.tile_entries' bounds). K5 closest then runs
+// one prologue (tile_order): it tests all C boxes a block-width at a step,
 // compacts those in reach into one candidate list (ballot, then a prefix
 // over the warps' counts), and sorts it near to far once by (entry, id) (a
-// bitonic sort of 64-bit keys in shared memory). Then each walks the list.
+// bitonic sort of 64-bit keys in shared memory), and walks the list. K5
+// any streams the set instead (below).
 //
 // Closest hit. What bounded its first form (rebuilt by tile_walk_variants.py
 // as old_closest): every round scanned all C entries for the lexicographic
@@ -362,7 +411,10 @@ round_kernel(const float* __restrict__ o, const float* __restrict__ d,
 //     block leave one block an SM).
 //   * Optionally, each group writes the positions it walked and the slots
 //     its rays tested, summed over the rays (out_rounds): the work the
-//     kernel's bound is taken from.
+//     kernel's bound is taken from; and each ray the tile's entry into the
+//     cluster of its hit (out_entry), by which ops/pallas_tile breaks equal
+//     t between parts as the whole set's walk does: the earlier cluster of
+//     the (entry, id) order.
 //   * Why a group's result equals its tile's, bit for bit (the argument of
 //     csrc/list_walk.cu's closest forms). Along the shared order a group's
 //     bound is never above its tile's bound at the same round, so it stops
@@ -377,26 +429,55 @@ round_kernel(const float* __restrict__ o, const float* __restrict__ d,
 //     group's or a ray's own: computed hits lie up to 13,736 ulps below a
 //     ray's own box entry.
 //   * The list holds at most 16,384 clusters: 128 KB of keys in shared
-//     memory (K5 any the same, beside its two staged blocks). A larger set
-//     is walked in parts of at most that many clusters, one launch a part
-//     (ops/pallas_tile), as the row walk walks its parts.
+//     memory. A larger set is walked in parts of at most that many
+//     clusters, one launch a part (ops/pallas_tile).
 //
 // Any hit. Occlusion is per lane and does not depend on the visit order: a
 // lane is occluded where a cluster its tile's entry bounds keep holds a hit
 // in its interval, and a tile stops only once each of its lanes is occluded
-// or dead. So the walk returns pallas_any_plain's flags bit for bit, and
-// visits what the plain walk visits. One thread per ray: each round stages
-// the cluster's tri_k slots, the next candidate's copy in flight with
-// cp.async, and one barrier both publishes the stage and decides the stop
-// (every lane occluded or dead). The rays that are neither occluded nor
-// dead test the cluster's slots up to its triangle count; a warp whose rays
-// are all done skips them. Measured on the card and not kept
-// (tile_walk_variants.py rebuilds each form from this source): the form
-// before (a block-wide next-cluster reduction over all C entries every
-// round, all 128 slots staged), and one warp per 32 rays with its own
-// entry bounds and candidate list and no block barrier (fewer visits, but
-// its 11 KB list a warp at 1,370 clusters halves the resident warps, and it
-// reads the slots from L2).
+// or dead. So any order of the clusters in reach, split in any way, returns
+// pallas_any_plain's flags bit for bit. The walk keeps no list: a block
+// takes the set in id (BVH) order a block-width of clusters at a time,
+// tests their boxes against the tile's hull, compacts those it keeps into
+// a shared queue of ids and entries (next_chunk), and walks them, one
+// thread a ray. Its shared memory is a ring of kAnyStages staged
+// clusters, the queue and the packed rays (10.3 KB at tri_k 32) whatever C
+// is, so the set has no ceiling. What sets the time is the longest walk:
+// on the scale-14 interior's connection rays the tiles whose directions
+// straddle an axis reach every one of the 17,197 clusters, one round after
+// another (~3 us a round). So:
+//   * The tile entry e of a cluster bounds below the t of every hit of
+//     the tile's lanes in it (the premise of the closest walks' stop): a
+//     lane tests a cluster only where e lies below its own tmax, and a
+//     chunk keeps only clusters whose e lies below the largest tmax of the
+//     lanes still looking (chunk_bound). Neither drops a hit.
+//   * A set above kAnyPartClusters is split over up to kAnyMaxParts blocks
+//     a tile (any_parts), part p streaming the chunks p, p + P, ...: a
+//     lane's hit is stored in the zeroed output at once, and each packing
+//     reads the flags back, so a lane one part occludes is no longer
+//     tested by the others; the flags are the OR of the parts' exact tests.
+//   * The rays still looking are packed into the block's first threads at
+//     each chunk scan and every kAnyCompactRounds rounds (compact), so
+//     that the warps of rays that are done fall idle instead of waiting
+//     on one lane; a ray's tests do not depend on its thread.
+//   * The kept clusters' slots below tri_count are staged with cp.async
+//     kAnyStages - 1 rounds ahead into the ring, and each round's one
+//     barrier both publishes its stage and decides the stop (every ray
+//     occluded, dead or packed out).
+// Optionally (out_rounds) each tile's parts add the clusters they visited
+// and the slots their rays tested: the work the kernel's bound is taken
+// from. Measured on the card and not kept (tile_walk_variants.py rebuilds
+// each form from this source): the first form (a block-wide next-cluster
+// reduction over all C entries every round, all 128 slots staged); the
+// sorted form of PRs 7-17 (tile_order's near-to-far list of (entry, id)
+// keys, 8 bytes a cluster padded to a power of two, in shared memory: 16
+// KB a block at 1,370 clusters, 128 KB at 8,599, and a ceiling of 16,384
+// clusters); the stream without the cuts by e, in one part, with one
+// cluster staged ahead, with no packing or packing at chunk scans only
+// (any_unpruned, any_one_part, any_stages2, any_no_compact,
+// any_compact_chunks); and one warp per 32 rays with its own hull,
+// streaming the set 32 clusters a ballot, the slots read from L2, with no
+// block barrier (any_warp).
 
 // Block-wide reductions over a block of kThreads threads. Each ends with a
 // barrier, so the scratch (kThreads / 32 floats) is free for the next one.
@@ -569,7 +650,9 @@ __device__ __forceinline__ int tile_order(const Hull& h,
 }
 
 // K5 closest: the block holds one tile, kClosestRays of it a warp (group g
-// = blockIdx.x * kClosestWarps + warp), which walks the tile's sorted list.
+// = blockIdx.x * kClosestWarps + warp), which walks the tile's sorted list;
+// with kEntry it also writes each ray's entry into its hit's cluster.
+template <bool kEntry>
 __global__ void __launch_bounds__(kClosestThreads)
 closest_walk_kernel(const float* __restrict__ o, const float* __restrict__ d,
                     const float* __restrict__ tmin,
@@ -581,7 +664,8 @@ closest_walk_kernel(const float* __restrict__ o, const float* __restrict__ d,
                     const int* __restrict__ tri_count, int c_total, int cull,
                     float* __restrict__ out_t, int* __restrict__ out_tri,
                     float* __restrict__ out_u, float* __restrict__ out_v,
-                    int* __restrict__ out_rounds) {
+                    int* __restrict__ out_rounds,
+                    float* __restrict__ out_entry) {
   extern __shared__ __align__(16) unsigned long long keys[];
   __shared__ float red[kClosestWarps];
   __shared__ int wcount[kClosestWarps];
@@ -595,7 +679,7 @@ closest_walk_kernel(const float* __restrict__ o, const float* __restrict__ d,
                                                               red),
                                   cmin, cmax, c_total, keys, wcount);
   float* buf = nullptr;  // the slots are read in place
-  const GroupHit h = closest_group_walk<kClosestRays, false>(
+  const GroupHit h = closest_group_walk<kClosestRays, false, kEntry>(
       r, tmn, tmx, count, cull, 1, blocks, tri_count, buf, lane,
       [&](int pos, float& te, int& cid, int& base) {
         const unsigned long long key = keys[pos];
@@ -608,6 +692,7 @@ closest_walk_kernel(const float* __restrict__ o, const float* __restrict__ d,
     out_tri[i] = h.id;
     out_u[i] = h.u;
     out_v[i] = h.v;
+    if (kEntry) out_entry[i] = h.e;
   }
   if (out_rounds != nullptr && lane == 0) {
     out_rounds[2 * g] = h.rounds;
@@ -615,50 +700,206 @@ closest_walk_kernel(const float* __restrict__ o, const float* __restrict__ d,
   }
 }
 
+// The next chunk of K5 any's stream, called by every thread of a block of
+// kThreads: the clusters [base, base + kThreads), then the chunks `stride`
+// clusters on while none of a chunk is kept, until one is or the set ends.
+// A cluster is kept where its entry from the hull h lies below `bound` (so
+// in reach); its id and entry go to queue / qe[0, count) in id order (a
+// ballot, then a prefix over the warps' counts); base moves past the
+// chunks scanned. Returns count (0 at the set's end). wcount: kThreads / 32
+// ints. Ends with a barrier, so the queue is visible to the block.
+template <int kThreads>
+__device__ __forceinline__ int next_chunk(const Hull& h,
+                                          const float* __restrict__ cmin,
+                                          const float* __restrict__ cmax,
+                                          int c_total, int stride, float bound,
+                                          int& base, int* queue, float* qe,
+                                          int* wcount) {
+  constexpr int kWarps = kThreads / 32;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  int total = 0;
+  while (total == 0 && base < c_total) {
+    const int c = base + tid;
+    const float e = c < c_total ? hull_entry(h, cmin, cmax, c) : kBig;
+    const bool keep = e < bound;
+    const unsigned m = __ballot_sync(kFull, keep);
+    if (lane == 0) wcount[warp] = __popc(m);
+    __syncthreads();
+    int pos = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      pos += w < warp ? wcount[w] : 0;
+      total += wcount[w];
+    }
+    if (keep) {
+      pos += __popc(m & ((1u << lane) - 1u));
+      queue[pos] = c;
+      qe[pos] = e;
+    }
+    base += stride;
+    __syncthreads();  // the queue is written; wcount is free again
+  }
+  return total;
+}
+
+// The bound of K5 any's chunks: the largest tmax of the block's lanes that
+// still look for a hit; -1e30 once none does.
+__device__ __forceinline__ float chunk_bound(bool looking, float tmx,
+                                             float* red) {
+  return block_max<kTile>(looking ? tmx : -kBig, red);
+}
+
+// The parts of K5 any's walk over a set of c_total clusters: one up to
+// kAnyPartClusters, then one more a kAnyPartClusters, at most kAnyMaxParts.
+__host__ __device__ __forceinline__ int any_parts(int c_total) {
+  const int p = (c_total + kAnyPartClusters - 1) / kAnyPartClusters;
+  return p < 1 ? 1 : p > kAnyMaxParts ? kAnyMaxParts : p;
+}
+
+// K5 any: a block per 128-ray tile and part of the set, one thread a ray
+// (the rays still looking packed into the first threads: compact). Part p
+// of P streams the chunks p, p + P, p + 2P, ... of the set (a block-width
+// of clusters each, in id order: next_chunk); the kept clusters are staged
+// kAnyStages - 1 rounds ahead into a ring of kAnyStages buffers (their ids
+// and entries beside them), and each round's one barrier both publishes
+// its stage and decides the stop. A ray's hit is stored at once in out_occ
+// (zero before the launch), and each packing first reads the flags there,
+// so that the occlusion one part finds stops the others testing the ray.
 __global__ void __launch_bounds__(kTile)
 any_tile_kernel(const float* __restrict__ o, const float* __restrict__ d,
                 const float* __restrict__ tmin, const float* __restrict__ tmax,
                 const float* __restrict__ cmin, const float* __restrict__ cmax,
                 const float* __restrict__ blocks,
                 const int* __restrict__ tri_count, int c_total, int tri_k,
-                int* __restrict__ out_occ) {
-  extern __shared__ __align__(16) float smem_a[];
-  const int kq = (tri_k + 3) >> 2, ks = 4 * kq;
-  float* stage = smem_a;  // 2 x 9 x ks floats, then the keys
-  unsigned long long* keys =
-      reinterpret_cast<unsigned long long*>(stage + 2 * kTriRows * ks);
+                int* __restrict__ out_occ, int* __restrict__ out_rounds) {
+  extern __shared__ __align__(16) float stage[];  // kAnyStages x 9 x ks
+  __shared__ int queue[kTile];
+  __shared__ float qe[kTile];
+  __shared__ int ring_id[kAnyStages];
+  __shared__ float ring_e[kAnyStages];
   __shared__ float red[kTile / 32];
   __shared__ int wcount[kTile / 32];
-  const int tid = threadIdx.x;
-  const size_t i = static_cast<size_t>(blockIdx.x) * kTile + tid;
-  const Ray r = load_ray(o, d, i);
-  const float tmn = __ldg(tmin + i), tmx = __ldg(tmax + i);
-  const int count = tile_order<kTile>(block_hull<kTile>(r, tmn, tmx, red),
-                                      cmin, cmax, c_total, keys, wcount);
+  __shared__ float pk[8][kTile];  // the rays still looking, packed
+  __shared__ int pidx[kTile];
+  const int kq = (tri_k + 3) >> 2, ks = 4 * kq;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int parts = any_parts(c_total);
+  const int tile = blockIdx.x / parts, part = blockIdx.x % parts;
+  int idx = tile * kTile + tid;  // the ray this thread holds
+  Ray r = load_ray(o, d, idx);
+  float tmn = __ldg(tmin + idx), tmx = __ldg(tmax + idx);
+  const Hull h = block_hull<kTile>(r, tmn, tmx, red);
 
-  bool occ = false;
-  const bool dead = tmx < tmn;
-  if (count > 0)
-    stage_slots(stage, blocks, key_id(keys[0]), kq, kq);
-  commit();
-  for (int rnd = 0;; ++rnd) {
-    wait_all();  // this round's copies have landed; the barrier
-    // publishes them, and every thread is past its reads of the other buffer
-    if (__syncthreads_and(occ || dead) || rnd >= count) break;
-    if (rnd + 1 < count)
-      stage_slots(stage + ((rnd + 1) & 1) * kTriRows * ks, blocks,
-                  key_id(keys[rnd + 1]), kq, kq);
+  bool holds = true, occ = false;
+  int base = part * kTile, count = 0, at = 0, staged = 0, slots = 0, rnd = 0;
+  // takes in the other parts' finds, then moves the rays still looking
+  // (held, not occluded, tmax above tmin) to the block's first threads, in
+  // order, so that the warps of rays that are done fall idle; the threads
+  // past them hold no ray. A ray's tests do not depend on its thread.
+  auto compact = [&]() {
+    occ = occ || (holds && *(volatile int*)(out_occ + idx) != 0);
+    const bool looking = holds && !occ && tmx > tmn;
+    const unsigned m = __ballot_sync(kFull, looking);
+    if (lane == 0) wcount[warp] = __popc(m);
+    __syncthreads();
+    int pos = 0, total = 0;
+#pragma unroll
+    for (int w = 0; w < kTile / 32; ++w) {
+      pos += w < warp ? wcount[w] : 0;
+      total += wcount[w];
+    }
+    if (looking) {
+      pos += __popc(m & ((1u << lane) - 1u));
+      pk[0][pos] = r.ox;
+      pk[1][pos] = r.oy;
+      pk[2][pos] = r.oz;
+      pk[3][pos] = r.dx;
+      pk[4][pos] = r.dy;
+      pk[5][pos] = r.dz;
+      pk[6][pos] = tmn;
+      pk[7][pos] = tmx;
+      pidx[pos] = idx;
+    }
+    __syncthreads();
+    holds = tid < total;
+    occ = false;
+    if (holds) {
+      r = Ray{pk[0][tid], pk[1][tid], pk[2][tid],
+              pk[3][tid], pk[4][tid], pk[5][tid]};
+      tmn = pk[6][tid];
+      tmx = pk[7][tid];
+      idx = pidx[tid];
+    }
+  };
+  // stages the next kept cluster into ring slot staged % kAnyStages (its
+  // copies one commit group, empty at the set's end); called by every
+  // thread, so a chunk scan (barriers) is uniform. The queue is read only
+  // here, and next_chunk rewrites it after a barrier.
+  auto fetch = [&]() {
+    if (at == count && base < c_total) {
+      compact();
+      count = next_chunk<kTile>(
+          h, cmin, cmax, c_total, parts * kTile,
+          chunk_bound(holds && !occ && tmx > tmn, tmx, red), base, queue,
+          qe, wcount);
+      at = 0;
+    }
+    if (at < count) {
+      const int c = queue[at];
+      const int slot = staged % kAnyStages;
+      if (tid == 0) {
+        ring_id[slot] = c;
+        ring_e[slot] = qe[at];
+      }
+      stage_slots(stage + slot * kTriRows * ks, blocks, c,
+                  (__ldg(tri_count + c) + 3) >> 2, kq);
+      ++at;
+      ++staged;
+    }
     commit();
-    const int cnt = __ldg(tri_count + key_id(keys[rnd]));
-    if (!occ && tmx > tmn)
-      occ = any_in_slots<false>(r, stage + (rnd & 1) * kTriRows * ks, ks, cnt,
+  };
+#pragma unroll
+  for (int k = 0; k < kAnyStages - 1; ++k) fetch();
+  for (;; ++rnd) {
+    // round rnd's copies (commit group rnd) have landed; the barrier
+    // publishes them, and every thread is past its reads of the slot the
+    // fetch below refills (round rnd - 1's)
+    wait_groups<kAnyStages - 2>();
+    if (__syncthreads_and(!holds || occ || tmx < tmn) || rnd == staged)
+      break;
+    if (rnd % kAnyCompactRounds == kAnyCompactRounds - 1) compact();
+    fetch();
+    const int slot = rnd % kAnyStages;
+    const float e = ring_e[slot];
+    // a lane tests the cluster only where its tile entry e lies below the
+    // lane's tmax: e bounds below the t of every hit of the tile's lanes in
+    // it (the premise of the closest walks' stop), so no hit past it
+    // passes t < tmax
+    if (holds && !occ && tmx > tmn && e < tmx) {
+      const int cnt = __ldg(tri_count + ring_id[slot]);
+      occ = any_in_slots<false>(r, stage + slot * kTriRows * ks, ks, cnt,
                                 tmn, tmx);
+      if (occ) out_occ[idx] = 1;
+      slots += cnt;
+    }
   }
-  out_occ[i] = occ ? 1 : 0;
+  wait_all();  // copies still in flight after the stop
+  if (out_rounds != nullptr) {  // uniform over the block
+    slots = __reduce_add_sync(kFull, slots);
+    if ((tid & 31) == 0) wcount[tid >> 5] = slots;
+    __syncthreads();
+    if (tid == 0) {
+      int sum = 0;
+      for (int w = 0; w < kTile / 32; ++w) sum += wcount[w];
+      atomicAdd(out_rounds + 2 * tile, rnd);
+      atomicAdd(out_rounds + 2 * tile + 1, sum);
+    }
+  }
 }
 
-// Launches the instance of a K4 kernel (a template on its block size) that
-// takes a tile of r rays: the least of 256, 512 and 1,024 at or above r.
+// Launches the instance of K4's single round (a template on its block size)
+// that takes a tile of r rays: the least of 256, 512 and 1,024 at or above
+// r.
 template <typename Launch>
 void by_round_lanes(int r, Launch launch) {
   if (r <= kRoundLanes)
@@ -685,13 +926,19 @@ int allow_shared(Kernel kernel, size_t bytes) {
 // contiguous arrays; each launch goes on `stream` and the function returns
 // the cudaGetLastError() after it (0 on success).
 
+// The CTAs (a thread block cluster) of K4's walk for a tile of r rays: 1 up
+// to 256, 2 up to 512, 4 above.
+extern "C" int tile_round_walk_ctas(int r) {
+  return r <= kRoundLanes ? 1 : r <= 2 * kRoundLanes ? 2 : 4;
+}
+
 // K4, the whole walk. o/d (nt, r, 3), tmin/tmax (nt, r) float32; entries
 // (nt, n_cols) float32 and ids (nt, n_cols) int32, each tile's visit order
 // (ascending entries, 1e30 past its reach); blocks (C, 16, 128) float32;
-// tri_begin and tri_count (C,) int32; r a multiple of 32 up to 1,024,
-// n_cols >= 1, tri_count <= tri_k <= 128. Outputs (nt, r): t, u, v float32
-// and tri int32 (t 1e30, tri -1, u = v = 0 on a miss); rounds (nt,) int32,
-// each tile's visits.
+// tri_begin and tri_count (C,) int32; r up to 1,024 and a multiple of 32
+// CTAs (tile_round_walk_ctas(r)), n_cols >= 1, tri_count <= tri_k <= 128.
+// Outputs (nt, r): t, u, v float32 and tri int32 (t 1e30, tri -1, u = v =
+// 0 on a miss); rounds (nt,) int32, each tile's visits.
 extern "C" int tile_round_walk(const float* o, const float* d,
                                const float* tmin, const float* tmax,
                                const float* entries, const int* ids,
@@ -701,12 +948,37 @@ extern "C" int tile_round_walk(const float* o, const float* d,
                                float* out_t, int* out_tri, float* out_u,
                                float* out_v, int* out_rounds, void* stream) {
   const size_t smem = sizeof(float) * 2 * kTriRows * 4 * ((tri_k + 3) / 4);
-  by_round_lanes(r, [&](auto lanes) {
-    round_walk_kernel<decltype(lanes)::value>
-        <<<nt, r, smem, static_cast<cudaStream_t>(stream)>>>(
-            o, d, tmin, tmax, entries, ids, blocks, tri_begin, tri_count,
-            n_cols, tri_k, cull, out_t, out_tri, out_u, out_v, out_rounds);
-  });
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int ctas = tile_round_walk_ctas(r);
+  if (ctas == 1) {  // the kernel as it was: a block a tile, no cluster
+    round_walk_kernel<1><<<nt, r, smem, st>>>(
+        o, d, tmin, tmax, entries, ids, blocks, tri_begin, tri_count, n_cols,
+        tri_k, cull, out_t, out_tri, out_u, out_v, out_rounds);
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nt * ctas);
+  cfg.blockDim = dim3(r / ctas);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ctas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err =
+      ctas == 2
+          ? cudaLaunchKernelEx(&cfg, round_walk_kernel<2>, o, d, tmin, tmax,
+                               entries, ids, blocks, tri_begin, tri_count,
+                               n_cols, tri_k, cull, out_t, out_tri, out_u,
+                               out_v, out_rounds)
+          : cudaLaunchKernelEx(&cfg, round_walk_kernel<4>, o, d, tmin, tmax,
+                               entries, ids, blocks, tri_begin, tri_count,
+                               n_cols, tri_k, cull, out_t, out_tri, out_u,
+                               out_v, out_rounds);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -733,10 +1005,12 @@ extern "C" int tile_round(const float* o, const float* d, const float* tmin,
 
 // K5. o/d (n, 3), tmin/tmax (n,) float32 with n a multiple of 128; cmin/cmax
 // (C, 3) float32; tri_begin and tri_count (C,) int32 as for K4; blocks
-// (C, 16, 128) float32; C at most 16,384 (a larger set goes in parts,
-// one launch each). Outputs (n,): t, tri, u, v;
+// (C, 16, 128) float32; for K5 closest C at most 16,384 (a larger set goes
+// in parts, one launch each). Outputs (n,): t, tri, u, v;
 // out_rounds int32 or null: per group ((n / tile_walk_group_rays(), 2)) the
-// positions it walked and the slots its rays tested, summed over the rays.
+// positions it walked and the slots its rays tested, summed over the rays;
+// out_entry float32 or null: (n,) the tile's entry bound into the cluster
+// that holds each ray's hit (1e30 on a miss).
 extern "C" int tile_walk_group_rays() { return kClosestRays; }
 
 extern "C" int tile_walk_closest(const float* o, const float* d,
@@ -746,32 +1020,38 @@ extern "C" int tile_walk_closest(const float* o, const float* d,
                                  const int* tri_count, int n, int c_total,
                                  int cull, float* out_t, int* out_tri,
                                  float* out_u, float* out_v, int* out_rounds,
-                                 void* stream) {
+                                 float* out_entry, void* stream) {
   const size_t smem = sizeof(unsigned long long) * pow2_at_least(c_total);
-  const int err = allow_shared(closest_walk_kernel, smem);
-  if (err) return err;
-  closest_walk_kernel<<<n / kTile, kClosestThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      o, d, tmin, tmax, cmin, cmax, tri_begin, blocks, tri_count, c_total,
-      cull, out_t, out_tri, out_u, out_v, out_rounds);
-  return static_cast<int>(cudaGetLastError());
+  auto launch = [&](auto kernel) {
+    const int err = allow_shared(kernel, smem);
+    if (err) return err;
+    kernel<<<n / kTile, kClosestThreads, smem,
+             static_cast<cudaStream_t>(stream)>>>(
+        o, d, tmin, tmax, cmin, cmax, tri_begin, blocks, tri_count, c_total,
+        cull, out_t, out_tri, out_u, out_v, out_rounds, out_entry);
+    return static_cast<int>(cudaGetLastError());
+  };
+  return out_entry != nullptr ? launch(closest_walk_kernel<true>)
+                              : launch(closest_walk_kernel<false>);
 }
 
-// K5 any: the same rays and boxes; tri_count as for K4; tri_count <= tri_k
-// <= 128. Output (n,): occ int32.
+// K5 any: the same rays and boxes, any C; tri_count as for K4; tri_count
+// <= tri_k <= 128. Output (n,): occ int32, zero before the call;
+// out_rounds int32 or null, zero before the call: per tile ((n / 128, 2))
+// the clusters its parts visited and the slots its rays tested, summed.
+extern "C" int tile_walk_any_parts(int c_total) { return any_parts(c_total); }
+
 extern "C" int tile_walk_any(const float* o, const float* d,
                              const float* tmin, const float* tmax,
                              const float* cmin, const float* cmax,
                              const float* blocks, const int* tri_count, int n,
                              int c_total, int tri_k, int* out_occ,
-                             void* stream) {
-  const size_t smem = sizeof(float) * 2 * kTriRows * 4 * ((tri_k + 3) / 4) +
-                      sizeof(unsigned long long) * pow2_at_least(c_total);
-  const int err = allow_shared(any_tile_kernel, smem);
-  if (err) return err;
-  any_tile_kernel<<<n / kTile, kTile, smem,
+                             int* out_rounds, void* stream) {
+  const size_t smem =
+      sizeof(float) * kAnyStages * kTriRows * 4 * ((tri_k + 3) / 4);
+  any_tile_kernel<<<n / kTile * any_parts(c_total), kTile, smem,
                     static_cast<cudaStream_t>(stream)>>>(
       o, d, tmin, tmax, cmin, cmax, blocks, tri_count, c_total, tri_k,
-      out_occ);
+      out_occ, out_rounds);
   return static_cast<int>(cudaGetLastError());
 }

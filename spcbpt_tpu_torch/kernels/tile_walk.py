@@ -17,20 +17,23 @@ from . import build
 from .ray_walk import _check, _stream
 
 TILE = 128             # rays per tile of K5
-# rays per tile of K4: one thread each, one block a tile; each K4 kernel is
-# built for blocks of 256, 512 and 1,024 threads (ROUND_BLOCKS) and a tile
-# runs on the least of them that holds it
-MAX_ROUND_LANES = 1024
-ROUND_BLOCKS = (256, 512, 1024)
+# rays per tile of K4, one thread a ray: its walk takes a tile on 1, 2 or 4
+# CTAs of up to ROUND_THREADS threads (ROUND_CTAS: a thread block cluster
+# above 1), the fewest that hold it (round_ctas); its single round takes
+# one block a tile, up to a block's limit
+ROUND_THREADS = 256
+ROUND_CTAS = (1, 2, 4)
+MAX_ROUND_LANES = ROUND_THREADS * ROUND_CTAS[-1]
 SLOTS = 128
-# Both K5 kernels keep their tile's candidate list as 8-byte (entry, id)
-# keys in shared memory, padded to a power of two for its sort (K5 any
-# beside two staged 9 x 128 blocks)
-MAX_ANY_CLUSTERS = 1 << 14
+# K5 closest keeps its tile's candidate list as 8-byte (entry, id) keys in
+# shared memory, padded to a power of two for its sort; K5 any keeps none
+# and takes any number of clusters
+MAX_CLOSEST_CLUSTERS = 1 << 14
 LAUNCHES = {"tile_round_walk": 0, "tile_round": 0, "tile_walk_closest": 0,
             "tile_walk_any": 0}
-# the launches of LAUNCHES["tile_round_walk"] by the block it ran on
-ROUND_WALK_BLOCKS = dict.fromkeys(ROUND_BLOCKS, 0)
+# the launches of LAUNCHES["tile_round_walk"] by the CTAs a tile of the
+# form that ran (of 256 threads at most each)
+ROUND_WALK_FORMS = dict.fromkeys(ROUND_CTAS, 0)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,13 +42,22 @@ _I = ctypes.c_int
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-    for k in ROUND_WALK_BLOCKS:
-        ROUND_WALK_BLOCKS[k] = 0
+    for k in ROUND_WALK_FORMS:
+        ROUND_WALK_FORMS[k] = 0
 
 
-def round_block(r: int) -> int:
-    """The block (threads) of K4's instance that takes a tile of r rays."""
-    return next(b for b in ROUND_BLOCKS if r <= b)
+def round_ctas(r: int) -> int:
+    """The CTAs of K4's walk for a tile of r rays (1 to MAX_ROUND_LANES);
+    the C entry tile_round_walk_ctas is the same rule."""
+    return next(q for q in ROUND_CTAS if r <= ROUND_THREADS * q)
+
+
+def round_lanes(r: int) -> int:
+    """The lanes K4's walk takes for a tile of r rays: r padded up to whole
+    warps in each of its round_ctas(r) CTAs (ops/tile_trace pads with dead
+    rays)."""
+    unit = 32 * round_ctas(r)
+    return -(-r // unit) * unit
 
 
 @functools.cache
@@ -55,20 +67,30 @@ def _lib() -> ctypes.CDLL:
     # pointers and the stream as c_void_p: ctypes would cut them to 32 bits
     lib.tile_round_walk.argtypes = [_P] * 9 + [_I] * 5 + [_P] * 6
     lib.tile_round_walk.restype = _I
+    lib.tile_round_walk_ctas.argtypes = [_I]
+    lib.tile_round_walk_ctas.restype = _I
     lib.tile_round.argtypes = [_P] * 8 + [_I] * 4 + [_P] * 6
     lib.tile_round.restype = _I
-    lib.tile_walk_closest.argtypes = [_P] * 9 + [_I] * 3 + [_P] * 6
+    lib.tile_walk_closest.argtypes = [_P] * 9 + [_I] * 3 + [_P] * 7
     lib.tile_walk_closest.restype = _I
     lib.tile_walk_group_rays.argtypes = []
     lib.tile_walk_group_rays.restype = _I
-    lib.tile_walk_any.argtypes = [_P] * 8 + [_I] * 3 + [_P] * 2
+    lib.tile_walk_any.argtypes = [_P] * 8 + [_I] * 3 + [_P] * 3
     lib.tile_walk_any.restype = _I
+    lib.tile_walk_any_parts.argtypes = [_I]
+    lib.tile_walk_any_parts.restype = _I
     return lib
 
 
 def group_rays() -> int:
     """Rays per group (one warp) of K5 closest."""
     return _lib().tile_walk_group_rays()
+
+
+def any_parts(c: int) -> int:
+    """The parts (a block a tile each) K5 any splits a set of c clusters
+    into."""
+    return _lib().tile_walk_any_parts(c)
 
 
 def _check_blocks(tri_block, tri_k, dev):
@@ -93,13 +115,16 @@ def round_walk(o, d, tmin, tmax, entries, ids, tri_block, tri_begin,
     ids[i, 0], ids[i, 1], ... of its near-to-far order (entries[i] ascending,
     1e30 past its reach) while the next entry is at most the tile's largest
     min(best_t, tmax), testing each cluster's slots below tri_count; misses
-    keep t 1e30, tri -1, u = v = 0. r is a multiple of 32 up to
-    MAX_ROUND_LANES (ops/tile_trace pads other tiles)."""
-    dev = _cuda_device(o)
+    keep t 1e30, tri -1, u = v = 0. r is up to MAX_ROUND_LANES and its own
+    round_lanes(r): whole warps in each of its round_ctas(r) CTAs
+    (ops/tile_trace pads other tiles)."""
     nt, r = o.shape[0], o.shape[1]
-    if r % 32 or not 0 < r <= MAX_ROUND_LANES:
-        raise ValueError(f"tile of {r} rays: the round walk takes a multiple "
-                         f"of 32 up to {MAX_ROUND_LANES} (a block's limit)")
+    if not 0 < r <= MAX_ROUND_LANES or round_lanes(r) != r:
+        raise ValueError(f"tile of {r} rays: the round walk takes up to "
+                         f"{MAX_ROUND_LANES} rays in whole warps on each of "
+                         f"1, 2 or 4 CTAs (a multiple of 32, 64 above 256 "
+                         f"rays, 128 above 512)")
+    dev = _cuda_device(o)
     f32 = torch.float32
     _check("origins", o, f32, (nt, r, 3), dev)
     _check("dirs", d, f32, (nt, r, 3), dev)
@@ -131,7 +156,7 @@ def round_walk(o, d, tmin, tmax, entries, ids, tri_block, tri_begin,
     if err:
         raise RuntimeError(f"tile_round_walk launch failed: CUDA error {err}")
     LAUNCHES["tile_round_walk"] += 1
-    ROUND_WALK_BLOCKS[round_block(r)] += 1
+    ROUND_WALK_FORMS[round_ctas(r)] += 1
     return t, tri, u, v, rounds
 
 
@@ -172,11 +197,14 @@ def tile_round(o, d, tmin, tmax_eff, cid, run, tri_block, tri_count,
     return t, u, v, dn, slot
 
 
-def _check_walk(o, d, tmin, tmax, cmin, cmax, tri_block, tri_count):
+def _check_walk(o, d, tmin, tmax, cmin, cmax, tri_block, tri_count,
+                max_clusters=None):
     c = tri_block.shape[0]
-    if not 0 < c <= MAX_ANY_CLUSTERS:
-        raise ValueError(f"{c} clusters outside 1..{MAX_ANY_CLUSTERS} (the "
-                         f"kernels' shared memory; ops/pallas_tile walks a "
+    if c < 1:
+        raise ValueError("no clusters to walk")
+    if max_clusters is not None and c > max_clusters:
+        raise ValueError(f"{c} clusters outside 1..{max_clusters} (K5 "
+                         f"closest's shared memory; ops/pallas_tile walks a "
                          f"larger set in parts)")
     dev = _cuda_device(o)
     n = o.shape[0]
@@ -195,17 +223,22 @@ def _check_walk(o, d, tmin, tmax, cmin, cmax, tri_block, tri_count):
 
 
 def walk_closest(o, d, tmin, tmax, cmin, cmax, tri_begin, tri_block,
-                 tri_count, cull: bool, rounds=None):
-    """K5 closest hit on (n,) padded rays -> (t, tri, u, v); each cluster's
-    slots below tri_count are tested; misses keep t=1e30, tri=-1, u=v=0.
-    rounds: None, or an (n / group_rays(), 2) int32 tensor that receives,
-    per group, the positions of its tile's list it walked and the slots its
-    rays tested, summed over the rays."""
+                 tri_count, cull: bool, rounds=None, entry=None):
+    """K5 closest hit on (n,) padded rays -> (t, tri, u, v), over at most
+    MAX_CLOSEST_CLUSTERS clusters; each cluster's slots below tri_count are
+    tested; misses keep t=1e30, tri=-1, u=v=0. rounds: None, or an
+    (n / group_rays(), 2) int32 tensor that receives, per group, the
+    positions of its tile's list it walked and the slots its rays tested,
+    summed over the rays. entry: None, or an (n,) float32 tensor that
+    receives the tile's entry bound into the cluster of each ray's hit
+    (1e30 on a miss)."""
     n, c, dev = _check_walk(o, d, tmin, tmax, cmin, cmax, tri_block,
-                            tri_count)
+                            tri_count, MAX_CLOSEST_CLUSTERS)
     _check("tri_begin", tri_begin, torch.int32, (c,), dev)
     if rounds is not None:
         _check("rounds", rounds, torch.int32, (n // group_rays(), 2), dev)
+    if entry is not None:
+        _check("entry", entry, torch.float32, (n,), dev)
     t = torch.empty((n,), dtype=torch.float32, device=dev)
     tri = torch.empty((n,), dtype=torch.int32, device=dev)
     u, v = torch.empty_like(t), torch.empty_like(t)
@@ -218,7 +251,7 @@ def walk_closest(o, d, tmin, tmax, cmin, cmax, tri_begin, tri_block,
             tri_block.data_ptr(), tri_count.data_ptr(), n, c,
             int(bool(cull)), t.data_ptr(), tri.data_ptr(), u.data_ptr(),
             v.data_ptr(), None if rounds is None else rounds.data_ptr(),
-            _stream(dev))
+            None if entry is None else entry.data_ptr(), _stream(dev))
     if err:
         raise RuntimeError(f"tile_walk_closest launch failed: CUDA error "
                            f"{err}")
@@ -227,20 +260,27 @@ def walk_closest(o, d, tmin, tmax, cmin, cmax, tri_begin, tri_block,
 
 
 def walk_any(o, d, tmin, tmax, cmin, cmax, tri_block, tri_count,
-             tri_k: int):
-    """K5 any hit on (n,) padded rays -> int32 occlusion flags (1 =
-    occluded); each cluster's slots below tri_count are tested."""
+             tri_k: int, rounds=None):
+    """K5 any hit on (n,) padded rays over any number of clusters -> int32
+    occlusion flags (1 = occluded); each cluster's slots below tri_count
+    are tested. rounds: None, or an (n / TILE, 2) int32 tensor that
+    receives, per tile, the clusters its parts visited (any_parts) and the
+    slots its rays tested, summed."""
     n, c, dev = _check_walk(o, d, tmin, tmax, cmin, cmax, tri_block,
                             tri_count)
     _check_blocks(tri_block, tri_k, dev)
-    occ = torch.empty((n,), dtype=torch.int32, device=dev)
+    if rounds is not None:
+        _check("rounds", rounds, torch.int32, (n // TILE, 2), dev)
+        rounds.zero_()
+    occ = torch.zeros((n,), dtype=torch.int32, device=dev)
     if n == 0:
         return occ
     with torch.cuda.device(dev):
         err = _lib().tile_walk_any(
             o.data_ptr(), d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(),
             cmin.data_ptr(), cmax.data_ptr(), tri_block.data_ptr(),
-            tri_count.data_ptr(), n, c, tri_k, occ.data_ptr(), _stream(dev))
+            tri_count.data_ptr(), n, c, tri_k, occ.data_ptr(),
+            None if rounds is None else rounds.data_ptr(), _stream(dev))
     if err:
         raise RuntimeError(f"tile_walk_any launch failed: CUDA error {err}")
     LAUNCHES["tile_walk_any"] += 1

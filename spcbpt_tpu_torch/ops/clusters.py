@@ -16,10 +16,11 @@ A large scene's row-walk set is split into `ClusterParts`
 by JAX's rule (at most `part_max_tris` triangles a part) and by the
 clusters one K1/K2 block holds in shared memory (`MAX_CLUSTERS`); the
 row walk walks the parts in turn (ops/ray_walk.walk_closest_parts).
-A tile set above the clusters one K5 block holds in shared memory
-(kernels/tile_walk.MAX_ANY_CLUSTERS) is split into ClusterParts too, of
-near-equal contiguous ranges (`even_bounds`), which the fused walk walks
-in turn (ops/pallas_tile.pallas_any / pallas_closest).
+A tile set above the clusters one K5 closest block holds in shared memory
+(kernels/tile_walk.MAX_CLOSEST_CLUSTERS) is split into ClusterParts too,
+of near-equal contiguous ranges (`even_bounds`), which the fused closest
+walk walks in turn (ops/pallas_tile.pallas_closest); K5 any takes any
+set whole.
 
 The coefficient trick (`pack_coefficients`): for a triangle (p0, e1, e2)
 with n = e1 x e2, the Moller-Trumbore numerators and determinant are linear

@@ -13,16 +13,20 @@ Port of spcbpt_tpu/ops/pallas_tile.py:
     bounds computed per tile (tile_trace.tile_entries semantics), the
     (entry, id)-lexicographic next cluster each round. Same contract as
     tile_trace.tile_closest / tile_any. Rays are padded to 1,024 lanes (8
-    tiles) as in JAX. A set of more clusters than one K5 block holds
-    (`kernels.tile_walk.MAX_ANY_CLUSTERS`, or the `max_clusters` given) is
-    split into near-equal parts (clusters.ClusterParts of
-    clusters.even_bounds) and walked part after part, by
-    the rules of the row walk's parts (ops/ray_walk.closest_parts_rows,
-    any_parts_rows), on either device: one sort and one padding over the
-    whole set, then one K5 launch (or plain walk) a part. Occlusion over
-    the parts equals the whole set's bit for bit; a closest hit may differ
-    only where triangles of two parts meet a ray at the same t (the earlier
-    part keeps it).
+    tiles) as in JAX. K5 any walks a set of any size in one launch. K5
+    closest keeps its tile's list in shared memory: a set of more clusters
+    than one K5 closest block holds
+    (`kernels.tile_walk.MAX_CLOSEST_CLUSTERS`, or the `max_clusters` given)
+    is split into near-equal parts (clusters.ClusterParts of
+    clusters.even_bounds) and walked part after part on either device
+    (`closest_parts`): one sort and one padding over the whole set, then one
+    K5 launch (or plain walk) a part, each part's rays ending one ulp past
+    the best t so far; a later part wins with a smaller t, or with the same
+    t in a cluster that the tile enters earlier (each walk returns the
+    tile's entry into the cluster of its hit), which is the whole set's
+    (entry, id) order: the hits equal the whole set's bit for bit. The any
+    hit takes parts only when `max_clusters` is given (by the row walk's
+    rule, ops/ray_walk.any_parts_rows), with the whole set's flags.
 
 Each runs where its tensors live: CUDA tensors launch the hand-written
 kernels of csrc/tile_walk.cu (kernels/tile_walk.py), or raise; CPU tensors
@@ -42,11 +46,12 @@ from ..kernels import tile_walk as kernels
 from .clusters import (SLOTS, ClusterParts, TileClusterSet, even_bounds,
                        log_visits)
 from .intersect import Hit
-from .ray_walk import _next_cluster, any_parts_rows, closest_parts_rows
+from .ray_walk import _next_cluster, any_parts_rows
 from .tile_trace import (_as_lanes, _hit, _pad_rays, sort_rays_live,
                          tile_entries, unsort)
 
 _BIG = 1e30
+_INF = float("inf")
 _EPS_DET = 1e-10
 TILE = 128            # rays per tile of the fused walk
 TILES_PER_BLOCK = 8   # JAX's tiles per program: the padding unit
@@ -142,10 +147,13 @@ def mt_round(origins, dirs, tri_block, tri_count, cid, run, tmn, tmax_eff,
 # K5: the fused walk (plain version: lock-step over all tiles)
 # ---------------------------------------------------------------------------
 
-def _walk_tiles_plain(cs: TileClusterSet, o, d, tmn, tmx, cull, any_hit):
+def _walk_tiles_plain(cs: TileClusterSet, o, d, tmn, tmx, cull, any_hit,
+                      entry=False):
     """The walk of K5 closest (any_hit=False) or any (any_hit=True) over
     padded (N,) rays in 128-ray tiles. Tiles run in lock step; a tile that
-    stops never restarts, so only the running tiles are carried."""
+    stops never restarts, so only the running tiles are carried. With
+    `entry` the closest hit also returns the tile's entry into the cluster
+    of each lane's hit (1e30 on a miss)."""
     dev = o.device
     nt = o.shape[0] // TILE
     entries = tile_entries(cs, o, d, tmn, tmx, TILE)          # (NT, C)
@@ -155,6 +163,7 @@ def _walk_tiles_plain(cs: TileClusterSet, o, d, tmn, tmx, cull, any_hit):
     best_id = torch.full((nt, TILE), -1, dtype=torch.int32, device=dev)
     best_u = torch.zeros((nt, TILE), device=dev)
     best_v = torch.zeros((nt, TILE), device=dev)
+    best_e = torch.full((nt, TILE), _BIG, device=dev)
     occ = torch.zeros((nt, TILE), dtype=torch.bool, device=dev)
     last_e = torch.full((nt,), -_BIG, device=dev)
     last_c = torch.full((nt,), -1, dtype=torch.int64, device=dev)
@@ -184,18 +193,22 @@ def _walk_tiles_plain(cs: TileClusterSet, o, d, tmn, tmx, cull, any_hit):
             best_id[tiles] = torch.where(improved, tri, best_id[tiles])
             best_u[tiles] = torch.where(improved, u_p, best_u[tiles])
             best_v[tiles] = torch.where(improved, v_p, best_v[tiles])
+            best_e[tiles] = torch.where(improved, e[:, None], best_e[tiles])
             best_t[tiles] = torch.where(improved, t_min, bt)
         last_e[tiles] = e
         last_c[tiles] = cid
     if any_hit:
         return occ.reshape(-1).to(torch.int32)
-    return (best_t.reshape(-1), best_id.reshape(-1), best_u.reshape(-1),
-            best_v.reshape(-1))
+    out = (best_t.reshape(-1), best_id.reshape(-1), best_u.reshape(-1),
+           best_v.reshape(-1))
+    return out + (best_e.reshape(-1),) if entry else out
 
 
-def closest_tiles_plain(cs, o, d, tmn, tmx, cull):
-    """Plain version of K5 closest on padded rays -> (t, tri, u, v)."""
-    return _walk_tiles_plain(cs, o, d, tmn, tmx, cull, any_hit=False)
+def closest_tiles_plain(cs, o, d, tmn, tmx, cull, entry=False):
+    """Plain version of K5 closest on padded rays -> (t, tri, u, v), and
+    with `entry` the tile's entry into the cluster of each hit."""
+    return _walk_tiles_plain(cs, o, d, tmn, tmx, cull, any_hit=False,
+                             entry=entry)
 
 
 def any_tiles_plain(cs, o, d, tmn, tmx):
@@ -203,13 +216,15 @@ def any_tiles_plain(cs, o, d, tmn, tmx):
     return _walk_tiles_plain(cs, o, d, tmn, tmx, False, any_hit=True)
 
 
-def _closest_tiles(cs, o, d, tmn, tmx, cull):
+def _closest_tiles(cs, o, d, tmn, tmx, cull, entry=False):
     """K5 closest for CUDA tensors, its plain version for CPU tensors."""
     if o.device.type == "cpu":
-        return closest_tiles_plain(cs, o, d, tmn, tmx, cull)
-    return kernels.walk_closest(o, d, tmn, tmx, cs.cmin, cs.cmax,
-                                cs.tri_begin, cs.tri_block, cs.tri_count,
-                                cull)
+        return closest_tiles_plain(cs, o, d, tmn, tmx, cull, entry)
+    e = torch.empty_like(tmn) if entry else None
+    out = kernels.walk_closest(o, d, tmn, tmx, cs.cmin, cs.cmax,
+                               cs.tri_begin, cs.tri_block, cs.tri_count,
+                               cull, entry=e)
+    return out + (e,) if entry else out
 
 
 def _any_tiles(cs, o, d, tmn, tmx):
@@ -242,24 +257,38 @@ def prepare(cs, origins, dirs, tmin, tmax, sort_rays):
 
 
 def split(cs: TileClusterSet, max_clusters: Optional[int] = None):
-    """The set as the fused walk takes it: `cs` itself up to max_clusters
-    clusters (default kernels.tile_walk.MAX_ANY_CLUSTERS, read at the call),
-    its near-equal ClusterParts above."""
+    """The set as K5 closest takes it: `cs` itself up to max_clusters
+    clusters (default kernels.tile_walk.MAX_CLOSEST_CLUSTERS, read at the
+    call), its near-equal ClusterParts above."""
     if max_clusters is None:
-        max_clusters = kernels.MAX_ANY_CLUSTERS
+        max_clusters = kernels.MAX_CLOSEST_CLUSTERS
     if cs.num_clusters <= max_clusters:
         return cs
     return ClusterParts.split(cs, even_bounds(cs.num_clusters,
                                               max_clusters))
 
 
-def any_sets(cs, o, d, tmn, tmx, fn=None):
-    """K5 any (or `fn`, its plain version) on prepared rays over `cs` as
-    split() gives it, one walk or the parts in turn -> int32 flags."""
-    fn = fn or _any_tiles
-    if isinstance(cs, ClusterParts):
-        return any_parts_rows(cs, o, d, tmn, tmx, fn)
-    return fn(cs, o, d, tmn, tmx)
+def closest_parts(parts: ClusterParts, o, d, tmn, tmx, cull, fn=None):
+    """K5 closest (or `fn`, its plain version, which take `entry`) on
+    prepared rays over the parts in turn -> (t, tri, u, v). Each part's walk
+    takes tmax down to one ulp past the best t so far, so that it finds a
+    hit at that t too; a later part wins with a smaller t, or with the same
+    t and a smaller tile entry into the cluster of its hit. The parts are
+    ranges of ids in order, so this is the whole set's walk order, (entry,
+    id): its hits, bit for bit."""
+    fn = fn or _closest_tiles
+    best = None
+    for cs in parts.parts:
+        cur = tmx if best is None else torch.minimum(
+            tmx, torch.nextafter(best[0], torch.full_like(best[0], _INF)))
+        out = fn(cs, o, d, tmn, cur, cull, entry=True)
+        if best is None:
+            best = out
+        else:
+            better = (out[0] < best[0]) | ((out[0] == best[0])
+                                           & (out[4] < best[4]))
+            best = tuple(torch.where(better, a, b) for a, b in zip(out, best))
+    return best[:4]
 
 
 def _closest(cs, origins, dirs, tmin, tmax, cull_backface, sort_rays, fn,
@@ -268,7 +297,7 @@ def _closest(cs, origins, dirs, tmin, tmax, cull_backface, sort_rays, fn,
                                       sort_rays)
     sets = split(cs, max_clusters)
     if isinstance(sets, ClusterParts):
-        out = closest_parts_rows(sets, o, d, tmn, tmx, cull_backface, fn)
+        out = closest_parts(sets, o, d, tmn, tmx, cull_backface, fn)
     else:
         out = fn(sets, o, d, tmn, tmx, cull_backface)
     out = [a[:n] for a in out]
@@ -280,7 +309,10 @@ def _closest(cs, origins, dirs, tmin, tmax, cull_backface, sort_rays, fn,
 def _any(cs, origins, dirs, tmin, tmax, sort_rays, fn, max_clusters):
     o, d, tmn, tmx, n, perm = prepare(cs, origins, dirs, tmin, tmax,
                                       sort_rays)
-    occ = any_sets(split(cs, max_clusters), o, d, tmn, tmx, fn)[:n] > 0
+    sets = cs if max_clusters is None else split(cs, max_clusters)
+    occ = (any_parts_rows(sets, o, d, tmn, tmx, fn)
+           if isinstance(sets, ClusterParts) else fn(sets, o, d, tmn, tmx))
+    occ = occ[:n] > 0
     return unsort(occ, perm) if perm is not None else occ
 
 
@@ -289,7 +321,8 @@ def pallas_closest(cs: TileClusterSet, origins, dirs, tmin, tmax,
                    max_clusters: Optional[int] = None) -> Hit:
     """Closest-hit traversal through the fused walk: K5 on the card, its
     plain version on the CPU; over parts above max_clusters clusters (see
-    split). Same contract as tile_trace.tile_closest."""
+    split and closest_parts), with the whole set's hits. Same contract as
+    tile_trace.tile_closest."""
     return _closest(cs, origins, dirs, tmin, tmax, cull_backface, sort_rays,
                     _closest_tiles, max_clusters)
 
@@ -297,8 +330,9 @@ def pallas_closest(cs: TileClusterSet, origins, dirs, tmin, tmax,
 def pallas_any(cs: TileClusterSet, origins, dirs, tmin, tmax,
                sort_rays: bool = False, max_clusters: Optional[int] = None):
     """Any-hit (occlusion, never culled) traversal through the fused walk:
-    K5 on the card, its plain version on the CPU; over parts above
-    max_clusters clusters. Returns bool."""
+    K5 on the card, one launch over the whole set, its plain version on the
+    CPU; over parts of at most max_clusters clusters only where that is
+    given (the same flags). Returns bool."""
     return _any(cs, origins, dirs, tmin, tmax, sort_rays, _any_tiles,
                 max_clusters)
 

@@ -205,8 +205,7 @@ def closest_parts_rows(parts: ClusterParts, o, d, tmn, tmx, cull,
                        rows_fn=_closest_rows):
     """Closest hits over the parts in turn on prepared rays: each part's
     walk takes tmax tightened by the best t so far, and a later part wins
-    only with a strictly smaller t -> (t, tri, u, v). The parts may also
-    be tile sets, with K5 closest (ops/pallas_tile) as rows_fn."""
+    only with a strictly smaller t -> (t, tri, u, v)."""
     best = None
     for cs in parts.parts:
         cur = tmx if best is None else torch.minimum(tmx, best[0])

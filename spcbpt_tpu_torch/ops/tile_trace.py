@@ -34,9 +34,11 @@ Three formulations of the closest hit's walk:
     launch. Tiles are independent, so it equals the host form bit for bit;
     it makes no host sync. WALK_STATS counts its walks; each tile's round
     count goes to ROUND_LOG while a caller collects it. It takes tiles of
-    1 to 1,024 rays (a block's limit), one thread a ray: a tile that is not
-    a multiple of 32 is padded to one with dead lanes (`_padded`), which
-    change no live lane's result and no tile's rounds.
+    1 to 1,024 rays, one thread a ray, a tile on 1, 2 or 4 CTAs
+    (kernels.tile_walk.round_ctas; a thread block cluster above one): a
+    tile that is not whole warps on each is padded to them with dead lanes
+    (`_padded`, kernels.tile_walk.round_lanes), which change no live lane's
+    result and no tile's rounds.
 
 Misses keep t=1e30, tri=-1, u=v=0.
 """
@@ -447,11 +449,13 @@ def _in_buckets(loop):
 
 def _kernel_walk(cull_backface, tile: int):
     """The card's round walk: every tile in one K4 launch, no host sync;
-    a tile that is not a multiple of 32 rays is padded to one."""
+    a tile that is not whole warps of its form's threads
+    (kernels.tile_walk.round_lanes) is padded to them."""
     if not 0 < tile <= kernels.MAX_ROUND_LANES:
         raise ValueError(f"tile of {tile} rays: the round walk on the card "
                          f"takes tiles of 1 to {kernels.MAX_ROUND_LANES} "
-                         f"rays (a block's limit)")
+                         f"rays ({kernels.ROUND_CTAS[-1]} CTAs of "
+                         f"{kernels.ROUND_THREADS} threads)")
 
     def walk(cs, entries_s, ids_s, o_t, d_t, tmin_t, tmax_t):
         WALK_STATS["walks"] += 1
@@ -461,7 +465,8 @@ def _kernel_walk(cull_backface, tile: int):
         if ROUND_LOG is not None:
             ROUND_LOG.append(rounds)
         return t, tri, u, v
-    return _padded(walk, -(-tile // 32) * 32) if tile % 32 else walk
+    lanes = kernels.round_lanes(tile)
+    return _padded(walk, lanes) if lanes != tile else walk
 
 
 def _hit(best_t, best_id, best_u, best_v) -> Hit:

@@ -8,9 +8,8 @@ array. Traversal modes: `brute` (ops/brute_trace, kernel K3 on the
 card), `walk` (ops/ray_walk, kernels K1/K2 on the card; above
 WALK_MAX_TRIS triangles, or above the clusters one K1/K2 block holds, its
 cluster set is split into parts, walked in turn), `tile` (ops/tile_trace
-and ops/pallas_tile, kernels K4/K5 on the card, any scene size: K4 walks
-the whole tile set, K5 any its parts above the clusters one K5 block
-holds) and `bvh` (ops/traverse, plain torch on either device); `tile` and
+and ops/pallas_tile, kernels K4/K5 on the card, any scene size: K4's walk
+and K5 any each take the whole tile set in one launch a trace) and `bvh` (ops/traverse, plain torch on either device); `tile` and
 `bvh` are taken only by name, as in JAX's builds for an accelerator. A
 scene with an `env_file` loads its HDR sky (scene/hdr.py) and builds an
 EnvMap (scene/envmap.py) around the scene's bounds, with its `Direction`
@@ -204,8 +203,8 @@ def trace_any(ts: TraceScene, origins, dirs, tmin, tmax):
     tmin = tile_trace._as_lanes(tmin, n, origins.device)
     tmax = tile_trace._as_lanes(tmax, n, origins.device)
     if ts.mode == "tile":
-        # the fused walk (K5) on the card, part after part above
-        # MAX_ANY_CLUSTERS clusters; JAX's matmul walk on CPU
+        # the fused walk (K5 any) on the card, one launch over the whole
+        # set; JAX's matmul walk on CPU
         if origins.device.type != "cpu":
             return pallas_tile.pallas_any(ts.clusters, origins, dirs, tmin,
                                           tmax, sort_rays=True)

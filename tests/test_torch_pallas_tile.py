@@ -209,11 +209,14 @@ def test_pallas_walks_match_brute_force(cases, sort_rays):
 @pytest.mark.parametrize("name", ["interior", "cornell"])
 @pytest.mark.parametrize("sort_rays", [False, True])
 def test_any_tile_design_matches_plain(cases, name, sort_rays):
-    """The transcription of K5 any's walk (tests/tile_designs.py), on the
-    rays as pallas_any prepares them, equals any_tiles_plain lane for lane;
-    each tile's candidate list is exactly the finite part of its row of
-    tile_trace.tile_entries, ids and entries; and its visits, tile by tile
-    and in order, are the plain walk's (clusters.VISIT_LOG)."""
+    """The transcription of K5 any's walk (tests/tile_designs.py: the set
+    streamed in id order a tile-width of clusters at a time), on the rays as
+    pallas_any prepares them, equals any_tiles_plain lane for lane; each
+    tile's clusters in reach are exactly the finite part of its row of
+    tile_trace.tile_entries, ids and entries; each tile visits some of them
+    in id order and stops when every lane is occluded or dead or nothing is
+    left (_check_any_visits); the plain walk's visits (clusters.VISIT_LOG)
+    test whole tiles."""
     case = cases[name]
     cs = case["ts"].clusters
     o, d, tmin, _ = map(_t, case["rays"])
@@ -235,11 +238,68 @@ def test_any_tile_design_matches_plain(cases, name, sort_rays):
         finite = np.nonzero(row < 1e30)[0]
         np.testing.assert_array_equal(ids, finite)
         np.testing.assert_array_equal(e, row[finite])
-    visits = rec["visits"]
-    expected = [[v[r] for v in visits if len(v) > r]
-                for r in range(max(map(len, visits)))]
     assert all(lanes == pallas_tile.TILE for lanes, _ in log)
-    assert [cid.tolist() for _, cid in log] == expected
+    _check_any_visits(rec, got, qtn, qtx)
+    assert sum(map(len, rec["visits"])) > 0
+
+
+def _check_any_visits(rec, got, tmn, tmx) -> int:
+    """Each tile's visits in the K5 any transcription's record: clusters in
+    reach, none twice (ascending id order within a part); the tile stopped
+    because every lane
+    ended occluded or dead ("done") or with nothing left to visit ("end");
+    its testing lanes took slots where it visited anything and not all its
+    lanes are dead. Returns the tiles that stopped "done" before their
+    list's end."""
+    occ = got.numpy() > 0
+    dead = (tmx < tmn).numpy()
+    early = 0
+    for g, ((ids, _), visited, stop) in enumerate(zip(
+            rec["lists"], rec["visits"], rec["stops"])):
+        assert set(visited) <= set(ids.tolist())
+        assert len(set(visited)) == len(visited)
+        sl = slice(pallas_tile.TILE * g, pallas_tile.TILE * (g + 1))
+        if stop == "done":
+            assert (occ[sl] | dead[sl]).all()
+            early += len(visited) < len(ids)
+        if rec["slots"][g]:
+            assert visited and not dead[sl].all()
+    return early
+
+
+def test_any_tile_design_stops_when_done(cases):
+    """K5 any's transcription on the interior's camera rays with their own
+    tmax (1e16, a fifth dead): most rays are occluded, so tiles stop before
+    the end of their lists, every lane occluded or dead; the flags still
+    equal any_tiles_plain's, also with the set in 2 and 3 parts (the
+    interior's 105 clusters take one), and the chunk bound and the lanes'
+    own tmax keep the walk's tests below the plain walk's."""
+    case = cases["interior"]
+    cs = case["ts"].clusters
+    o, d, tmin, tmax = map(_t, case["rays"])
+    n_cam = 1024
+    qo, qd, qtn, qtx, n, _ = pallas_tile.prepare(
+        cs, o[:n_cam], d[:n_cam], tmin[:n_cam], tmax[:n_cam], True)
+    rec = {}
+    got = tile_designs.any_tile_walk(cs, qo, qd, qtn, qtx, rec)
+    log = []
+    tclusters.VISIT_LOG = log
+    try:
+        ref = pallas_tile.any_tiles_plain(cs, qo, qd, qtn, qtx)
+    finally:
+        tclusters.VISIT_LOG = None
+    assert torch.equal(got, ref)
+    assert got.numpy()[:n].mean() > 0.6
+    assert _check_any_visits(rec, got, qtn, qtx) > 0
+    assert tile_designs.any_parts(cs.num_clusters) == 1
+    for parts in (2, 3):
+        part_rec = {}
+        assert torch.equal(tile_designs.any_tile_walk(
+            cs, qo, qd, qtn, qtx, part_rec, parts), ref)
+        _check_any_visits(part_rec, got, qtn, qtx)
+    sizes = cs.tri_count.numpy()
+    plain_tests = sum(lanes * int(sizes[c.numpy()].sum()) for lanes, c in log)
+    assert 0 < sum(rec["slots"]) < plain_tests
 
 
 # K5 closest's groups (kClosestRays of csrc/tile_walk.cu), and the other
@@ -293,7 +353,7 @@ def _group_stops(rec, group, visits):
 @pytest.mark.parametrize("cull", [True, False])
 def test_closest_tile_design_matches_plain(cases, name, sort_rays, cull):
     """The transcription of K5 closest (tests/tile_designs.py: the prologue
-    shared with K5 any, groups of K5_GROUP rays stopping on their own bound,
+    tile_order, groups of K5_GROUP rays stopping on their own bound,
     slots below tri_count, the lex-min over a ray's threads) equals
     closest_tiles_plain bit for bit in t, tri, u and v, dead and padded
     lanes included; its candidate lists are the finite part of
@@ -398,8 +458,8 @@ def test_round_design_matches_plain(cases, split, cull):
 
 def test_walk_closest_refuses_too_many_clusters(cases):
     """K5 closest keeps its tile's list in shared memory: a set of more
-    than MAX_ANY_CLUSTERS clusters raises before anything is built."""
-    c = kernels.MAX_ANY_CLUSTERS + 1
+    than MAX_CLOSEST_CLUSTERS clusters raises before anything is built."""
+    c = kernels.MAX_CLOSEST_CLUSTERS + 1
     o = torch.zeros((128, 3))
     t = torch.zeros((128,))
     blocks = torch.zeros((1, 16, 128)).expand(c, 16, 128)

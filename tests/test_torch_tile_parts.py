@@ -4,7 +4,12 @@ near-equal ranges, clusters.even_bounds),
 against the JAX package's tile mode on the same numpy-seeded rays: the
 scale-4 interior (32,576 triangles, 1,370 clusters of at most 32) cut into
 parts of at most MAX_CLUSTERS clusters, so that a small scene takes the
-route a scene above the clusters one K5 block holds takes on the card.
+route a scene above the clusters one K5 closest block holds takes on the
+card (K5 any takes any set whole there; its parts route stays for a given
+max_clusters and gives the whole set's flags). Where triangles of two
+parts meet a ray at the same t, the parts take the hit the whole set's
+walk takes (a hand-made pair of clusters against JAX's whole-set Pallas
+walk in interpret mode).
 
 JAX's references are its tile mode's own any hit, the matmul walk
 (tile_trace.tile_any), and its round walk of the closest hit
@@ -20,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from spcbpt_tpu.ops import clusters as jclusters
 from spcbpt_tpu.ops import tile_trace as jtt
 from spcbpt_tpu.scene import interior
 from spcbpt_tpu.scene import scene as jscene
@@ -27,6 +33,7 @@ from spcbpt_tpu_torch.kernels import tile_walk as kernels
 from spcbpt_tpu_torch.ops import clusters as tclusters
 from spcbpt_tpu_torch.ops import intersect as tint
 from spcbpt_tpu_torch.ops import pallas_tile
+from spcbpt_tpu_torch.ops import ray_walk as tray_walk
 from spcbpt_tpu_torch.render.common import camera_rays
 from spcbpt_tpu_torch.scene import scene as tscene
 
@@ -45,11 +52,10 @@ TILE = 256           # JAX's tile mode (the scene's TILE_LANES)
 # Occlusion against the matmul walk: every lane.
 TRI_AGREE = 0.999
 T_RTOL = 1e-5
-# Parts against the single set, closest hit: a later part wins only with a
-# strictly smaller t, so where triangles of two parts meet a ray at the
-# same t the earlier part keeps it; elsewhere the hits are equal.
-PARTS_TRI_AGREE = 0.9999
 LAUNCH_RAYS = 256    # rays of the launch-count test
+# the scale-14 interior's tile clusters (above MAX_CLOSEST_CLUSTERS), as a
+# set of that size on the meta device
+SCALE14_CLUSTERS = 17_197
 
 
 def _t(a):
@@ -205,30 +211,42 @@ def test_closest_over_parts_matches_jax(case, walks, pallas_interpret,
 @pytest.mark.parametrize("cull", [True, False])
 def test_parts_route_matches_single_set(walks, cull):
     """The parts route against the single-set route (one walk over all
-    1,370 clusters, as K5 takes them below its ceiling): occlusion bit for
-    bit; closest hits on PARTS_TRI_AGREE of the lanes, and t, u, v equal
-    wherever the triangles are."""
+    1,370 clusters, as K5 takes them below its ceiling): occlusion and the
+    closest hits (t, tri, u, v) bit for bit."""
     assert torch.equal(walks("any", False, MAX_CLUSTERS),
                        walks("any", False, None))
     parts, whole = (walks("closest", cull, m) for m in (MAX_CLUSTERS, None))
-    same = parts.tri == whole.tri
-    assert same.float().mean().item() >= PARTS_TRI_AGREE
-    for f in ("t", "u", "v"):
-        assert torch.equal(getattr(parts, f)[same], getattr(whole, f)[same])
+    for f in ("tri", "t", "u", "v"):
+        assert torch.equal(getattr(parts, f), getattr(whole, f)), f
+
+
+@pytest.mark.parametrize("max_clusters", [100, 500, 1369, 1370])
+def test_any_at_every_max_clusters_gives_whole_flags(walks, case,
+                                                     max_clusters):
+    """pallas_any_plain over parts of at most max_clusters clusters (or
+    the whole set at 1,370) gives the whole set's flags, bit for bit."""
+    cs = case["ts"].clusters
+    got = walks("any", False, max_clusters)
+    assert torch.equal(got, walks("any", False, None))
+    assert isinstance(pallas_tile.split(cs, max_clusters),
+                      tclusters.ClusterParts) == (max_clusters < 1370)
 
 
 def test_parts_route_launches_a_walk_per_part(case, monkeypatch):
-    """pallas_any / pallas_closest take the parts above max_clusters and the
-    single set at or below it: one walk (a K5 launch on the card, its plain
-    version here) per part, each over its own clusters only."""
+    """pallas_closest takes the parts above max_clusters (default
+    kernels.MAX_CLOSEST_CLUSTERS) and the single set at or below it: one
+    walk (a K5 launch on the card, its plain version here) per part, each
+    over its own clusters only. pallas_any takes the whole set in one walk
+    whatever MAX_CLOSEST_CLUSTERS is, and parts only where max_clusters is
+    given."""
     cs = case["ts"].clusters
     o, d, tmin, tmax = (_t(a[:LAUNCH_RAYS]) for a in case["rays"])
     seen = []
 
     def spy(fn):
-        def wrapped(part, *a):
+        def wrapped(part, *a, **k):
             seen.append(part.num_clusters)
-            return fn(part, *a)
+            return fn(part, *a, **k)
         return wrapped
     monkeypatch.setattr(pallas_tile, "any_tiles_plain",
                         spy(pallas_tile.any_tiles_plain))
@@ -242,20 +260,33 @@ def test_parts_route_launches_a_walk_per_part(case, monkeypatch):
     pallas_tile.pallas_any(cs, o, d, tmin, tmax,
                            max_clusters=cs.num_clusters)
     assert seen == [cs.num_clusters]
+    seen.clear()
+    monkeypatch.setattr(kernels, "MAX_CLOSEST_CLUSTERS", 500)
+    pallas_tile.pallas_any(cs, o, d, tmin, tmax)
+    pallas_tile.pallas_closest(cs, o, d, tmin, tmax)
+    assert seen == [cs.num_clusters, 456, 457, 457]
+
+
+def _on_meta(cs, clusters=None):
+    """`cs` with its tensors on the meta device (no data), with `clusters`
+    clusters in place of its own where given."""
+    def meta(x):
+        if clusters is not None:
+            x = x[:1].expand(clusters, *x.shape[1:])
+        return x.to("meta")
+    return dataclasses.replace(cs, **{
+        f.name: meta(getattr(cs, f.name)) for f in dataclasses.fields(cs)
+        if isinstance(getattr(cs, f.name), torch.Tensor)
+        and getattr(cs, f.name).shape[0] == cs.num_clusters})
 
 
 def test_scene_trace_any_takes_the_parts_route(case, monkeypatch):
     """trace_any of a tile-mode scene on the card's route (here the meta
     device stands in for the card, and K5 any's binding is replaced by a
-    spy) launches K5 any once a part, each launch over at most
-    MAX_ANY_CLUSTERS clusters, when that is made small; at the shipped
-    ceiling the interior is one launch."""
-    cs = case["ts"].clusters
-    meta = dataclasses.replace(cs, **{
-        f.name: getattr(cs, f.name).to("meta")
-        for f in dataclasses.fields(cs)
-        if isinstance(getattr(cs, f.name), torch.Tensor)})
-    ts = dataclasses.replace(case["ts"], clusters=meta)
+    spy) launches K5 any once a trace over the whole set: the interior's
+    1,370 clusters, and a set of SCALE14_CLUSTERS, above
+    MAX_CLOSEST_CLUSTERS (the parts route's bound, which K5 any no longer
+    takes)."""
     launched = []
 
     def walk_any(o, d, tmin, tmax, cmin, cmax, tri_block, tri_count, tri_k):
@@ -265,11 +296,101 @@ def test_scene_trace_any_takes_the_parts_route(case, monkeypatch):
                            device=o.device)
     monkeypatch.setattr(kernels, "walk_any", walk_any)
     o = torch.zeros((N_RAYS, 3), device="meta")
+    cs = case["ts"].clusters
+    ts = dataclasses.replace(case["ts"], clusters=_on_meta(cs))
     vis = tscene.visibility(ts, o, o + 1.0)
     assert vis.shape == (N_RAYS,) and launched == [cs.num_clusters]
     launched.clear()
-    monkeypatch.setattr(kernels, "MAX_ANY_CLUSTERS", MAX_CLUSTERS)
-    occ = tscene.trace_any(ts, o, o, 1e-3, 1e16)
-    assert occ.shape == (N_RAYS,) and occ.dtype == torch.bool
-    bounds = tclusters.even_bounds(cs.num_clusters, MAX_CLUSTERS)
-    assert launched == [b - a for a, b in bounds] and len(launched) == 22
+    assert SCALE14_CLUSTERS > kernels.MAX_CLOSEST_CLUSTERS
+    big = dataclasses.replace(case["ts"], clusters=_on_meta(
+        cs, SCALE14_CLUSTERS))
+    for _ in range(2):
+        occ = tscene.trace_any(big, o, o, 1e-3, 1e16)
+        assert occ.shape == (N_RAYS,) and occ.dtype == torch.bool
+    assert launched == [SCALE14_CLUSTERS] * 2
+
+
+# ---------------------------------------------------------------------------
+# equal t across parts: two clusters with the same triangle
+# ---------------------------------------------------------------------------
+
+TIE_RAYS = 300       # not a multiple of the 128-ray tile
+
+
+def _tie_case():
+    """Two clusters of two triangles, in both packages: the same triangle
+    T (z = 5, facing the rays) in each, beside a triangle off the rays'
+    path at z = 10 in cluster 0 and at z = 2 in cluster 1, so that cluster
+    1's box starts nearer (its tile entry ~2, cluster 0's ~5). Rays from
+    z = 0 towards +z meet both copies of T at the same t: JAX's whole-set
+    walk takes cluster 1's (the earlier of its (entry, id) order), except
+    in the tile padded with dead lanes of direction (1, 0, 0), whose hull
+    gives both clusters the entry -1e30 (then the smaller id wins).
+    Returns (JAX ClusterSet, the port's TileClusterSet, numpy rays)."""
+    k = 32
+    tri = lambda p0, e1, e2: np.array([p0, e1, e2], np.float64)
+    t_shared = tri((-2, -2, 5), (0, 6, 0), (6, 0, 0))
+    tris = np.stack([t_shared, tri((10, 0, 10), (0, 1, 0), (1, 0, 0)),
+                     t_shared, tri((10, 0, 2), (0, 1, 0), (1, 0, 0))])
+    p0, e1, e2 = tris[:, 0], tris[:, 1], tris[:, 2]
+    corners = np.stack([p0, p0 + e1, p0 + e2], axis=1)      # (T, 3, 3)
+    cmin = np.stack([corners[2 * c:2 * c + 2].reshape(-1, 3).min(0)
+                     for c in range(2)]).astype(np.float32)
+    cmax = np.stack([corners[2 * c:2 * c + 2].reshape(-1, 3).max(0)
+                     for c in range(2)]).astype(np.float32)
+    block = np.zeros((2, 16, 128), np.float32)
+    for c in range(2):
+        raw = np.concatenate([p0, e1, e2], axis=1)[2 * c:2 * c + 2]
+        block[c, :9, :2] = raw.T
+    coeff = np.zeros((2, 16, 4 * k), np.float32)
+    begin = np.array([0, 2], np.int32)
+    jcs = jclusters.ClusterSet(
+        cmin=jnp.asarray(cmin), cmax=jnp.asarray(cmax),
+        coeff=jnp.asarray(coeff), tri_block=jnp.asarray(block),
+        tri_begin=jnp.asarray(begin), tri_p0=jnp.asarray(p0, jnp.float32),
+        tri_e1=jnp.asarray(e1, jnp.float32),
+        tri_e2=jnp.asarray(e2, jnp.float32), tri_k=k)
+    tcs = tclusters.TileClusterSet.from_arrays(cmin, cmax, coeff, block,
+                                               begin, k, "cpu")
+    rng = np.random.default_rng(5)
+    o = np.zeros((TIE_RAYS, 3), np.float32)
+    o[:, :2] = rng.uniform(-0.5, 0.5, (TIE_RAYS, 2))
+    d = np.concatenate([rng.uniform(-0.05, 0.05, (TIE_RAYS, 2)),
+                        np.ones((TIE_RAYS, 1))], axis=1)
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    tmin = np.full(TIE_RAYS, 1e-3, np.float32)
+    tmax = np.full(TIE_RAYS, 1e16, np.float32)
+    tmax[rng.permutation(TIE_RAYS)[:TIE_RAYS // 10]] = -1.0
+    return jcs, tcs, (o, d, tmin, tmax)
+
+
+@pytest.mark.parametrize("cull", [True, False])
+def test_closest_parts_break_ties_as_the_whole_set(pallas_interpret, cull):
+    """The two clusters of _tie_case in two parts (max_clusters 1):
+    pallas_closest_plain takes, on every lane, the triangle JAX's
+    pallas_closest (its Pallas walk over the whole set, interpret mode)
+    takes, t to T_RTOL, and equals the port's whole-set walk bit for bit;
+    the old merge (a later part wins only with a strictly smaller t:
+    ray_walk.closest_parts_rows) keeps the earlier part's copy instead."""
+    jcs, tcs, rays = _tie_case()
+    parts = pallas_tile.pallas_closest_plain(tcs, *map(_t, rays), cull,
+                                             max_clusters=1)
+    whole = pallas_tile.pallas_closest_plain(tcs, *map(_t, rays), cull)
+    ref = pallas_interpret.pallas_closest(jcs, *map(_j, rays), cull)
+    ref_tri = np.asarray(ref.tri)
+    live = rays[3] > 0
+    later = ref_tri == 2
+    assert (ref_tri[~live] == -1).all() and (ref_tri[live] >= 0).all()
+    assert later.sum() >= 200 and (later & live).sum() < live.sum()
+    np.testing.assert_array_equal(parts.tri.numpy(), ref_tri)
+    np.testing.assert_allclose(parts.t.numpy(), np.asarray(ref.t),
+                               rtol=T_RTOL)
+    for f in ("tri", "t", "u", "v"):
+        assert torch.equal(getattr(parts, f), getattr(whole, f)), f
+    split = pallas_tile.split(tcs, 1)
+    assert [p.num_clusters for p in split.parts] == [1, 1]
+    o, d, tmn, tmx, n, _ = pallas_tile.prepare(tcs, *map(_t, rays), False)
+    old = tray_walk.closest_parts_rows(split, o, d, tmn, tmx, cull,
+                                       pallas_tile.closest_tiles_plain)
+    old_tri = old[1][:n].numpy()
+    assert (old_tri[live] == 0).all() and (old_tri[later] != 2).all()

@@ -400,11 +400,13 @@ def test_round_walk_at_wide_tiles_matches_jax(case, tile):
 def _fake_round_walk(calls):
     """A stand-in for K4's binding on CPU tensors: the transcription of its
     walk (tests/tile_designs.k4_walk) with the binding's own check of the
-    tile (a multiple of 32 rays); records the lanes it was given."""
+    tile (whole warps on each of its round_ctas(r) CTAs); records the lanes
+    it was given."""
     def round_walk(o_t, d_t, tmin_t, tmax_t, entries, ids, tri_block,
                    tri_begin, tri_count, tri_k, cull):
         r = o_t.shape[1]
-        assert r % 32 == 0 and r <= kernels.MAX_ROUND_LANES, r
+        assert r <= kernels.MAX_ROUND_LANES and kernels.round_lanes(r) == r
+        assert r % (32 * kernels.round_ctas(r)) == 0, r
         calls.append(r)
         cs = tclusters.TileClusterSet(
             cmin=None, cmax=None, coeff=None, tri_block=tri_block,
@@ -478,9 +480,9 @@ def test_padded_tiles_walk_as_unpadded(case, monkeypatch, tile, form):
 
 
 def test_card_walk_refuses_tiles_above_a_block(case):
-    """On the card K4 takes tiles of 1 to 1,024 rays (a block's limit): a
-    larger tile raises with a message that names the limit, before any
-    work (the meta device stands in for the card)."""
+    """On the card K4 takes tiles of 1 to 1,024 rays (a cluster of up to 4
+    CTAs of 256 threads): a larger tile raises with a message that names
+    the limit, before any work (the meta device stands in for the card)."""
     cs = case["ts"].clusters
     o = torch.zeros((2048, 3), device="meta")
     t = torch.zeros((2048,), device="meta")
@@ -488,3 +490,57 @@ def test_card_walk_refuses_tiles_above_a_block(case):
         with pytest.raises(ValueError, match="1 to 1024 rays"):
             ttt.tile_closest(cs, o, o, t, t, tile=tile, use_kernel=True)
     assert kernels.MAX_ROUND_LANES == 1024
+
+
+# (tile, CTAs a tile, lanes after padding, threads a CTA) of K4's walk
+ROUND_FORMS = [(1, 1, 32, 32), (32, 1, 32, 32), (100, 1, 128, 128),
+               (256, 1, 256, 256), (257, 2, 320, 160), (300, 2, 320, 160),
+               (512, 2, 512, 256), (513, 4, 640, 160), (600, 4, 640, 160),
+               (1000, 4, 1024, 256), (1024, 4, 1024, 256)]
+
+
+@pytest.mark.parametrize("tile,ctas,lanes,threads", ROUND_FORMS)
+def test_round_form_chooser(tile, ctas, lanes, threads):
+    """K4's walk takes a tile on the fewest CTAs (1, 2 or 4, a thread block
+    cluster above 1) of up to 256 threads that hold it, one thread a ray,
+    padded to whole warps on each CTA; each CTA's threads are the lanes
+    over the CTAs."""
+    assert kernels.round_ctas(tile) == ctas
+    assert kernels.round_lanes(tile) == lanes
+    assert lanes // ctas == threads <= kernels.ROUND_THREADS
+    assert lanes % (32 * ctas) == 0 and tile <= lanes < tile + 32 * ctas
+    assert kernels.round_lanes(lanes) == lanes
+
+
+@pytest.mark.parametrize("tile", [300, 600])
+def test_round_forms_walk_padded_tiles_bit_for_bit(case, monkeypatch, tile):
+    """Tiles of 300 and 600 rays through the card's wrapper
+    (tile_trace._kernel_walk around a stand-in for the binding that runs
+    the transcription of K4's walk): the binding gets round_lanes(tile)
+    lanes (320 on 2 CTAs, 640 on 4), and the hits (t,
+    tri, u, v) and each tile's rounds equal the unpadded walk's bit for
+    bit; and the binding refuses a tile that is not whole warps on each of
+    its CTAs (before it looks at the device: nothing built)."""
+    cs = case["ts"].clusters
+    args = tuple(map(_t, case["rays"]))
+    calls = []
+    monkeypatch.setattr(kernels, "round_walk", _fake_round_walk(calls))
+    rec = {}
+    unpadded = ttt._walk(cs, *args, tile, True,
+                         tile_designs.k4_walk(False, rec))
+    ttt.ROUND_LOG = log = []
+    try:
+        padded = ttt._walk(cs, *args, tile, True,
+                           ttt._kernel_walk(False, tile))
+    finally:
+        ttt.ROUND_LOG = None
+    assert calls == [kernels.round_lanes(tile)]
+    for a, b in zip(unpadded, padded):
+        assert torch.equal(a, b)
+    assert rec["rounds"] == log[0].tolist() and max(rec["rounds"]) > 1
+    monkeypatch.undo()
+    o = torch.zeros((1, tile, 3))
+    t = torch.zeros((1, tile))
+    with pytest.raises(ValueError, match="whole warps"):
+        kernels.round_walk(o, o, t, t, t, t, cs.tri_block, cs.tri_begin,
+                           cs.tri_count, cs.tri_k, False)

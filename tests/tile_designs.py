@@ -128,7 +128,7 @@ K5_TILE = cuda_constant("tile_walk", "kTile")   # rays per tile of K5
 
 
 def tile_order(cs, o, d, tmn, tmx, rec):
-    """The prologue of both K5 kernels (`tile_order`) on padded numpy rays:
+    """The prologue of K5 closest (`tile_order`) on padded numpy rays:
     each 128-ray tile computes its entries, compacts those below 1e30 in id
     order (a ballot per warp, a prefix over the warps) and sorts them near
     to far by (entry, id) once. Returns a list per tile of (ids, entries)
@@ -145,29 +145,94 @@ def tile_order(cs, o, d, tmn, tmx, rec):
     return order
 
 
-def any_tile_walk(cs, o, d, tmn, tmx, rec):
+K5_STAGES = cuda_constant("tile_walk", "kAnyStages")   # K5 any's ring
+K5_PART_CLUSTERS = cuda_constant("tile_walk", "kAnyPartClusters")
+K5_MAX_PARTS = cuda_constant("tile_walk", "kAnyMaxParts")
+
+
+def any_parts(c_total: int) -> int:
+    """The parts of K5 any's walk over c_total clusters (`any_parts`)."""
+    return min(max(-(-c_total // K5_PART_CLUSTERS), 1), K5_MAX_PARTS)
+
+
+def any_tile_walk(cs, o, d, tmn, tmx, rec, parts=None):
     """K5 any (`any_tile_kernel`) on padded rays -> int32 flags: each tile
-    takes its sorted list from the prologue (tile_order) and walks it until
-    each of its lanes is occluded or dead; only lanes neither occluded nor
-    with tmax <= tmin test the cluster's slots below tri_count. Each tile's
-    candidate list (ids, entries) and visit order go to `rec`."""
+    is walked in `parts` parts (default the kernel's any_parts), part p
+    taking the chunks p, p + parts, ... of K5_TILE clusters in id order
+    (`next_chunk`: their entries, those below the chunk's bound kept in id
+    order, the bound the largest tmax of the lanes neither occluded nor
+    empty when the chunk is scanned) and fetching the kept ones K5_STAGES -
+    1 rounds ahead of the round that tests them (a chunk is scanned when a
+    fetch finds the queue used up, before that round's test); a part walks
+    them until each of the tile's lanes is occluded or dead or nothing is
+    fetched; a lane neither occluded nor with tmax <= tmin tests the
+    cluster's slots below tri_count where the cluster's entry lies below
+    its tmax. The parts run one after the other here, each starting from
+    the lanes the earlier ones occluded (on the card they run at once and
+    read each other's finds when they pack the rays still looking into
+    their first threads, which moves no ray's tests: a lane is occluded by
+    whichever part finds its hit, so the flags are the same). Each tile's
+    clusters in reach (ids, entries, in id order), its visits (the parts'
+    in turn), the slots its lanes tested (the kernel's rounds output) and
+    why its last part stopped ("done": every lane occluded or dead;
+    "end": nothing left) go to `rec`."""
     tile = K5_TILE
+    f32 = np.float32
     o_n, d_n, tn, tx = (a.numpy() for a in (o, d, tmn, tmx))
     blocks, count = cs.tri_block.numpy(), cs.tri_count.numpy()
+    c_total = count.shape[0]
+    parts = parts or any_parts(c_total)
     occ = np.zeros(tn.shape[0], bool)
-    rec["visits"] = []
-    for g, (near, _) in enumerate(tile_order(cs, o_n, d_n, tn, tx, rec)):
+    for key in ("lists", "visits", "slots", "stops"):
+        rec[key] = []
+    for g in range(tn.shape[0] // tile):
         sl = slice(tile * g, tile * (g + 1))
-        visited = []
+        e = _group_entries(cs, o_n[sl], d_n[sl], tn[sl], tx[sl])
+        ids = np.nonzero(e < f32(1e30))[0]
+        rec["lists"].append((ids, e[ids]))
         dead = tx[sl] < tn[sl]
-        for cid in near:
-            if (occ[sl] | dead).all():
-                break
-            hit = mt_slots(o_n[sl], d_n[sl], blocks[cid], count[cid], tn[sl],
-                           tx[sl], False)[0].any(axis=1)
-            occ[sl] |= hit & ~occ[sl] & (tx[sl] > tn[sl])
-            visited.append(int(cid))
+        live = tx[sl] > tn[sl]
+        visited, slots = [], 0
+        for part in range(parts):
+            state = {"base": part * tile, "queue": [], "at": 0}
+            fetched = []
+
+            def fetch():
+                if state["at"] == len(state["queue"]) \
+                        and state["base"] < c_total:
+                    looking = ~occ[sl] & live
+                    bound = tx[sl][looking].max() if looking.any() \
+                        else f32(-1e30)
+                    kept = []
+                    while not kept and state["base"] < c_total:
+                        b = state["base"]
+                        chunk = np.arange(b, min(b + tile, c_total))
+                        state["base"] = b + parts * tile
+                        kept = list(chunk[e[chunk] < bound])
+                    state["queue"], state["at"] = kept, 0
+                if state["at"] < len(state["queue"]):
+                    fetched.append(int(state["queue"][state["at"]]))
+                    state["at"] += 1
+            for _ in range(K5_STAGES - 1):
+                fetch()
+            rnd = 0
+            while True:
+                done = (occ[sl] | dead).all()
+                if done or rnd == len(fetched):
+                    stop = "done" if done else "end"
+                    break
+                fetch()
+                cid = fetched[rnd]
+                testing = ~occ[sl] & live & (e[cid] < tx[sl])
+                hit = mt_slots(o_n[sl], d_n[sl], blocks[cid], count[cid],
+                               tn[sl], tx[sl], False)[0].any(axis=1)
+                occ[sl] |= hit & testing
+                slots += int(count[cid]) * int(testing.sum())
+                visited.append(cid)
+                rnd += 1
+        rec["stops"].append(stop)
         rec["visits"].append(visited)
+        rec["slots"].append(slots)
     return torch.from_numpy(occ.astype(np.int32))
 
 
@@ -230,7 +295,7 @@ def round_split(o_t, d_t, tri_block, tri_count, cid, run, tmn, tmx, cull,
 def closest_tile_walk(cs, o, d, tmn, tmx, cull, group, rec):
     """K5 closest (`closest_walk_kernel`) on padded rays -> (t, tri, u, v)
     as torch tensors: each 128-ray tile takes its sorted list from the
-    prologue (tile_order, shared with K5 any), and its groups of `group`
+    prologue (tile_order), and its groups of `group`
     rays walk it as the list-walk kernels' groups walk theirs (group_walk:
     each stopping on its own bound, the max of min(best_t, tmax) over its
     rays, tested before every round; slots below tri_count on 32 / group

@@ -2,7 +2,7 @@
 """Times design variants of the tile-walk kernels K4 (the round walk and its
 single round) and K5 (the fused walk, closest and any hit) on one NVIDIA GPU.
 
-    python3 tile_walk_variants.py [names]
+    python3 tile_walk_variants.py [names] [--tile N] [--scale S]
 
 The package ships one form of each in csrc/tile_walk.cu and no switch. This
 script makes the other forms that were tried from that source in memory
@@ -14,11 +14,24 @@ quarter of the lanes dead; 3 x 2^16 connection segments, a third masked),
 checks the shipped forms against their plain versions (`torch.equal`,
 cull off, as timed) and every variant against the shipped form, and prints
 each kernel alone: the least of 3 replays of a CUDA graph of 20 launches
-(chip_smoke.graph_ms). The variants:
+(chip_smoke.graph_ms). --tile N gives the K4 kinds tiles of N rays (default
+the tile mode's 256); --scale S (default 4) takes the interior at scale S
+instead and times K5 any alone on its 2^16-ray connection wavefront (at 14:
+399,856 triangles, 17,197 tile clusters); a variant above the clusters its
+shared memory holds (MAX_CLUSTERS_OF) is skipped there. The variants:
   K4 walk   stage1     one staging buffer, filled after the round's bound
                        is known (no copy in flight during the tests);
             direct     no staging: the slots are read from the block in
                        global memory (L2) by every thread;
+            wide_blocks  the first form of tiles above 256 (PR 17): one
+                       thread a ray, blocks of 512 and 1,024 threads (the
+                       1,024 instance capped at 64 registers);
+            wide_skip  wide_blocks with the rays form's per-ray skip;
+            rays       the tile on one block of up to 256 threads, 1, 2 or 4
+                       rays a thread (a tile still on one SM), a ray
+                       skipping a cluster whose tile entry is at or past
+                       its own min(best_t, tmax);
+            rays_unpruned  the rays form without its per-ray skip;
   K4 round  old_round  the first form: every running tile copies its
                        cluster's 9 x 128 floats with scalar loads into
                        shared memory, every ray tests tri_k slots, each test
@@ -43,14 +56,36 @@ each kernel alone: the least of 3 replays of a CUDA graph of 20 launches
             prologue   the walk cut off: the shared prologue alone (hull,
                        compaction, sort; returns misses: a floor, not
                        compared);
-  K5 any    old_any    the form before its redesign: the old closest form's
-                       walk with an any-hit stop, every lane occluded or
-                       dead;
+  K5 any    old_any    the form before its first redesign: the old closest
+                       form's walk with an any-hit stop, every lane
+                       occluded or dead;
+            any_sorted the form of PRs 7-17: the tile's clusters in reach
+                       sorted near to far once by (entry, id) in shared
+                       memory (8 bytes a cluster, padded to a power of
+                       two: at most 16,384 clusters) and walked with the
+                       shipped form's staged rounds, no cut by the entry;
+            any_unpruned  the shipped stream without its cuts by the tile
+                       entry (every cluster in reach kept, every lane still
+                       looking testing it);
+            any_one_part  the shipped stream in one part a tile (a block
+                       walks the whole set);
+            any_span2048, any_span1024  a part every 2,048 (1,024)
+                       clusters, up to 16 parts, in place of every 256 up
+                       to 64;
+            any_span512  a part every 512 clusters, up to 32 parts;
+            any_no_compact  the shipped stream with each ray on its own
+                       thread throughout (no packing of the rays still
+                       looking);
+            any_compact_chunks  the rays packed at each chunk scan only,
+                       not every 8 rounds;
+            any_stages2, any_stages8  the shipped stream with a ring of 2
+                       (one cluster in flight, as the sorted form) or 8
+                       staged clusters in place of 4;
             any_warp   one warp per 32 rays, 4 a block, nothing shared: each
-                       warp reduces its own bounds with shuffles, compacts
-                       its own candidate list (entry, id) in shared memory,
-                       takes the lexicographic successor each round and
-                       reads the slots from L2; no block barrier;
+                       warp reduces its own bounds with shuffles, streams
+                       the set 32 clusters a ballot with the shipped form's
+                       cuts by the entry and reads the slots from L2; no
+                       block barrier;
             any_const_stride  the staging loop's stride the constant kTile
                        (the block's size) instead of blockDim.x;
   K4 walk, K5 any  all_slots  every slot below tri_k staged and tested, not
@@ -402,7 +437,7 @@ extern "C" int tile_walk_any_old(const float* o, const float* d,
                                  const float* cmin, const float* cmax,
                                  const float* blocks, const int* tri_count,
                                  int n, int c_total, int tri_k, int* out_occ,
-                                 void* stream) {
+                                 int* out_rounds, void* stream) {
   const size_t smem = sizeof(float) * (kTriRows * kSlots + c_total);
   const int err = allow_shared(old_any_kernel, smem);
   if (err) return err;
@@ -413,7 +448,7 @@ extern "C" int tile_walk_any_old(const float* o, const float* d,
 }
 '''
 
-_ANY_WARP = _OLD_HELPERS + r'''
+_ANY_WARP = r'''
 namespace {
 // The hull of the warp's 32 rays (shuffles only).
 __device__ __forceinline__ Hull warp_hull(const Ray& r, float tmn, float tmx) {
@@ -431,73 +466,43 @@ __device__ __forceinline__ Hull warp_hull(const Ray& r, float tmn, float tmx) {
   return h;
 }
 
-__device__ __forceinline__ void warp_next(const float* le, const int* lc,
-                                          int count, int c_total, int lane,
-                                          float last_e, int last_c,
-                                          float& e_out, int& c_out) {
-  float be = kBig;
-  int bc = c_total;
-  for (int j = lane; j < count; j += 32) {
-    const float e = le[j];
-    const int c = lc[j];
-    if (e > last_e || (e == last_e && c > last_c)) lex_min(be, bc, e, c);
-  }
-#pragma unroll
-  for (int m = 16; m >= 1; m >>= 1)
-    lex_min(be, bc, __shfl_xor_sync(kFull, be, m),
-            __shfl_xor_sync(kFull, bc, m));
-  e_out = be;
-  c_out = bc;
-}
-
 constexpr int kAnyWarps = 4;  // 32-ray groups a block of any_warp_kernel
 
+// One warp per 32 rays with its own hull, nothing shared: the set streamed
+// in id order 32 clusters a ballot (kept below the warp's bound, the
+// shipped form's cuts by the entry), the kept ones walked in turn, the
+// slots read from L2, until every lane of the warp is occluded or dead.
 __global__ void __launch_bounds__(32 * kAnyWarps)
 any_warp_kernel(const float* __restrict__ o, const float* __restrict__ d,
                 const float* __restrict__ tmin, const float* __restrict__ tmax,
                 const float* __restrict__ cmin, const float* __restrict__ cmax,
                 const float* __restrict__ blocks,
-                const int* __restrict__ tri_count, int c_total, int tri_k,
+                const int* __restrict__ tri_count, int c_total,
                 int* __restrict__ out_occ) {
-  extern __shared__ __align__(16) float lists[];  // per warp: entries, ids
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* le = lists + static_cast<size_t>(warp) * 2 * c_total;
-  int* lc = reinterpret_cast<int*>(le + c_total);
-  const size_t i = (static_cast<size_t>(blockIdx.x) * kAnyWarps + warp) * 32 +
-                   lane;
+  const int lane = threadIdx.x & 31;
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
   const Ray r = load_ray(o, d, i);
   const float tmn = __ldg(tmin + i), tmx = __ldg(tmax + i);
   const Hull h = warp_hull(r, tmn, tmx);
-  const unsigned below = (1u << lane) - 1u;
-  int count = 0;
-  for (int base = 0; base < c_total; base += 32) {
-    const int c = base + lane;
-    const float e = c < c_total ? hull_entry(h, cmin, cmax, c) : kBig;
-    const bool keep = e < kBig;
-    const unsigned m = __ballot_sync(kFull, keep);
-    if (keep) {
-      le[count + __popc(m & below)] = e;
-      lc[count + __popc(m & below)] = c;
-    }
-    count += __popc(m);
-  }
-  __syncwarp();
-
   bool occ = false;
   const bool dead = tmx < tmn;
-  float last_e = -kBig;
-  int last_c = -1;
-  while (!__all_sync(kFull, occ || dead)) {
-    float e;
-    int cid;
-    warp_next(le, lc, count, c_total, lane, last_e, last_c, e, cid);
-    if (!(e < kBig)) break;
-    if (!occ && tmx > tmn)
-      occ = any_in_slots<true>(
-          r, blocks + static_cast<size_t>(cid) * kBlockRows * kSlots, kSlots,
-          __ldg(tri_count + cid), tmn, tmx);
-    last_e = e;
-    last_c = cid;
+  bool done = __all_sync(kFull, dead);
+  for (int base = 0; base < c_total && !done; base += 32) {
+    const int c = base + lane;
+    const float ec = c < c_total ? hull_entry(h, cmin, cmax, c) : kBig;
+    const float bound = warp_max(!occ && tmx > tmn ? tmx : -kBig);
+    unsigned m = __ballot_sync(kFull, ec < bound);
+    for (; m != 0 && !done; m &= m - 1) {
+      const int at = __ffs(m) - 1;
+      const int cid = base + at;
+      const float e = __shfl_sync(kFull, ec, at);
+      if (!occ && tmx > tmn && e < tmx)
+        occ = any_in_slots<true>(
+            r, blocks + static_cast<size_t>(cid) * kBlockRows * kSlots,
+            kSlots, __ldg(tri_count + cid), tmn, tmx);
+      done = __all_sync(kFull, occ || dead);
+    }
   }
   out_occ[i] = occ ? 1 : 0;
 }
@@ -508,14 +513,364 @@ extern "C" int tile_walk_any_warp(const float* o, const float* d,
                                   const float* cmin, const float* cmax,
                                   const float* blocks, const int* tri_count,
                                   int n, int c_total, int tri_k, int* out_occ,
-                                  void* stream) {
-  const size_t smem = sizeof(float) * 2 * kAnyWarps * c_total;
-  const int err = allow_shared(any_warp_kernel, smem);
-  if (err) return err;
-  any_warp_kernel<<<n / (32 * kAnyWarps), 32 * kAnyWarps, smem,
+                                  int* out_rounds, void* stream) {
+  any_warp_kernel<<<n / (32 * kAnyWarps), 32 * kAnyWarps, 0,
                     static_cast<cudaStream_t>(stream)>>>(
+      o, d, tmin, tmax, cmin, cmax, blocks, tri_count, c_total, out_occ);
+  return static_cast<int>(cudaGetLastError());
+}
+'''
+
+# K5 any as PRs 7-17 shipped it: tile_order's near-to-far list of (entry,
+# id) keys in shared memory (8 bytes a cluster, padded to a power of two),
+# walked with the staged rounds of the shipped form; at most 16,384
+# clusters (MAX_CLUSTERS_OF)
+_ANY_SORTED = r'''
+namespace {
+__global__ void __launch_bounds__(kTile)
+sorted_any_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                   const float* __restrict__ tmin, const float* __restrict__ tmax,
+                   const float* __restrict__ cmin, const float* __restrict__ cmax,
+                   const float* __restrict__ blocks,
+                   const int* __restrict__ tri_count, int c_total, int tri_k,
+                   int* __restrict__ out_occ) {
+  extern __shared__ __align__(16) float smem_a[];
+  const int kq = (tri_k + 3) >> 2, ks = 4 * kq;
+  float* stage = smem_a;  // 2 x 9 x ks floats, then the keys
+  unsigned long long* keys =
+      reinterpret_cast<unsigned long long*>(stage + 2 * kTriRows * ks);
+  __shared__ float red[kTile / 32];
+  __shared__ int wcount[kTile / 32];
+  const int tid = threadIdx.x;
+  const size_t i = static_cast<size_t>(blockIdx.x) * kTile + tid;
+  const Ray r = load_ray(o, d, i);
+  const float tmn = __ldg(tmin + i), tmx = __ldg(tmax + i);
+  const int count = tile_order<kTile>(block_hull<kTile>(r, tmn, tmx, red),
+                                      cmin, cmax, c_total, keys, wcount);
+
+  bool occ = false;
+  const bool dead = tmx < tmn;
+  if (count > 0)
+    stage_slots(stage, blocks, key_id(keys[0]), kq, kq);
+  commit();
+  for (int rnd = 0;; ++rnd) {
+    wait_all();  // this round's copies have landed; the barrier
+    // publishes them, and every thread is past its reads of the other buffer
+    if (__syncthreads_and(occ || dead) || rnd >= count) break;
+    if (rnd + 1 < count)
+      stage_slots(stage + ((rnd + 1) & 1) * kTriRows * ks, blocks,
+                  key_id(keys[rnd + 1]), kq, kq);
+    commit();
+    const int cnt = __ldg(tri_count + key_id(keys[rnd]));
+    if (!occ && tmx > tmn)
+      occ = any_in_slots<false>(r, stage + (rnd & 1) * kTriRows * ks, ks, cnt,
+                                tmn, tmx);
+  }
+  out_occ[i] = occ ? 1 : 0;
+}
+}  // namespace
+
+extern "C" int tile_walk_any_sorted(const float* o, const float* d,
+                                    const float* tmin, const float* tmax,
+                                    const float* cmin, const float* cmax,
+                                    const float* blocks, const int* tri_count,
+                                    int n, int c_total, int tri_k,
+                                    int* out_occ, int* out_rounds,
+                                    void* stream) {
+  const size_t smem = sizeof(float) * 2 * kTriRows * 4 * ((tri_k + 3) / 4) +
+                      sizeof(unsigned long long) * pow2_at_least(c_total);
+  const int err = allow_shared(sorted_any_kernel, smem);
+  if (err) return err;
+  sorted_any_kernel<<<n / kTile, kTile, smem,
+                      static_cast<cudaStream_t>(stream)>>>(
       o, d, tmin, tmax, cmin, cmax, blocks, tri_count, c_total, tri_k,
       out_occ);
+  return static_cast<int>(cudaGetLastError());
+}
+'''
+
+# K4's walk on one block of up to 256 threads, R = 1, 2 or 4 rays a thread
+# (a tile of 256 R rays on one SM), each ray skipping a round's cluster
+# whose tile entry lies at or past its own min(best_t, tmax)
+_RAYS_FORM = r'''
+namespace {
+template <int kRays>
+__global__ void __launch_bounds__(kRoundLanes)
+rays_walk_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                 const float* __restrict__ tmin,
+                 const float* __restrict__ tmax,
+                 const float* __restrict__ entries,
+                 const int* __restrict__ ids,
+                 const float* __restrict__ blocks,
+                 const int* __restrict__ tri_begin,
+                 const int* __restrict__ tri_count, int n_cols, int tri_k,
+                 int cull, float* __restrict__ out_t,
+                 int* __restrict__ out_tri, float* __restrict__ out_u,
+                 float* __restrict__ out_v, int* __restrict__ out_rounds) {
+  extern __shared__ __align__(16) float stage[];  // 2 x 9 x ks floats
+  __shared__ float se[kRoundLanes];  // a block-width of rounds of the order
+  __shared__ int sc[kRoundLanes];
+  __shared__ int sk[kRoundLanes];    // their clusters' triangle counts
+  __shared__ float red[kRoundLanes / 32];
+  const int lanes = blockDim.x, tid = threadIdx.x, nw = lanes >> 5;
+  const int kq = (tri_k + 3) >> 2, ks = 4 * kq;
+  const size_t tile = blockIdx.x;
+  // ray q of this thread: lane q * blockDim.x + tid of the tile
+  Ray r[kRays];
+  float tmn[kRays], tmx[kRays], best_t[kRays], best_u[kRays], best_v[kRays];
+  int best_id[kRays];
+#pragma unroll
+  for (int q = 0; q < kRays; ++q) {
+    const size_t i = (tile * kRays + q) * lanes + tid;
+    r[q] = load_ray(o, d, i);
+    tmn[q] = __ldg(tmin + i);
+    tmx[q] = __ldg(tmax + i);
+    best_t[q] = kBig;
+    best_u[q] = 0.0f;
+    best_v[q] = 0.0f;
+    best_id[q] = -1;
+  }
+  const float* erow = entries + tile * n_cols;
+  const int* irow = ids + tile * n_cols;
+
+  const int first = __ldg(irow);
+  stage_slots(stage, blocks, first, (__ldg(tri_count + first) + 3) >> 2, kq);
+  commit();
+  int rnd = 0;
+  for (; rnd < n_cols; ++rnd) {
+    const int j = rnd % lanes;
+    if (j == 0) {  // the next `lanes` rounds' clusters; the last ones read
+      const int c = rnd + tid;  // before the previous round's second barrier
+      se[tid] = c < n_cols ? __ldg(erow + c) : kBig;
+      const int id = c < n_cols ? __ldg(irow + c) : 0;
+      sc[tid] = id;
+      sk[tid] = c < n_cols ? __ldg(tri_count + id) : 0;
+    }
+    float m = fminf(best_t[0], tmx[0]);
+#pragma unroll
+    for (int q = 1; q < kRays; ++q) m = fmaxf(m, fminf(best_t[q], tmx[q]));
+    m = warp_max(m);
+    if ((tid & 31) == 0) red[tid >> 5] = m;
+    __syncthreads();
+    float bound = red[0];
+    for (int w = 1; w < nw; ++w) bound = fmaxf(bound, red[w]);
+    const float e = se[j];
+    const int cid = sc[j];
+    const int cnt = sk[j];
+    if (!(e < kBig && e <= bound)) break;  // uniform: a tile never restarts
+    // every thread is past its reads of the other buffer (the barrier
+    // above): the next round's cluster goes there while this one is tested
+    float* cur = stage + (rnd & 1) * kTriRows * ks;
+    if (rnd + 1 < n_cols) {
+      int nxt, ncnt;
+      if (j + 1 < lanes) {
+        nxt = sc[j + 1];
+        ncnt = sk[j + 1];
+      } else {
+        nxt = __ldg(irow + rnd + 1);
+        ncnt = __ldg(tri_count + nxt);
+      }
+      stage_slots(stage + ((rnd + 1) & 1) * kTriRows * ks, blocks, nxt,
+                  (ncnt + 3) >> 2, kq);
+    }
+    commit();
+    wait_all_but_newest();  // this round's copies have landed
+    __syncthreads();     // ... everyone's
+    if constexpr (kRays == 1) {
+      const float tmax_eff = fminf(best_t[0], tmx[0]);
+      if (tmax_eff > tmn[0]) {
+        float cb = kBig, cu = 0.0f, cv = 0.0f;
+        int cs = kSlots;
+        closest_in_stage(r[0], cur, ks, cnt, cull != 0, tmn[0], tmax_eff, cb,
+                         cu, cv, cs);
+        if (cb < best_t[0]) {
+          best_t[0] = cb;
+          best_id[0] = __ldg(tri_begin + cid) + cs;
+          best_u[0] = cu;
+          best_v[0] = cv;
+        }
+      }
+    } else {
+      // a ray tests the cluster only where its tile entry e lies below the
+      // ray's own min(best_t, tmax): e bounds below every hit t of the
+      // tile's rays in the cluster (the stop's own premise), so no hit of a
+      // ray past it passes t < tmax_eff; a warp whose rays are all past it
+      // skips the slot loop
+#pragma unroll
+      for (int q = 0; q < kRays; ++q) {
+        const float tmax_eff = fminf(best_t[q], tmx[q]);
+        if (tmax_eff > tmn[q] && e < tmax_eff) {
+          float cb = kBig, cu = 0.0f, cv = 0.0f;
+          int cs = kSlots;
+          closest_in_stage(r[q], cur, ks, cnt, cull != 0, tmn[q], tmax_eff,
+                           cb, cu, cv, cs);
+          if (cb < best_t[q]) {
+            best_t[q] = cb;
+            best_id[q] = __ldg(tri_begin + cid) + cs;
+            best_u[q] = cu;
+            best_v[q] = cv;
+          }
+        }
+      }
+    }
+  }
+  wait_all();  // a copy still in flight after the stop
+#pragma unroll
+  for (int q = 0; q < kRays; ++q) {
+    const size_t i = (tile * kRays + q) * lanes + tid;
+    out_t[i] = best_t[q];
+    out_tri[i] = best_id[q];
+    out_u[i] = best_u[q];
+    out_v[i] = best_v[q];
+  }
+  if (tid == 0) out_rounds[tile] = rnd;
+}
+
+}  // namespace
+
+extern "C" int tile_round_walk_rays_form(const float* o, const float* d,
+                                         const float* tmin, const float* tmax,
+                                         const float* entries, const int* ids,
+                                         const float* blocks,
+                                         const int* tri_begin,
+                                         const int* tri_count, int nt, int r,
+                                         int n_cols, int tri_k, int cull,
+                                         float* out_t, int* out_tri,
+                                         float* out_u, float* out_v,
+                                         int* out_rounds, void* stream) {
+  const size_t smem = sizeof(float) * 2 * kTriRows * 4 * ((tri_k + 3) / 4);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int rays = r <= kRoundLanes ? 1 : r <= 2 * kRoundLanes ? 2 : 4;
+  auto launch = [&](auto kernel) {
+    kernel<<<nt, r / rays, smem, st>>>(o, d, tmin, tmax, entries, ids, blocks,
+                                       tri_begin, tri_count, n_cols, tri_k,
+                                       cull, out_t, out_tri, out_u, out_v,
+                                       out_rounds);
+  };
+  if (rays == 1)
+    launch(rays_walk_kernel<1>);
+  else if (rays == 2)
+    launch(rays_walk_kernel<2>);
+  else
+    launch(rays_walk_kernel<4>);
+  return static_cast<int>(cudaGetLastError());
+}
+'''
+
+# K4's walk at tiles above 256 as PR 17 built it: one thread a ray, a
+# template on the block (256, 512, 1,024 threads); the 1,024 instance capped
+# at 64 registers by its launch bounds
+_WIDE_BLOCKS = r'''
+namespace {
+template <int kLanes>
+__global__ void __launch_bounds__(kLanes)
+block_walk_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                  const float* __restrict__ tmin,
+                  const float* __restrict__ tmax,
+                  const float* __restrict__ entries,
+                  const int* __restrict__ ids,
+                  const float* __restrict__ blocks,
+                  const int* __restrict__ tri_begin,
+                  const int* __restrict__ tri_count, int n_cols, int tri_k,
+                  int cull, float* __restrict__ out_t,
+                  int* __restrict__ out_tri, float* __restrict__ out_u,
+                  float* __restrict__ out_v, int* __restrict__ out_rounds) {
+  extern __shared__ __align__(16) float stage[];  // 2 x 9 x ks floats
+  __shared__ float se[kLanes];  // a block-width of rounds of the visit order
+  __shared__ int sc[kLanes];
+  __shared__ int sk[kLanes];    // their clusters' triangle counts
+  __shared__ float red[kLanes / 32];
+  const int lanes = blockDim.x, tid = threadIdx.x, nw = lanes >> 5;
+  const int kq = (tri_k + 3) >> 2, ks = 4 * kq;
+  const size_t tile = blockIdx.x;
+  const size_t i = tile * lanes + tid;
+  const Ray r = load_ray(o, d, i);
+  const float tmn = __ldg(tmin + i), tmx = __ldg(tmax + i);
+  const float* erow = entries + tile * n_cols;
+  const int* irow = ids + tile * n_cols;
+
+  float best_t = kBig, best_u = 0.0f, best_v = 0.0f;
+  int best_id = -1;
+  const int first = __ldg(irow);
+  stage_slots(stage, blocks, first, (__ldg(tri_count + first) + 3) >> 2, kq);
+  commit();
+  int rnd = 0;
+  for (; rnd < n_cols; ++rnd) {
+    const int j = rnd % lanes;
+    if (j == 0) {  // the next `lanes` rounds' clusters; the last ones read
+      const int c = rnd + tid;  // before the previous round's second barrier
+      se[tid] = c < n_cols ? __ldg(erow + c) : kBig;
+      const int id = c < n_cols ? __ldg(irow + c) : 0;
+      sc[tid] = id;
+      sk[tid] = c < n_cols ? __ldg(tri_count + id) : 0;
+    }
+    const float m = warp_max(fminf(best_t, tmx));
+    if ((tid & 31) == 0) red[tid >> 5] = m;
+    __syncthreads();
+    float bound = red[0];
+    for (int w = 1; w < nw; ++w) bound = fmaxf(bound, red[w]);
+    const float e = se[j];
+    const int cid = sc[j];
+    const int cnt = sk[j];
+    if (!(e < kBig && e <= bound)) break;  // uniform: a tile never restarts
+    // every thread is past its reads of the other buffer (the barrier
+    // above): the next round's cluster goes there while this one is tested
+    float* cur = stage + (rnd & 1) * kTriRows * ks;
+    if (rnd + 1 < n_cols) {
+      int nxt, ncnt;
+      if (j + 1 < lanes) {
+        nxt = sc[j + 1];
+        ncnt = sk[j + 1];
+      } else {
+        nxt = __ldg(irow + rnd + 1);
+        ncnt = __ldg(tri_count + nxt);
+      }
+      stage_slots(stage + ((rnd + 1) & 1) * kTriRows * ks, blocks, nxt,
+                  (ncnt + 3) >> 2, kq);
+    }
+    commit();
+    wait_all_but_newest();  // this round's copies have landed
+    __syncthreads();     // ... everyone's
+    const float tmax_eff = fminf(best_t, tmx);
+    if (tmax_eff > tmn) {
+      float cb = kBig, cu = 0.0f, cv = 0.0f;
+      int cs = kSlots;
+      closest_in_stage(r, cur, ks, cnt, cull != 0, tmn, tmax_eff, cb, cu, cv,
+                       cs);
+      if (cb < best_t) {
+        best_t = cb;
+        best_id = __ldg(tri_begin + cid) + cs;
+        best_u = cu;
+        best_v = cv;
+      }
+    }
+  }
+  wait_all();  // a copy still in flight after the stop
+  out_t[i] = best_t;
+  out_tri[i] = best_id;
+  out_u[i] = best_u;
+  out_v[i] = best_v;
+  if (tid == 0) out_rounds[tile] = rnd;
+}
+}  // namespace
+
+extern "C" int tile_round_walk_blocks(const float* o, const float* d,
+                                      const float* tmin, const float* tmax,
+                                      const float* entries, const int* ids,
+                                      const float* blocks,
+                                      const int* tri_begin,
+                                      const int* tri_count, int nt, int r,
+                                      int n_cols, int tri_k, int cull,
+                                      float* out_t, int* out_tri,
+                                      float* out_u, float* out_v,
+                                      int* out_rounds, void* stream) {
+  const size_t smem = sizeof(float) * 2 * kTriRows * 4 * ((tri_k + 3) / 4);
+  by_round_lanes(r, [&](auto lanes) {
+    block_walk_kernel<decltype(lanes)::value>
+        <<<nt, r, smem, static_cast<cudaStream_t>(stream)>>>(
+            o, d, tmin, tmax, entries, ids, blocks, tri_begin, tri_count,
+            n_cols, tri_k, cull, out_t, out_tri, out_u, out_v, out_rounds);
+  });
   return static_cast<int>(cudaGetLastError());
 }
 '''
@@ -554,16 +909,29 @@ _WALK_DIRECT = """    const float* cur =
 """
 _WALK_DRAIN = "  wait_all();  // a copy still in flight after the stop\n"
 _WALK_TEST = "closest_in_stage(r, cur, ks, cnt,"
+# the rays form's per-ray skip by the cluster's tile entry; K5 any's skip
+# by it and its chunk bound, and its ring
+_RAYS_SKIP = "if (tmax_eff > tmn[q] && e < tmax_eff) {"
+_ANY_SKIP = "if (holds && !occ && tmx > tmn && e < tmx) {"
+_ANY_CHUNK_BOUND = "chunk_bound(holds && !occ && tmx > tmn, tmx, red)"
+_ANY_PACK = "    const bool looking = holds && !occ && tmx > tmn;\n"
+_ANY_COMPACT_ROUNDS = "constexpr int kAnyCompactRounds = 8;"
+_ANY_STAGES = "constexpr int kAnyStages = 4;"
+_ANY_SPAN = "constexpr int kAnyPartClusters = 256;"
+_ANY_MAX_PARTS = "constexpr int kAnyMaxParts = 64;"
+_WIDE_TEST = """    const float tmax_eff = fminf(best_t, tmx);
+    if (tmax_eff > tmn) {"""
 _ANY_TEST = "ks, cnt,\n                                tmn, tmx);"
+_ANY_STAGE = ("(__ldg(tri_count + c) + 3) >> 2, kq);",)
 
 # K5 closest
 _RAYS = "constexpr int kClosestRays = 8;"
 _CLOSEST_BUF = "  float* buf = nullptr;  // the slots are read in place\n"
-_CLOSEST_WALK = "closest_group_walk<kClosestRays, false>("
-_CLOSEST_CALL = """  const GroupHit h = closest_group_walk<kClosestRays, false>(
+_CLOSEST_WALK = "closest_group_walk<kClosestRays, false, kEntry>("
+_CLOSEST_CALL = """  const GroupHit h = closest_group_walk<kClosestRays, false, kEntry>(
       r, tmn, tmx, count, cull, 1, blocks, tri_count, buf, lane,"""
 _CLOSEST_SMEM = """  const size_t smem = sizeof(unsigned long long) * pow2_at_least(c_total);
-  const int err = allow_shared(closest_walk_kernel, smem);"""
+  auto launch = [&](auto kernel) {"""
 
 
 def _once(src: str, old: str, new: str) -> str:
@@ -587,8 +955,11 @@ def _all_slots(src: str) -> str:
         "(__ldg(tri_count + first) + 3) >> 2", "kq"))
     src = _once(src, "                  (ncnt + 3) >> 2, kq);",
                 "                  kq, kq);")
-    src = _once(src, _WALK_TEST, _WALK_TEST.replace("cnt,", "tri_k,"))
-    return _once(src, _ANY_TEST, _ANY_TEST.replace("cnt,", "tri_k,"))
+    for test in (_WALK_TEST, _ANY_TEST):
+        src = _once(src, test, test.replace("cnt,", "tri_k,"))
+    for stage in _ANY_STAGE:
+        src = _once(src, stage, "kq, kq);")
+    return src
 
 
 def _stream(src: str) -> str:
@@ -610,7 +981,7 @@ def _prologue(src: str) -> str:
     id, so that nothing of the prologue is dropped)."""
     return _once(src, _CLOSEST_CALL, """\
   const GroupHit h{kBig, 0.0f, 0.0f, count, 0, 0};  // the prologue alone
-  if (false) closest_group_walk<kClosestRays, false>(
+  if (false) closest_group_walk<kClosestRays, false, kEntry>(
       r, tmn, tmx, count, cull, 1, blocks, tri_count, buf, lane,""")
 
 
@@ -627,6 +998,39 @@ def _ldg(src: str) -> str:
     """K5 closest's in-place slot reads through the read-only data path."""
     return _once(src, _MT_LOADS, _MT_LOADS.replace("s[", "__ldg(s + ").replace(
         " * kSlots + k]", " * kSlots + k)"))
+
+
+def _rays_unpruned(src: str) -> str:
+    """The rays form without its per-ray skip: every ray with tmax_eff
+    above its tmin tests every round's cluster."""
+    return src + _once(_RAYS_FORM, _RAYS_SKIP, "if (tmax_eff > tmn[q]) {")
+
+
+def _wide_skip(src: str) -> str:
+    """The first wide form (one thread a ray, blocks up to 1,024) with the
+    rays form's per-ray skip."""
+    return src + _once(_WIDE_BLOCKS, _WIDE_TEST, _WIDE_TEST.replace(
+        "(tmax_eff > tmn)", "(tmax_eff > tmn && e < tmax_eff)"))
+
+
+def _any_unpruned(src: str) -> str:
+    """K5 any streamed without the tile entry's cuts: every chunk keeps the
+    clusters in reach, every lane still looking tests each of them."""
+    src = _once(src, _ANY_SKIP, "if (holds && !occ && tmx > tmn) {")
+    return _once(src, _ANY_CHUNK_BOUND, "kBig")
+
+
+def _any_split(span: int, parts: int):
+    """K5 any with a part of the set every `span` clusters, up to `parts`
+    (256 and 64 shipped)."""
+    return lambda s: _once(_once(s, _ANY_SPAN, _ANY_SPAN.replace(
+        "256", str(span))), _ANY_MAX_PARTS, _ANY_MAX_PARTS.replace(
+        "64", str(parts)))
+
+
+def _any_stages(n: int):
+    """K5 any with a ring of n staged clusters (n - 1 rounds ahead)."""
+    return lambda s: _once(s, _ANY_STAGES, _ANY_STAGES.replace("4", str(n)))
 
 
 def _any_const_stride(src: str) -> str:
@@ -663,16 +1067,42 @@ VARIANTS = {
     "stream": (_stream, {"K5 closest": "tile_walk_closest"}),
     "ldg": (_ldg, {"K5 closest": "tile_walk_closest"}),
     "prologue": (_prologue, {"K5 closest": "tile_walk_closest"}),
+    "wide_blocks": (lambda s: s + _WIDE_BLOCKS,
+                    {"K4 walk": "tile_round_walk_blocks"}),
+    "wide_skip": (_wide_skip, {"K4 walk": "tile_round_walk_blocks"}),
+    "rays": (lambda s: s + _RAYS_FORM,
+             {"K4 walk": "tile_round_walk_rays_form"}),
+    "rays_unpruned": (_rays_unpruned,
+                      {"K4 walk": "tile_round_walk_rays_form"}),
+    "any_unpruned": (_any_unpruned, {"K5 any": "tile_walk_any"}),
+    "any_stages2": (_any_stages(2), {"K5 any": "tile_walk_any"}),
+    "any_no_compact": (lambda s: _once(s, _ANY_PACK, "    return;  // only "
+                                       "the other parts' finds\n" + _ANY_PACK),
+                       {"K5 any": "tile_walk_any"}),
+    "any_compact_chunks": (lambda s: _once(
+        s, _ANY_COMPACT_ROUNDS, _ANY_COMPACT_ROUNDS.replace("8", "1 << 30")),
+        {"K5 any": "tile_walk_any"}),
+    "any_one_part": (_any_split(256, 1), {"K5 any": "tile_walk_any"}),
+    "any_span2048": (_any_split(2048, 16), {"K5 any": "tile_walk_any"}),
+    "any_span1024": (_any_split(1024, 16), {"K5 any": "tile_walk_any"}),
+    "any_span512": (_any_split(512, 32), {"K5 any": "tile_walk_any"}),
+    "any_stages8": (_any_stages(8), {"K5 any": "tile_walk_any"}),
     "old_any": (lambda s: s + _OLD_ANY, {"K5 any": "tile_walk_any_old"}),
+    "any_sorted": (lambda s: s + _ANY_SORTED,
+                   {"K5 any": "tile_walk_any_sorted"}),
     "any_warp": (lambda s: s + _ANY_WARP, {"K5 any": "tile_walk_any_warp"}),
     "any_const_stride": (_any_const_stride, {"K5 any": "tile_walk_any"}),
 }
 FLOORS = ("prologue",)   # not the same function: timed, not compared
+# the most clusters a variant takes (its shared memory); larger sets skip it
+MAX_CLUSTERS_OF = {"any_sorted": 1 << 14, "old_closest": 1 << 14}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 ARGTYPES = {"K4 walk": [_P] * 9 + [_I] * 5 + [_P] * 6,
             "K4 round": [_P] * 8 + [_I] * 4 + [_P] * 6,
-            "K5 closest": [_P] * 9 + [_I] * 3 + [_P] * 6,
-            "K5 any": [_P] * 8 + [_I] * 3 + [_P] * 2}
+            "K5 closest": [_P] * 9 + [_I] * 3 + [_P] * 7,
+            "K5 any": [_P] * 8 + [_I] * 3 + [_P] * 3}
+# the first form of K5 closest: tri_k after cull, no rounds or entry output
+ARGTYPES_TRI_K = [_P] * 9 + [_I] * 4 + [_P] * 5
 
 
 def build_variant(name: str, out_dir: str) -> tuple:
@@ -692,8 +1122,8 @@ def build_variant(name: str, out_dir: str) -> tuple:
     lib = ctypes.CDLL(so)
     for kind, entry in VARIANTS[name][1].items():
         fn, _, extra = entry.partition("+")
-        getattr(lib, fn).argtypes = ARGTYPES[kind][:12] + [_I] + \
-            ARGTYPES[kind][13:] if extra else ARGTYPES[kind]
+        getattr(lib, fn).argtypes = ARGTYPES_TRI_K if extra else \
+            ARGTYPES[kind]
     return lib, regs
 
 
@@ -728,30 +1158,32 @@ def launcher(kind: str, lib, entry: str, inputs: dict):
             out = (f32((n,)), i32((n,)), f32((n,)), f32((n,)))
             err = fn(*ptr(*x["args"]), n, x["c"], 0, x["tri_k"], *ptr(*out),
                      stream) if extra else fn(*ptr(*x["args"]), n, x["c"], 0,
-                                              *ptr(*out), None, stream)
-        else:
-            out = (i32((x["n"],)),)
+                                              *ptr(*out), None, None, stream)
+        else:   # the shipped form sets flags in place: zero first
+            out = (torch.zeros((x["n"],), dtype=torch.int32, device=dev),)
             err = fn(*ptr(*x["args"]), x["n"], x["c"], x["tri_k"],
-                     *ptr(*out), stream)
+                     *ptr(*out), None, stream)
         assert err == 0, (entry, err)
         return out
     return run
 
 
-def inputs_of(cs, o, d, tmax, tseg, dev) -> tuple:
+def inputs_of(cs, o, d, tmax, tseg, dev, tile: int = 0) -> tuple:
     """Each kernel's inputs on one wavefront as its wrapper prepares them
-    (K4: sorted, padded, tiles busiest first, round 0 for the single round;
-    K5: sorted and padded; any hit on the segment ends `tseg`), and the
-    plain versions' outputs, cull off."""
+    (K4: sorted, padded, tiles of `tile` rays (default the tile mode's
+    TILE_LANES) busiest first, round 0 for the single round; K5: sorted and
+    padded; any hit on the segment ends `tseg`), and the plain versions'
+    outputs, cull off."""
     from spcbpt_tpu_torch.ops import pallas_tile, tile_trace
     from spcbpt_tpu_torch.scene.scene import TILE_LANES
 
+    tile = tile or TILE_LANES
     n = o.shape[0]
     tmin = torch.full((n,), 1e-3, device=dev)
     _, so, sd, stn, stx = tile_trace.sort_rays_live(cs, o, d, tmin, tmax)
-    po, pd, ptn, ptx, _ = tile_trace._pad_rays(so, sd, stn, stx, TILE_LANES)
+    po, pd, ptn, ptx, _ = tile_trace._pad_rays(so, sd, stn, stx, tile)
     entries, ids, o_t, d_t, tmin_t, tmax_t, _, nt = tile_trace._prepare(
-        cs, po, pd, ptn, ptx, TILE_LANES)
+        cs, po, pd, ptn, ptx, tile)
     run0 = entries[:, 0] < 1e30
     cid0 = ids[:, 0].contiguous()
     qo, qd, qtn, qtx, _, _ = pallas_tile.prepare(cs, o, d, tmin, tmax, True)
@@ -759,10 +1191,10 @@ def inputs_of(cs, o, d, tmax, tseg, dev) -> tuple:
     c, k, nq = cs.num_clusters, cs.tri_k, qo.shape[0]
     common = dict(dev=dev, tri_k=k, c=c)
     inputs = {
-        "K4 walk": dict(common, nt=nt, r=TILE_LANES, n_cols=c, args=(
+        "K4 walk": dict(common, nt=nt, r=tile, n_cols=c, args=(
             o_t, d_t, tmin_t, tmax_t, entries, ids, cs.tri_block,
             cs.tri_begin, cs.tri_count)),
-        "K4 round": dict(common, nt=nt, r=TILE_LANES, args=(
+        "K4 round": dict(common, nt=nt, r=tile, args=(
             o_t, d_t, tmin_t, tmax_t, cid0, run0, cs.tri_block,
             cs.tri_count)),
         "K5 closest": dict(common, n=nq, args=(
@@ -786,14 +1218,47 @@ def inputs_of(cs, o, d, tmax, tseg, dev) -> tuple:
     return inputs, plain
 
 
+def _any_rounds(x: dict) -> dict:
+    """The shipped K5 any's own work on its inputs `x` (its rounds output):
+    the clusters its tiles visited (sum, largest, 99th percentile) and the
+    slots their lanes tested."""
+    from spcbpt_tpu_torch.kernels import tile_walk
+
+    o, d, tmn, tmx, cmin, cmax, blocks, count = x["args"]
+    rounds = torch.empty((x["n"] // tile_walk.TILE, 2), dtype=torch.int32,
+                         device=x["dev"])
+    tile_walk.walk_any(o, d, tmn, tmx, cmin, cmax, blocks, count, x["tri_k"],
+                       rounds)
+    visits = rounds[:, 0].double()
+    return {"K5 any visits sum": int(visits.sum()),
+            "K5 any visits max": int(visits.max()),
+            "K5 any visits p99": int(torch.quantile(visits, 0.99)),
+            "K5 any tests": int(rounds[:, 1].long().sum())}
+
+
+def _options(argv: list) -> tuple:
+    """(variant names, --scale, --tile) of the command line."""
+    names, scale, tile = [], 4, 0
+    it = iter(argv)
+    for a in it:
+        if a in ("--scale", "--tile"):
+            value = int(next(it))
+            scale, tile = (value, tile) if a == "--scale" else (scale, value)
+        else:
+            names.append(a)
+    return names, scale, tile
+
+
 def main(argv: list) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("tile_walk_variants: no CUDA device is available")
     import chip_smoke   # its wavefronts and timing (it imports this module)
+    from spcbpt_tpu_torch.apps.render_cli import generate_interior
     from spcbpt_tpu_torch.apps.render_cli import resolve_scene
     from spcbpt_tpu_torch.kernels import build
     from spcbpt_tpu_torch.scene.scene import load_trace_scene
 
+    argv, scale, tile = _options(argv)
     names = ["shipped"] + [a for a in argv if a != "shipped"]
     unknown = set(names) - set(VARIANTS)
     if unknown:
@@ -810,24 +1275,42 @@ def main(argv: list) -> int:
             lambda name: build_variant(name, out_dir), names)))
 
     dev = torch.device("cuda", 0)
-    path = resolve_scene("interior")
-    ts, _, cam = load_trace_scene(path, dev)
-    tts, _, _ = load_trace_scene(path, dev, mode="tile")
+    if scale == 4:
+        path = resolve_scene("interior")
+        ts, _, cam = load_trace_scene(path, dev)
+        kinds = ("K4 walk", "K4 round", "K5 closest", "K5 any")
+    else:   # a larger interior: K5 any alone, on its connection wavefront
+        path = generate_interior(os.path.join(
+            chip_smoke.REPO, "smoke_out", f"interior{scale}"), scale)
+        ts = None
+        kinds = ("K5 any",)
+    tts, _, tcam = load_trace_scene(path, dev, mode="tile")
+    cam = cam if ts is not None else tcam
     cam.aspect = 1.0
     cs = tts.clusters
-    waves = chip_smoke.wavefronts(ts, cam, dev) + (
-        chip_smoke.connection_wavefront(ts, cam, dev),)
+    waves = (chip_smoke.wavefronts(ts, cam, dev) + (
+        chip_smoke.connection_wavefront(ts, cam, dev),) if ts is not None
+        else (chip_smoke.connection_wavefront(tts, cam, dev, draws=1),))
+    print(f"interior scale {scale}: {cs.num_clusters} tile clusters; K4 "
+          f"tiles of {tile or 'TILE_LANES'}; kinds {list(kinds)}", flush=True)
     results = {name: {"ptxas": regs} for name, (_, regs) in built.items()}
     for wave, o, d, tmax in waves:
         tseg = chip_smoke.any_segments(wave, tmax, o.shape[0], dev)
-        inputs, plain = inputs_of(cs, o, d, tmax, tseg, dev)
+        inputs, plain = inputs_of(cs, o, d, tmax, tseg, dev, tile)
         ref = {}
         for kind, fn in plain.items():
-            if kind != "K4 walk" or wave.startswith("bounce"):
+            if kind in kinds and (kind != "K4 walk"
+                                  or wave.startswith("bounce")):
                 ref[kind] = fn()
         for name, (lib, _) in built.items():
+            if cs.num_clusters > MAX_CLUSTERS_OF.get(name, cs.num_clusters):
+                print(f"{name:11s} {wave:17s} skipped: above its "
+                      f"{MAX_CLUSTERS_OF[name]} clusters", flush=True)
+                continue
             out = {}
             for kind, entry in VARIANTS[name][1].items():
+                if kind not in kinds:
+                    continue
                 run = launcher(kind, lib, entry, inputs)
                 got = run()
                 torch.cuda.synchronize()
@@ -845,16 +1328,21 @@ def main(argv: list) -> int:
                         f"{kind} variant {name} on {wave}: differs from " \
                         f"shipped"
                 out[f"{kind} ms"] = chip_smoke.graph_ms(run)
+                if kind == "K5 any" and name == "shipped":
+                    out.update(_any_rounds(inputs[kind]))
                 if kind == "K4 walk":
                     out["K4 rounds max"] = int(got[4].max())
                     out["K4 rounds sum"] = int(got[4].sum())
+            if not out:
+                continue
             results[name][wave] = out
             print(f"{name:11s} {wave:17s} " + ", ".join(
                 f"{key} {val:.4f}" if isinstance(val, float) else
                 f"{key} {val}" for key, val in out.items())
                 + (" (a floor, not compared)" if name in FLOORS else
                    " (equal to shipped)"), flush=True)
-    print(json.dumps({"card": smi, "variants": results}))
+    print(json.dumps({"card": smi, "scale": scale, "tile": tile or None,
+                      "variants": results}))
     return 0
 
 
