@@ -1,0 +1,18 @@
+"""pool_issue_ms_per_spp: the host's time inside the pools' loop bodies
+per sample per pixel, the program's spans `<pool>.iteration`
+(render/pt_pool.py, render/spcbpt_pool.py) over the traced stretch's
+frames: the time the host spends issuing the pools' work (its wait for
+the device at the loop condition is `pool_sync_ms_per_spp`). A reading
+of the stretch, traced on the device, where each launch carries the
+profiler's cost: not comparable with `ms_per_spp`, only with itself.
+None where the program records none."""
+from perfbench.harness import program
+
+LAYER = "pool loop"
+SOURCE = "program_span"
+UNIT = "ms/spp"
+MOVES = "ms_per_spp"
+
+
+def read(rec):
+    return program.span_ms_per_spp(rec, ".iteration")

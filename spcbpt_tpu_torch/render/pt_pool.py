@@ -20,6 +20,7 @@ import torch
 
 from ..config import CULL_BACKFACE, PT_MAX_DEPTH, SCENE_EPSILON
 from ..scene.scene import TraceScene, local_geometry, trace_closest
+from ..utils import profiling
 from ..utils import rng as rng_mod
 from ..utils import vec
 from .pt import _nee, bounce, emitter_hit, escape
@@ -85,6 +86,7 @@ def _path_step(ts: TraceScene, o, d, state, throughput, result, bsdf_pdf,
             torch.where(cont, pdf * rr, bsdf_pdf), depth, state2)
 
 
+@profiling.traced("pt_pool.render", ends_frame=True)
 def render_pool(ts: TraceScene, cam_uvw, width: int, height: int,
                 spp: int, subframe0: int = 0, n_pool: int = 1 << 17,
                 max_depth: int = PT_MAX_DEPTH):
@@ -110,37 +112,40 @@ def render_pool(ts: TraceScene, cam_uvw, width: int, height: int,
     zeros3 = torch.zeros((n_pool, 3), device=dev)
     ones3 = torch.ones((n_pool, 3), device=dev)
 
-    while bool(alive.any() | (next_sample < total)):
-        live = alive
-        (result, terminated, o, d, throughput, bsdf_pdf, depth,
-         state2) = _path_step(ts, o, d, state, throughput, result, bsdf_pdf,
-                              depth, live, max_depth)
-        still = live & ~terminated
+    while profiling.read_flag("pt_pool.sync",
+                              alive.any() | (next_sample < total)):
+        with profiling.span("pt_pool.iteration"):
+            profiling.count("pt_pool.iterations", 1)
+            live = alive
+            (result, terminated, o, d, throughput, bsdf_pdf, depth,
+             state2) = _path_step(ts, o, d, state, throughput, result,
+                                  bsdf_pdf, depth, live, max_depth)
+            still = live & ~terminated
 
-        # flush finished samples into the film
-        film.index_add_(0, pixel, torch.where(terminated[..., None], result,
-                                              0.0))
-        count.index_add_(0, pixel, terminated.to(torch.int32))
+            # flush finished samples into the film
+            film.index_add_(0, pixel, torch.where(terminated[..., None],
+                                                  result, 0.0))
+            count.index_add_(0, pixel, terminated.to(torch.int32))
 
-        # regenerate dead lanes from the global sample counter
-        want = terminated | ~live
-        rank = torch.cumsum(want.to(torch.int64), dim=0) - 1
-        sid = next_sample + rank
-        take = want & (sid < total)
-        n_taken = take.sum()
-        new_pixel = sid % n_pixels
-        o_new, d_new, st_new = camera_ray(new_pixel, sid // n_pixels)
+            # regenerate dead lanes from the global sample counter
+            want = terminated | ~live
+            rank = torch.cumsum(want.to(torch.int64), dim=0) - 1
+            sid = next_sample + rank
+            take = want & (sid < total)
+            n_taken = take.sum()
+            new_pixel = sid % n_pixels
+            o_new, d_new, st_new = camera_ray(new_pixel, sid // n_pixels)
 
-        o = vec.where3(take, o_new, o)
-        d = vec.where3(take, d_new, d)
-        state = torch.where(take, st_new, state2)
-        pixel = torch.where(take, new_pixel, pixel)
-        throughput = vec.where3(take, ones3, throughput)
-        result = vec.where3(take | terminated, zeros3, result)
-        bsdf_pdf = torch.where(take, 0.0, bsdf_pdf)
-        depth = torch.where(take, 0, depth)
-        alive = still | take
-        next_sample = next_sample + n_taken
+            o = vec.where3(take, o_new, o)
+            d = vec.where3(take, d_new, d)
+            state = torch.where(take, st_new, state2)
+            pixel = torch.where(take, new_pixel, pixel)
+            throughput = vec.where3(take, ones3, throughput)
+            result = vec.where3(take | terminated, zeros3, result)
+            bsdf_pdf = torch.where(take, 0.0, bsdf_pdf)
+            depth = torch.where(take, 0, depth)
+            alive = still | take
+            next_sample = next_sample + n_taken
     return film, count
 
 

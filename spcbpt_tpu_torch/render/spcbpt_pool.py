@@ -19,12 +19,14 @@ import torch
 from ..config import CONNECTION_N
 from ..scene.scene import TraceScene
 from ..train import classify
+from ..utils import profiling
 from ..utils import rng as rng_mod
 from ..utils import vec
 from .lvc import LVCSampler
 from .spcbpt import _eye_bounce, _init_eye_vertices, _select
 
 
+@profiling.traced("spcbpt_pool.render", ends_frame=True)
 def render_pool(ts: TraceScene, ss: classify.SubspaceState,
                 sampler: LVCSampler, cam_uvw, width: int, height: int,
                 spp: int, subframe0: int = 0, n_pool: int = 1 << 16,
@@ -72,49 +74,56 @@ def render_pool(ts: TraceScene, ss: classify.SubspaceState,
     film = torch.zeros((n_pixels, 3), device=dev)
     count = torch.zeros((n_pixels,), dtype=torch.int32, device=dev)
 
-    while bool(alive.any() | (next_sample < total)):
-        live = alive
-        # pool-exhausted (~alive) lanes: dead-lane tmax skips their traversal
-        b = _eye_bounce(ts, ss, sampler, c, connection_n, uniform,
-                        second_stage, live)
-        result, cont, keep = b["result"], b["cont"], b["hit_surf"]
+    while profiling.read_flag("spcbpt_pool.sync",
+                              alive.any() | (next_sample < total)):
+        with profiling.span("spcbpt_pool.iteration"):
+            profiling.count("spcbpt_pool.iterations", 1)
+            live = alive
+            # pool-exhausted (~alive) lanes: dead-lane tmax skips their
+            # traversal
+            b = _eye_bounce(ts, ss, sampler, c, connection_n, uniform,
+                            second_stage, live)
+            result, cont, keep = b["result"], b["cont"], b["hit_surf"]
 
-        depth = c["depth"] + 1
-        terminated = live & (b["miss"] | b["hit_light"] | (keep & ~cont)
-                             | (depth > max_depth))
-        still = live & ~terminated
+            depth = c["depth"] + 1
+            terminated = live & (b["miss"] | b["hit_light"] | (keep & ~cont)
+                                 | (depth > max_depth))
+            still = live & ~terminated
 
-        # flush finished samples into the film
-        film.index_add_(0, pixel, torch.where(terminated[..., None], result,
-                                              0.0))
-        count.index_add_(0, pixel, terminated.to(torch.int32))
+            # flush finished samples into the film
+            film.index_add_(0, pixel, torch.where(terminated[..., None],
+                                                  result, 0.0))
+            count.index_add_(0, pixel, terminated.to(torch.int32))
 
-        # regenerate dead lanes from the global sample counter
-        want = terminated | ~live
-        rank = torch.cumsum(want.to(torch.int64), dim=0) - 1
-        sid = next_sample + rank
-        take = want & (sid < total)
-        n_taken = take.sum()
-        new_pixel = sid % n_pixels
-        fresh = fresh_lanes(new_pixel, sid // n_pixels)
+            # regenerate dead lanes from the global sample counter
+            want = terminated | ~live
+            rank = torch.cumsum(want.to(torch.int64), dim=0) - 1
+            sid = next_sample + rank
+            take = want & (sid < total)
+            n_taken = take.sum()
+            new_pixel = sid % n_pixels
+            fresh = fresh_lanes(new_pixel, sid // n_pixels)
 
-        v_next = _select(take, fresh["v"], _select(keep, b["mid"], c["v"]))
-        c = dict(
-            o=vec.where3(take, fresh["o"], vec.where3(cont, b["P"], c["o"])),
-            d=vec.where3(take, fresh["d"],
-                         vec.where3(cont, b["new_d"], c["d"])),
-            state=torch.where(take, fresh["state"], b["state"]),
-            v=v_next,
-            ratio=vec.where3(take, fresh["ratio"],
-                             vec.where3(keep, b["ratio_mid"], c["ratio"])),
-            pending_f=vec.where3(take, fresh["pending_f"],
-                                 vec.where3(cont, b["f"], c["pending_f"])),
-            pending_single=torch.where(
-                take, 1.0, torch.where(cont, b["pdf_rr"],
-                                       c["pending_single"])),
-            result=torch.where((take | terminated)[..., None], 0.0, result),
-            depth=torch.where(take, 0, depth))
-        pixel = torch.where(take, new_pixel, pixel)
-        alive = still | take
-        next_sample = next_sample + n_taken
+            v_next = _select(take, fresh["v"],
+                             _select(keep, b["mid"], c["v"]))
+            c = dict(
+                o=vec.where3(take, fresh["o"],
+                             vec.where3(cont, b["P"], c["o"])),
+                d=vec.where3(take, fresh["d"],
+                             vec.where3(cont, b["new_d"], c["d"])),
+                state=torch.where(take, fresh["state"], b["state"]),
+                v=v_next,
+                ratio=vec.where3(take, fresh["ratio"],
+                                 vec.where3(keep, b["ratio_mid"], c["ratio"])),
+                pending_f=vec.where3(take, fresh["pending_f"],
+                                     vec.where3(cont, b["f"], c["pending_f"])),
+                pending_single=torch.where(
+                    take, 1.0, torch.where(cont, b["pdf_rr"],
+                                           c["pending_single"])),
+                result=torch.where((take | terminated)[..., None], 0.0,
+                                   result),
+                depth=torch.where(take, 0, depth))
+            pixel = torch.where(take, new_pixel, pixel)
+            alive = still | take
+            next_sample = next_sample + n_taken
     return film, count
