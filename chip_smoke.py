@@ -196,6 +196,15 @@ Phases, one status line each; any failure raises and exits non-zero:
      (the plain walk's visits beside them); PT 512x512, depth 8, 1 spp in
      tile mode (launch counters from 0: K4, and K5 any once a trace_any)
      and in walk mode from the same seeds, means within TILE_MEAN_PT.
+ 30. the PT pool's loop body replayed as a CUDA graph (render/pt_pool.py,
+     phase_pt_graph): one eager iteration of the body on Cornell (brute)
+     raises no sync under torch.cuda.set_sync_debug_mode("error"); at
+     GRAPH_SIZES (1 spp, 2^17 lanes, depth 30) two frames, a new subframe
+     and a moved eye, graphed against the eager body on the same seeds:
+     counts torch.equal, films within GRAPH_FILM_RTOL, K3 launches equal,
+     one capture over both frames and the second frame's replays equal to
+     its iterations; their ms; a walk-mode PT render (the interior) takes
+     the eager body (no capture), and whether its iteration syncs.
 Each render phase sets every launch counter to 0 just before it renders and
 reads them just after (the profiler's counters start at 0 in its own
 process and are read from its last line); the CLI renders' PNG, HDR and
@@ -372,6 +381,12 @@ BVH_T_RTOL = 1e-4        # and t, relative, where the triangles agree
 WAVES_SPP = 4
 WAVES_AGREE = 0.999      # render_waves vs render_pool: pixels within
 WAVES_RTOL = 1e-4        # this relative difference
+# the PT pool's graphed loop body (phase 30): Cornell at these sizes, 1 spp;
+# films against the eager body's (the same kernels on the same values;
+# index_add_'s atomic order aside)
+GRAPH_SIZES = ((512, 512), (1920, 1000))
+GRAPH_FILM_RTOL = 1e-5
+GRAPH_EYE_STEP = 0.05    # the second frame's eye, moved along U
 VIEWER_DIM = 512
 VIEWER_DEPTH = 16        # the viewer's --max-depth: PT, BDPT, SPCBPT alike
 # four frames of each algorithm ('x' is no key), then fly, print, quit
@@ -2976,6 +2991,104 @@ def phase_waves(cts, ccam, dev) -> None:
     assert share >= WAVES_AGREE, share
 
 
+def _pool_counters(fn) -> tuple:
+    """(fn's result, the program's host counters over the call, summed
+    over frames): the recorder records while torch.profiler runs."""
+    from spcbpt_tpu_torch.utils import profiling
+
+    profiling.collect()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        out = fn()
+        torch.cuda.synchronize()
+    got = profiling.collect()["counters"]
+    return out, {k: sum(v.values()) for k, v in got.items()}
+
+
+def _iteration_syncs(ts, cam, side: int = 64) -> str:
+    """'none', or the first line of the error, when one eager pass of the
+    PT pool's loop body runs under set_sync_debug_mode("error")."""
+    from spcbpt_tpu_torch.render import pt_pool
+
+    total = side * side
+    p = pt_pool._Pool(total, total, ts.device)
+    pt_pool._start(p, cam.uvw(), 0, side, side, total)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pt_pool._iteration(ts, p, side, side, total, 8)
+        return "none"
+    except RuntimeError as e:
+        return str(e).splitlines()[0][:200]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+
+
+def phase_pt_graph(cts, ccam, wts, wcam) -> None:
+    """The PT pool's loop body replayed as a CUDA graph on Cornell (brute)
+    against the same body run eagerly, at GRAPH_SIZES: two frames each,
+    the second with a new subframe and a moved eye; a walk-mode render
+    stays eager."""
+    import copy
+    from unittest import mock
+
+    from spcbpt_tpu_torch.render import pt_pool
+
+    syncs = _iteration_syncs(cts, ccam)
+    log("pt_graph", f"cornell (brute) iteration under sync debug 'error': "
+                    f"syncs {syncs}")
+    assert syncs == "none", syncs
+    for width, height in GRAPH_SIZES:
+        cam = copy.deepcopy(ccam)
+        cam.aspect = width / height
+        eye, U, V, W = cam.uvw()
+        moved = eye + GRAPH_EYE_STEP * U / np.linalg.norm(U)
+        frames = ((2 * width + 1, (eye, U, V, W)),
+                  (2 * width + 2, (moved, U, V, W)))
+        for k, (sub, uvw) in enumerate(frames):
+            def render():
+                return pt_pool.render_pool(cts, uvw, width, height, 1, sub)
+            reset_launches()
+            with mock.patch.object(pt_pool, "graph_route",
+                                   lambda device, mode: False):
+                (ef, ec), e_ms = _sync_ms(render)
+            e_launches = read_launches()
+            reset_launches()
+            ((gf, gc), counters), g_ms = _sync_ms(
+                lambda: _pool_counters(render))
+            g_launches = read_launches()
+            rel = ((gf - ef).abs() / ef.abs().clamp(min=1e-30)).max().item()
+            log("pt_graph", f"cornell {width}x{height} frame {k} (subframe "
+                            f"{sub}): eager {e_ms:.1f} ms, graphed "
+                            f"{g_ms:.1f} ms under the recorder; counts equal "
+                            f"{torch.equal(gc, ec)}, film equal "
+                            f"{torch.equal(gf, ef)}, max rel {rel:.3g}; K3 "
+                            f"{g_launches['brute_closest']}/"
+                            f"{g_launches['brute_any']} (eager "
+                            f"{e_launches['brute_closest']}/"
+                            f"{e_launches['brute_any']}); {counters}")
+            assert torch.equal(gc, ec) and bool((gc == 1).all())
+            assert rel <= GRAPH_FILM_RTOL, rel
+            assert g_launches == e_launches, (g_launches, e_launches)
+            captures = counters.get("pt_pool.graph_captures", 0)
+            assert captures == (1 if k == 0 else 0), counters
+            assert (counters["pt_pool.graph_replays"]
+                    == counters["pt_pool.iterations"] - captures), counters
+        _, ms = _sync_ms(lambda: pt_pool.render_pool(
+            cts, frames[0][1], width, height, 1, frames[0][0]))
+        log("pt_graph", f"cornell {width}x{height}: a graphed frame "
+                        f"{ms:.1f} ms, the recorder off")
+
+    syncs = _iteration_syncs(wts, wcam)
+    (_, c), counters = _pool_counters(lambda: pt_pool.render_pool(
+        wts, wcam.uvw(), 64, 64, 1, 0, n_pool=4096, max_depth=8))
+    log("pt_graph", f"interior ({wts.mode}) PT 64x64: {counters}; its "
+                    f"iteration under sync debug 'error': syncs {syncs}")
+    assert wts.mode == "walk" and bool((c == 1).all())
+    assert set(counters) == {"pt_pool.iterations"}, counters
+
+
 FRAME_LINE = re.compile(r"^\[(pt|bdpt|spcbpt)\] (\d+)x(\d+) spp +(\d+) \| "
                         r"+([\d.]+) ms/frame")
 
@@ -3603,6 +3716,7 @@ def main() -> int:
     parts_path, n_parts, parts_launches = phase_parts(out_dir, dev)
     phase_bvh(ts, cam, dev)
     phase_waves(cts, ccam, dev)
+    phase_pt_graph(cts, ccam, ts, cam)
     timer, frame_lines = phase_viewer(out_dir, dev, trained_path, parts_path,
                                       n_parts)
     phase_profiling(out_dir, cts, timer, frame_lines)
