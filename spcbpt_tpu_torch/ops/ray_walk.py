@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import ray_walk as kernels
+from ..utils import profiling
 from .clusters import SLOTS, ClusterParts, ClusterSet, log_visits
 from .intersect import Hit
 from .tile_trace import _as_lanes, _hit, _pad_rays, sort_rays_live, unsort
@@ -244,17 +245,18 @@ def _any_parts_plain(parts, o, d, tmn, tmx):
 
 def prepare(cs, origins, dirs, tmin, tmax, sort_rays):
     """Sort (optional; by the boxes of `cs`, a set or all of a set's
-    parts) and pad: the rays of the row walk as the wrappers give them to
-    either route. Returns the padded contiguous (origins, dirs,
-    tmin, tmax), the original count and the sort permutation (None without
-    sort)."""
+    parts; the recorder's span `walk.sort`) and pad: the rays of the row
+    walk as the wrappers give them to either route. Returns the padded
+    contiguous (origins, dirs, tmin, tmax), the original count and the sort
+    permutation (None without sort)."""
     n = origins.shape[0]
     tmin = _as_lanes(tmin, n, origins.device)
     tmax = _as_lanes(tmax, n, origins.device)
     perm = None
     if sort_rays:
-        perm, origins, dirs, tmin, tmax = sort_rays_live(cs, origins, dirs,
-                                                         tmin, tmax)
+        with profiling.span("walk.sort"):
+            perm, origins, dirs, tmin, tmax = sort_rays_live(
+                cs, origins, dirs, tmin, tmax)
     origins, dirs, tmin, tmax, n_orig = _pad_rays(origins, dirs, tmin, tmax,
                                                   LANES)
     return origins, dirs, tmin, tmax, n_orig, perm

@@ -7,9 +7,11 @@ given device; `from_jax_scene` carries a JAX TraceScene over, array by
 array. Traversal modes: `brute` (ops/brute_trace, kernel K3 on the
 card), `walk` (ops/ray_walk, kernels K1/K2 on the card; above
 WALK_MAX_TRIS triangles, or above the clusters one K1/K2 block holds, its
-cluster set is split into parts, walked in turn), `tile` (ops/tile_trace
-and ops/pallas_tile, kernels K4/K5 on the card, any scene size: K4's walk
-and K5 any each take the whole tile set in one launch a trace) and `bvh` (ops/traverse, plain torch on either device); `tile` and
+cluster set is split into parts, walked in turn; each call, its parts
+included, is the recorder's span `walk.closest` or `walk.any`), `tile`
+(ops/tile_trace and ops/pallas_tile, kernels K4/K5 on the card, any scene
+size: K4's walk and K5 any each take the whole tile set in one launch a
+trace) and `bvh` (ops/traverse, plain torch on either device); `tile` and
 `bvh` are taken only by name, as in JAX's builds for an accelerator. A
 scene with an `env_file` loads its HDR sky (scene/hdr.py) and builds an
 EnvMap (scene/envmap.py) around the scene's bounds, with its `Direction`
@@ -30,7 +32,7 @@ from ..ops import bvh as bvh_mod
 from ..ops import clusters as clusters_mod
 from ..ops import (brute_trace, intersect, pallas_tile, ray_walk, tile_trace,
                    traverse)
-from ..utils import vec
+from ..utils import profiling, vec
 from . import obj as obj_mod
 from .camera import Camera
 from .envmap import EnvMap, build_envmap, dummy_envmap
@@ -184,12 +186,12 @@ def trace_closest(ts: TraceScene, origins, dirs, tmin, tmax,
             tile=TILE_LANES, use_kernel=origins.device.type != "cpu",
             sort_rays=True)
     if ts.mode == "walk":
-        if isinstance(ts.clusters_walk, clusters_mod.ClusterParts):
-            return ray_walk.walk_closest_parts(ts.clusters_walk, origins,
-                                               dirs, tmin, tmax,
-                                               cull_backface, sort_rays=True)
-        return ray_walk.walk_closest(ts.clusters_walk, origins, dirs, tmin,
-                                     tmax, cull_backface, sort_rays=True)
+        walk = (ray_walk.walk_closest_parts
+                if isinstance(ts.clusters_walk, clusters_mod.ClusterParts)
+                else ray_walk.walk_closest)
+        with profiling.span("walk.closest"):
+            return walk(ts.clusters_walk, origins, dirs, tmin, tmax,
+                        cull_backface, sort_rays=True)
     return traverse.bvh_closest(origins, dirs, tmin, tmax, *_bvh(ts),
                                 ts.tri_p0, ts.tri_e1, ts.tri_e2,
                                 cull_backface)
@@ -211,11 +213,12 @@ def trace_any(ts: TraceScene, origins, dirs, tmin, tmax):
         return tile_trace.tile_any(ts.clusters, origins, dirs, tmin, tmax,
                                    tile=TILE_LANES, sort_rays=True)
     if ts.mode == "walk":
-        if isinstance(ts.clusters_walk, clusters_mod.ClusterParts):
-            return ray_walk.walk_any_parts(ts.clusters_walk, origins, dirs,
-                                           tmin, tmax, sort_rays=True)
-        return ray_walk.walk_any(ts.clusters_walk, origins, dirs, tmin, tmax,
-                                 sort_rays=True)
+        walk = (ray_walk.walk_any_parts
+                if isinstance(ts.clusters_walk, clusters_mod.ClusterParts)
+                else ray_walk.walk_any)
+        with profiling.span("walk.any"):
+            return walk(ts.clusters_walk, origins, dirs, tmin, tmax,
+                        sort_rays=True)
     return traverse.bvh_any(origins, dirs, tmin, tmax, *_bvh(ts), ts.tri_p0,
                             ts.tri_e1, ts.tri_e2)
 
