@@ -205,6 +205,18 @@ Phases, one status line each; any failure raises and exits non-zero:
      one capture over both frames and the second frame's replays equal to
      its iterations; their ms; a walk-mode PT render (the interior) takes
      the eager body (no capture), and whether its iteration syncs.
+ 31. the SPCBPT eye pool's loop body replayed as a CUDA graph
+     (render/spcbpt_pool.py, phase_spcbpt_graph): one eager iteration of
+     the body on Cornell (brute, a synthetic trained state, a sampler of
+     SPCBPT_GRAPH_PATHS light paths) raises no sync under
+     torch.cuda.set_sync_debug_mode("error"); at GRAPH_SIZES (1 spp, 2^16
+     lanes, depth 16, 3 connections) three frames, each with a sampler of
+     its own light frame, a new subframe and a moved eye, graphed against
+     the eager body on the same sampler: counts torch.equal and all 1,
+     films within SPCBPT_GRAPH_RTOL relative plus SPCBPT_GRAPH_ATOL, K3
+     launches equal, one capture over the three frames and the later
+     frames' replays equal to their iterations; their ms; a walk-mode
+     SPCBPT render (the interior) takes the eager body (no capture).
 Each render phase sets every launch counter to 0 just before it renders and
 reads them just after (the profiler's counters start at 0 in its own
 process and are read from its last line); the CLI renders' PNG, HDR and
@@ -387,6 +399,12 @@ WAVES_RTOL = 1e-4        # this relative difference
 GRAPH_SIZES = ((512, 512), (1920, 1000))
 GRAPH_FILM_RTOL = 1e-5
 GRAPH_EYE_STEP = 0.05    # the second frame's eye, moved along U
+# the SPCBPT eye pool's graphed loop body (phase 31), at GRAPH_SIZES: the
+# benchmark's light frame and sample tolerance (the film's index_add_ is
+# atomic)
+SPCBPT_GRAPH_PATHS = 100_000
+SPCBPT_GRAPH_RTOL = 1e-3
+SPCBPT_GRAPH_ATOL = 1e-5
 VIEWER_DIM = 512
 VIEWER_DEPTH = 16        # the viewer's --max-depth: PT, BDPT, SPCBPT alike
 # four frames of each algorithm ('x' is no key), then fly, print, quit
@@ -3089,6 +3107,108 @@ def phase_pt_graph(cts, ccam, wts, wcam) -> None:
     assert set(counters) == {"pt_pool.iterations"}, counters
 
 
+def _spcbpt_iteration_syncs(ts, ss, sampler, cam, side: int = 64) -> str:
+    """'none', or the first line of the error, when one eager pass of the
+    SPCBPT eye pool's loop body runs under set_sync_debug_mode("error")."""
+    from spcbpt_tpu_torch.render import spcbpt_pool
+
+    total = side * side
+    p = spcbpt_pool._Pool(total, total, sampler, ts.device)
+    spcbpt_pool._start(p, sampler, cam.uvw(), 0, side, side, total)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        spcbpt_pool._iteration(ts, ss, p, side, side, total, 16, 3, False,
+                               None)
+        return "none"
+    except RuntimeError as e:
+        return str(e).splitlines()[0][:200]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+
+
+def phase_spcbpt_graph(cts, ccam, wts, wcam) -> None:
+    """The SPCBPT eye pool's loop body replayed as a CUDA graph on Cornell
+    (brute) against the same body run eagerly, at GRAPH_SIZES: three
+    frames each, every one with a sampler of its own light frame, a new
+    subframe and a moved eye; a walk-mode render stays eager."""
+    import copy
+    from unittest import mock
+
+    from spcbpt_tpu_torch.render import light_trace, lvc, spcbpt_pool
+    from spcbpt_tpu_torch.train import classify
+
+    classify.use_fp32_matmul()
+    ss = classify.synthetic_trained_state(cts, seed=0)
+
+    def sampler_of(ts, state, light_frame, paths=SPCBPT_GRAPH_PATHS):
+        lv = light_trace.trace_light_paths(ts, state, paths, light_frame,
+                                           max_depth=16)
+        return lvc.make_builder(state)(lv, light_frame)
+
+    syncs = _spcbpt_iteration_syncs(cts, ss, sampler_of(cts, ss, 1), ccam)
+    log("spcbpt_graph", f"cornell (brute) SPCBPT iteration under sync debug "
+                        f"'error': syncs {syncs}")
+    assert syncs == "none", syncs
+    for width, height in GRAPH_SIZES:
+        cam = copy.deepcopy(ccam)
+        cam.aspect = width / height
+        eye, U, V, W = cam.uvw()
+        step = GRAPH_EYE_STEP * U / np.linalg.norm(U)
+        for k in range(3):
+            sub = 3 * width + k
+            uvw = (eye + k * step, U, V, W)
+            sampler = sampler_of(cts, ss, sub + 7919)
+
+            def render():
+                return spcbpt_pool.render_pool(cts, ss, sampler, uvw, width,
+                                               height, 1, sub)
+            reset_launches()
+            with mock.patch.object(spcbpt_pool, "graph_route",
+                                   lambda device, mode: False):
+                (ef, ec), e_ms = _sync_ms(render)
+            e_launches = read_launches()
+            reset_launches()
+            ((gf, gc), counters), g_ms = _sync_ms(
+                lambda: _pool_counters(render))
+            g_launches = read_launches()
+            off = ((gf - ef).abs()
+                   > SPCBPT_GRAPH_RTOL * ef.abs() + SPCBPT_GRAPH_ATOL)
+            rel = ((gf - ef).abs() / ef.abs().clamp(min=1e-30)).max().item()
+            log("spcbpt_graph", f"cornell {width}x{height} frame {k} "
+                                f"(subframe {sub}): eager {e_ms:.1f} ms, "
+                                f"graphed {g_ms:.1f} ms under the recorder; "
+                                f"counts equal {torch.equal(gc, ec)}, film "
+                                f"equal {torch.equal(gf, ef)}, max rel "
+                                f"{rel:.3g}, outside the tolerance "
+                                f"{int(off.sum())}; K3 "
+                                f"{g_launches['brute_closest']}/"
+                                f"{g_launches['brute_any']} (eager "
+                                f"{e_launches['brute_closest']}/"
+                                f"{e_launches['brute_any']}); {counters}")
+            assert torch.equal(gc, ec) and bool((gc == 1).all())
+            assert not bool(off.any()), rel
+            assert g_launches == e_launches, (g_launches, e_launches)
+            captures = counters.get("spcbpt_pool.graph_captures", 0)
+            assert captures == (1 if k == 0 else 0), counters
+            assert (counters["spcbpt_pool.graph_replays"]
+                    == counters["spcbpt_pool.iterations"] - captures), \
+                counters
+        _, ms = _sync_ms(render)
+        log("spcbpt_graph", f"cornell {width}x{height}: a graphed eye pass "
+                            f"{ms:.1f} ms, the recorder off")
+
+    wss = classify.synthetic_trained_state(wts, seed=0)
+    wsampler = sampler_of(wts, wss, 2, paths=2_000)
+    (_, c), counters = _pool_counters(lambda: spcbpt_pool.render_pool(
+        wts, wss, wsampler, wcam.uvw(), 64, 64, 1, 0, n_pool=4096,
+        max_depth=8))
+    log("spcbpt_graph", f"interior ({wts.mode}) SPCBPT 64x64: {counters}")
+    assert wts.mode == "walk" and bool((c == 1).all())
+    assert set(counters) == {"spcbpt_pool.iterations"}, counters
+
+
 FRAME_LINE = re.compile(r"^\[(pt|bdpt|spcbpt)\] (\d+)x(\d+) spp +(\d+) \| "
                         r"+([\d.]+) ms/frame")
 
@@ -3717,6 +3837,7 @@ def main() -> int:
     phase_bvh(ts, cam, dev)
     phase_waves(cts, ccam, dev)
     phase_pt_graph(cts, ccam, ts, cam)
+    phase_spcbpt_graph(cts, ccam, ts, cam)
     timer, frame_lines = phase_viewer(out_dir, dev, trained_path, parts_path,
                                       n_parts)
     phase_profiling(out_dir, cts, timer, frame_lines)
