@@ -196,9 +196,10 @@ Phases, one status line each; any failure raises and exits non-zero:
      (the plain walk's visits beside them); PT 512x512, depth 8, 1 spp in
      tile mode (launch counters from 0: K4, and K5 any once a trace_any)
      and in walk mode from the same seeds, means within TILE_MEAN_PT.
- 30. the PT pool's loop body replayed as a CUDA graph (render/pt_pool.py,
-     phase_pt_graph): one eager iteration of the body on Cornell (brute)
-     raises no sync under torch.cuda.set_sync_debug_mode("error"); at
+ 30. the PT pool's loop body replayed as a CUDA graph (render/pt_pool.py
+     through the loop of render/pool.py, phase_pt_graph): one eager
+     iteration of the body on Cornell (brute) raises no sync under
+     torch.cuda.set_sync_debug_mode("error"); at
      GRAPH_SIZES (1 spp, 2^17 lanes, depth 30) two frames, a new subframe
      and a moved eye, graphed against the eager body on the same seeds:
      counts torch.equal, films within GRAPH_FILM_RTOL, K3 launches equal,
@@ -206,9 +207,10 @@ Phases, one status line each; any failure raises and exits non-zero:
      its iterations; their ms; a walk-mode PT render (the interior) takes
      the eager body (no capture), and whether its iteration syncs.
  31. the SPCBPT eye pool's loop body replayed as a CUDA graph
-     (render/spcbpt_pool.py, phase_spcbpt_graph): one eager iteration of
-     the body on Cornell (brute, a synthetic trained state, a sampler of
-     SPCBPT_GRAPH_PATHS light paths) raises no sync under
+     (render/spcbpt_pool.py through the loop of render/pool.py,
+     phase_spcbpt_graph): one eager iteration of the body on Cornell
+     (brute, a synthetic trained state, a sampler of SPCBPT_GRAPH_PATHS
+     light paths) raises no sync under
      torch.cuda.set_sync_debug_mode("error"); at GRAPH_SIZES (1 spp, 2^16
      lanes, depth 16, 3 connections) three frames, each with a sampler of
      its own light frame, a new subframe and a moved eye, graphed against
@@ -3051,7 +3053,7 @@ def phase_pt_graph(cts, ccam, wts, wcam) -> None:
     import copy
     from unittest import mock
 
-    from spcbpt_tpu_torch.render import pt_pool
+    from spcbpt_tpu_torch.render import pool, pt_pool
 
     syncs = _iteration_syncs(cts, ccam)
     log("pt_graph", f"cornell (brute) iteration under sync debug 'error': "
@@ -3068,7 +3070,7 @@ def phase_pt_graph(cts, ccam, wts, wcam) -> None:
             def render():
                 return pt_pool.render_pool(cts, uvw, width, height, 1, sub)
             reset_launches()
-            with mock.patch.object(pt_pool, "graph_route",
+            with mock.patch.object(pool, "graph_route",
                                    lambda device, mode: False):
                 (ef, ec), e_ms = _sync_ms(render)
             e_launches = read_launches()
@@ -3136,7 +3138,7 @@ def phase_spcbpt_graph(cts, ccam, wts, wcam) -> None:
     import copy
     from unittest import mock
 
-    from spcbpt_tpu_torch.render import light_trace, lvc, spcbpt_pool
+    from spcbpt_tpu_torch.render import light_trace, lvc, pool, spcbpt_pool
     from spcbpt_tpu_torch.train import classify
 
     classify.use_fp32_matmul()
@@ -3165,7 +3167,7 @@ def phase_spcbpt_graph(cts, ccam, wts, wcam) -> None:
                 return spcbpt_pool.render_pool(cts, ss, sampler, uvw, width,
                                                height, 1, sub)
             reset_launches()
-            with mock.patch.object(spcbpt_pool, "graph_route",
+            with mock.patch.object(pool, "graph_route",
                                    lambda device, mode: False):
                 (ef, ec), e_ms = _sync_ms(render)
             e_launches = read_launches()
