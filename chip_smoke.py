@@ -204,8 +204,12 @@ Phases, one status line each; any failure raises and exits non-zero:
      and a moved eye, graphed against the eager body on the same seeds:
      counts torch.equal, films within GRAPH_FILM_RTOL, K3 launches equal,
      one capture over both frames and the second frame's replays equal to
-     its iterations; their ms; a walk-mode PT render (the interior) takes
-     the eager body (no capture), and whether its iteration syncs.
+     its iterations; their ms. Then the same on walk-mode scenes (K1/K2),
+     the interior and the Franka Kitchen (KITCHEN_SCENE, 2 walk parts):
+     one eager iteration of each raises no sync, and one frame each at
+     WALK_GRAPH_SIZES, graphed against eager: counts torch.equal, films
+     within GRAPH_FILM_RTOL, K1/K2 launches equal, one capture and replays
+     equal to iterations less it; their ms.
  31. the SPCBPT eye pool's loop body replayed as a CUDA graph
      (render/spcbpt_pool.py through the loop of render/pool.py,
      phase_spcbpt_graph): one eager iteration of the body on Cornell
@@ -217,8 +221,11 @@ Phases, one status line each; any failure raises and exits non-zero:
      the eager body on the same sampler: counts torch.equal and all 1,
      films within SPCBPT_GRAPH_RTOL relative plus SPCBPT_GRAPH_ATOL, K3
      launches equal, one capture over the three frames and the later
-     frames' replays equal to their iterations; their ms; a walk-mode
-     SPCBPT render (the interior) takes the eager body (no capture).
+     frames' replays equal to their iterations; their ms. Then the same on
+     the interior and the kitchen in walk mode (a sampler of
+     SPCBPT_GRAPH_PATHS light paths each): no sync in one eager iteration,
+     and one frame each at WALK_GRAPH_SIZES with the brute checks (K1/K2
+     launches equal).
 Each render phase sets every launch counter to 0 just before it renders and
 reads them just after (the profiler's counters start at 0 in its own
 process and are read from its last line); the CLI renders' PNG, HDR and
@@ -407,6 +414,11 @@ GRAPH_EYE_STEP = 0.05    # the second frame's eye, moved along U
 SPCBPT_GRAPH_PATHS = 100_000
 SPCBPT_GRAPH_RTOL = 1e-3
 SPCBPT_GRAPH_ATOL = 1e-5
+# the walk-mode scenes of phases 30 and 31 (the interior and the kitchen),
+# one frame each at these sizes
+WALK_GRAPH_SIZES = ((64, 64), (1920, 1000))
+KITCHEN_SCENE = os.path.join("perfbench", "scenes", "franka_kitchen",
+                             "franka_kitchen.scene")
 VIEWER_DIM = 512
 VIEWER_DEPTH = 16        # the viewer's --max-depth: PT, BDPT, SPCBPT alike
 # four frames of each algorithm ('x' is no key), then fly, print, quit
@@ -3045,68 +3057,111 @@ def _iteration_syncs(ts, cam, side: int = 64) -> str:
         torch.cuda.synchronize()
 
 
-def phase_pt_graph(cts, ccam, wts, wcam) -> None:
-    """The PT pool's loop body replayed as a CUDA graph on Cornell (brute)
-    against the same body run eagerly, at GRAPH_SIZES: two frames each,
-    the second with a new subframe and a moved eye; a walk-mode render
-    stays eager."""
+def _aspect(cam, width: int, height: int) -> tuple:
+    """The camera's (eye, U, V, W) at the frame's aspect."""
     import copy
+
+    cam = copy.deepcopy(cam)
+    cam.aspect = width / height
+    return cam.uvw()
+
+
+def _graph_frame(tag: str, label: str, render, first: bool,
+                 check_film) -> dict:
+    """render() through the eager body, then on the graph route under the
+    recorder: counts torch.equal and all 1, check_film(graphed, eager) ->
+    (ok, what to print), launches equal, one capture on the key's first
+    frame, replays equal to iterations less the captures. Returns the
+    graphed frame's counters."""
     from unittest import mock
 
-    from spcbpt_tpu_torch.render import pool, pt_pool
+    from spcbpt_tpu_torch.render import pool
+
+    reset_launches()
+    with mock.patch.object(pool, "graph_route", lambda device, mode: False):
+        (ef, ec), e_ms = _sync_ms(render)
+    e_launches = read_launches()
+    reset_launches()
+    ((gf, gc), counters), g_ms = _sync_ms(lambda: _pool_counters(render))
+    g_launches = read_launches()
+    ok, film = check_film(gf, ef)
+    ran = {k: v for k, v in g_launches.items() if v or e_launches[k]}
+    eager = {k: e_launches[k] for k in ran}
+    log(tag, f"{label}: eager {e_ms:.1f} ms, graphed {g_ms:.1f} ms under the "
+             f"recorder; counts equal {torch.equal(gc, ec)}, film equal "
+             f"{torch.equal(gf, ef)}, {film}; launches {ran} (eager "
+             f"{eager}); {counters}")
+    assert torch.equal(gc, ec) and bool((gc == 1).all())
+    assert ok, film
+    assert g_launches == e_launches, (g_launches, e_launches)
+    name = tag.split("_")[0] + "_pool"
+    captures = counters.get(f"{name}.graph_captures", 0)
+    assert captures == (1 if first else 0), counters
+    assert (counters[f"{name}.graph_replays"]
+            == counters[f"{name}.iterations"] - captures), counters
+    return counters
+
+
+def _pt_film(gf, ef) -> tuple:
+    rel = ((gf - ef).abs() / ef.abs().clamp(min=1e-30)).max().item()
+    return rel <= GRAPH_FILM_RTOL, f"max rel {rel:.3g}"
+
+
+def load_kitchen(dev) -> tuple:
+    """The benchmark's Franka Kitchen scene (walk mode, 2 parts) and its
+    camera."""
+    from spcbpt_tpu_torch.scene.scene import load_trace_scene
+
+    kts, _, kcam = load_trace_scene(os.path.join(REPO, KITCHEN_SCENE), dev)
+    log("scene", f"kitchen: {kts.num_tris} tris, mode {kts.mode}, "
+                 f"{len(kts.clusters_walk.parts)} walk parts")
+    assert kts.mode == "walk"
+    return kts, kcam
+
+
+def phase_pt_graph(cts, ccam, walk_scenes) -> None:
+    """The PT pool's loop body replayed as a CUDA graph on Cornell (brute)
+    against the same body run eagerly, at GRAPH_SIZES: two frames each,
+    the second with a new subframe and a moved eye; then on the walk-mode
+    scenes (name, scene, camera), one frame each at WALK_GRAPH_SIZES."""
+    from spcbpt_tpu_torch.render import pt_pool
 
     syncs = _iteration_syncs(cts, ccam)
     log("pt_graph", f"cornell (brute) iteration under sync debug 'error': "
                     f"syncs {syncs}")
     assert syncs == "none", syncs
     for width, height in GRAPH_SIZES:
-        cam = copy.deepcopy(ccam)
-        cam.aspect = width / height
-        eye, U, V, W = cam.uvw()
+        eye, U, V, W = _aspect(ccam, width, height)
         moved = eye + GRAPH_EYE_STEP * U / np.linalg.norm(U)
         frames = ((2 * width + 1, (eye, U, V, W)),
                   (2 * width + 2, (moved, U, V, W)))
         for k, (sub, uvw) in enumerate(frames):
-            def render():
-                return pt_pool.render_pool(cts, uvw, width, height, 1, sub)
-            reset_launches()
-            with mock.patch.object(pool, "graph_route",
-                                   lambda device, mode: False):
-                (ef, ec), e_ms = _sync_ms(render)
-            e_launches = read_launches()
-            reset_launches()
-            ((gf, gc), counters), g_ms = _sync_ms(
-                lambda: _pool_counters(render))
-            g_launches = read_launches()
-            rel = ((gf - ef).abs() / ef.abs().clamp(min=1e-30)).max().item()
-            log("pt_graph", f"cornell {width}x{height} frame {k} (subframe "
-                            f"{sub}): eager {e_ms:.1f} ms, graphed "
-                            f"{g_ms:.1f} ms under the recorder; counts equal "
-                            f"{torch.equal(gc, ec)}, film equal "
-                            f"{torch.equal(gf, ef)}, max rel {rel:.3g}; K3 "
-                            f"{g_launches['brute_closest']}/"
-                            f"{g_launches['brute_any']} (eager "
-                            f"{e_launches['brute_closest']}/"
-                            f"{e_launches['brute_any']}); {counters}")
-            assert torch.equal(gc, ec) and bool((gc == 1).all())
-            assert rel <= GRAPH_FILM_RTOL, rel
-            assert g_launches == e_launches, (g_launches, e_launches)
-            captures = counters.get("pt_pool.graph_captures", 0)
-            assert captures == (1 if k == 0 else 0), counters
-            assert (counters["pt_pool.graph_replays"]
-                    == counters["pt_pool.iterations"] - captures), counters
+            _graph_frame("pt_graph", f"cornell {width}x{height} frame {k} "
+                                     f"(subframe {sub})",
+                         lambda: pt_pool.render_pool(cts, uvw, width, height,
+                                                     1, sub),
+                         k == 0, _pt_film)
         _, ms = _sync_ms(lambda: pt_pool.render_pool(
             cts, frames[0][1], width, height, 1, frames[0][0]))
         log("pt_graph", f"cornell {width}x{height}: a graphed frame "
                         f"{ms:.1f} ms, the recorder off")
 
-    syncs = _iteration_syncs(wts, wcam)
-    (_, c), counters = _pool_counters(lambda: pt_pool.render_pool(
-        wts, wcam.uvw(), 64, 64, 1, 0, n_pool=4096, max_depth=8))
-    log("pt_graph", f"interior ({wts.mode}) PT 64x64: {counters}; its "
-                    f"iteration under sync debug 'error': syncs {syncs}")
-    assert wts.mode == "walk" and bool((c == 1).all())
-    assert set(counters) == {"pt_pool.iterations"}, counters
+    for name, ts, cam in walk_scenes:
+        syncs = _iteration_syncs(ts, cam)
+        log("pt_graph", f"{name} ({ts.mode}) iteration under sync debug "
+                        f"'error': syncs {syncs}")
+        assert ts.mode == "walk" and syncs == "none", syncs
+        for width, height in WALK_GRAPH_SIZES:
+            uvw = _aspect(cam, width, height)
+            sub = 2 * width + 1
+            _graph_frame("pt_graph", f"{name} {width}x{height}",
+                         lambda: pt_pool.render_pool(ts, uvw, width, height,
+                                                     1, sub),
+                         True, _pt_film)
+            _, ms = _sync_ms(lambda: pt_pool.render_pool(
+                ts, uvw, width, height, 1, sub))
+            log("pt_graph", f"{name} {width}x{height}: a graphed frame "
+                            f"{ms:.1f} ms, the recorder off")
 
 
 def _spcbpt_iteration_syncs(ts, ss, sampler, cam, side: int = 64) -> str:
@@ -3130,15 +3185,20 @@ def _spcbpt_iteration_syncs(ts, ss, sampler, cam, side: int = 64) -> str:
         torch.cuda.synchronize()
 
 
-def phase_spcbpt_graph(cts, ccam, wts, wcam) -> None:
+def _spcbpt_film(gf, ef) -> tuple:
+    off = (gf - ef).abs() > SPCBPT_GRAPH_RTOL * ef.abs() + SPCBPT_GRAPH_ATOL
+    rel = ((gf - ef).abs() / ef.abs().clamp(min=1e-30)).max().item()
+    return (not bool(off.any()),
+            f"max rel {rel:.3g}, outside the tolerance {int(off.sum())}")
+
+
+def phase_spcbpt_graph(cts, ccam, walk_scenes) -> None:
     """The SPCBPT eye pool's loop body replayed as a CUDA graph on Cornell
     (brute) against the same body run eagerly, at GRAPH_SIZES: three
     frames each, every one with a sampler of its own light frame, a new
-    subframe and a moved eye; a walk-mode render stays eager."""
-    import copy
-    from unittest import mock
-
-    from spcbpt_tpu_torch.render import light_trace, lvc, pool, spcbpt_pool
+    subframe and a moved eye; then on the walk-mode scenes (name, scene,
+    camera), one frame each at WALK_GRAPH_SIZES."""
+    from spcbpt_tpu_torch.render import light_trace, lvc, spcbpt_pool
     from spcbpt_tpu_torch.train import classify
 
     classify.use_fp32_matmul()
@@ -3154,9 +3214,7 @@ def phase_spcbpt_graph(cts, ccam, wts, wcam) -> None:
                         f"'error': syncs {syncs}")
     assert syncs == "none", syncs
     for width, height in GRAPH_SIZES:
-        cam = copy.deepcopy(ccam)
-        cam.aspect = width / height
-        eye, U, V, W = cam.uvw()
+        eye, U, V, W = _aspect(ccam, width, height)
         step = GRAPH_EYE_STEP * U / np.linalg.norm(U)
         for k in range(3):
             sub = 3 * width + k
@@ -3166,49 +3224,32 @@ def phase_spcbpt_graph(cts, ccam, wts, wcam) -> None:
             def render():
                 return spcbpt_pool.render_pool(cts, ss, sampler, uvw, width,
                                                height, 1, sub)
-            reset_launches()
-            with mock.patch.object(pool, "graph_route",
-                                   lambda device, mode: False):
-                (ef, ec), e_ms = _sync_ms(render)
-            e_launches = read_launches()
-            reset_launches()
-            ((gf, gc), counters), g_ms = _sync_ms(
-                lambda: _pool_counters(render))
-            g_launches = read_launches()
-            off = ((gf - ef).abs()
-                   > SPCBPT_GRAPH_RTOL * ef.abs() + SPCBPT_GRAPH_ATOL)
-            rel = ((gf - ef).abs() / ef.abs().clamp(min=1e-30)).max().item()
-            log("spcbpt_graph", f"cornell {width}x{height} frame {k} "
-                                f"(subframe {sub}): eager {e_ms:.1f} ms, "
-                                f"graphed {g_ms:.1f} ms under the recorder; "
-                                f"counts equal {torch.equal(gc, ec)}, film "
-                                f"equal {torch.equal(gf, ef)}, max rel "
-                                f"{rel:.3g}, outside the tolerance "
-                                f"{int(off.sum())}; K3 "
-                                f"{g_launches['brute_closest']}/"
-                                f"{g_launches['brute_any']} (eager "
-                                f"{e_launches['brute_closest']}/"
-                                f"{e_launches['brute_any']}); {counters}")
-            assert torch.equal(gc, ec) and bool((gc == 1).all())
-            assert not bool(off.any()), rel
-            assert g_launches == e_launches, (g_launches, e_launches)
-            captures = counters.get("spcbpt_pool.graph_captures", 0)
-            assert captures == (1 if k == 0 else 0), counters
-            assert (counters["spcbpt_pool.graph_replays"]
-                    == counters["spcbpt_pool.iterations"] - captures), \
-                counters
+            _graph_frame("spcbpt_graph", f"cornell {width}x{height} frame "
+                                         f"{k} (subframe {sub})",
+                         render, k == 0, _spcbpt_film)
         _, ms = _sync_ms(render)
         log("spcbpt_graph", f"cornell {width}x{height}: a graphed eye pass "
                             f"{ms:.1f} ms, the recorder off")
 
-    wss = classify.synthetic_trained_state(wts, seed=0)
-    wsampler = sampler_of(wts, wss, 2, paths=2_000)
-    (_, c), counters = _pool_counters(lambda: spcbpt_pool.render_pool(
-        wts, wss, wsampler, wcam.uvw(), 64, 64, 1, 0, n_pool=4096,
-        max_depth=8))
-    log("spcbpt_graph", f"interior ({wts.mode}) SPCBPT 64x64: {counters}")
-    assert wts.mode == "walk" and bool((c == 1).all())
-    assert set(counters) == {"spcbpt_pool.iterations"}, counters
+    for name, ts, cam in walk_scenes:
+        wss = classify.synthetic_trained_state(ts, seed=0)
+        syncs = _spcbpt_iteration_syncs(ts, wss, sampler_of(ts, wss, 2), cam)
+        log("spcbpt_graph", f"{name} ({ts.mode}) SPCBPT iteration under sync "
+                            f"debug 'error': syncs {syncs}")
+        assert ts.mode == "walk" and syncs == "none", syncs
+        for width, height in WALK_GRAPH_SIZES:
+            uvw = _aspect(cam, width, height)
+            sub = 3 * width
+            sampler = sampler_of(ts, wss, sub + 7919)
+
+            def render():
+                return spcbpt_pool.render_pool(ts, wss, sampler, uvw, width,
+                                               height, 1, sub)
+            _graph_frame("spcbpt_graph", f"{name} {width}x{height}", render,
+                         True, _spcbpt_film)
+            _, ms = _sync_ms(render)
+            log("spcbpt_graph", f"{name} {width}x{height}: a graphed eye "
+                                f"pass {ms:.1f} ms, the recorder off")
 
 
 FRAME_LINE = re.compile(r"^\[(pt|bdpt|spcbpt)\] (\d+)x(\d+) spp +(\d+) \| "
@@ -3838,8 +3879,9 @@ def main() -> int:
     parts_path, n_parts, parts_launches = phase_parts(out_dir, dev)
     phase_bvh(ts, cam, dev)
     phase_waves(cts, ccam, dev)
-    phase_pt_graph(cts, ccam, ts, cam)
-    phase_spcbpt_graph(cts, ccam, ts, cam)
+    walk_scenes = (("interior", ts, cam), ("kitchen",) + load_kitchen(dev))
+    phase_pt_graph(cts, ccam, walk_scenes)
+    phase_spcbpt_graph(cts, ccam, walk_scenes)
     timer, frame_lines = phase_viewer(out_dir, dev, trained_path, parts_path,
                                       n_parts)
     phase_profiling(out_dir, cts, timer, frame_lines)

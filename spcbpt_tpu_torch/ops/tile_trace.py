@@ -123,7 +123,12 @@ def ray_sort_key_live(cmin, cmax, origins, dirs, tmin, tmax, bits: int = 5):
 # ---------------------------------------------------------------------------
 
 def _as_lanes(x, n, device):
-    return torch.as_tensor(x, dtype=torch.float32, device=device).expand(n)
+    """x as (n,) float32 lanes on `device`: a tensor as a view, a number
+    filled on the device. No host copy, so a walk's set-up can be captured
+    in a CUDA graph."""
+    if torch.is_tensor(x):
+        return x.to(device, torch.float32).expand(n)
+    return torch.full((n,), float(x), dtype=torch.float32, device=device)
 
 
 def sort_rays_live(cs, origins, dirs, tmin, tmax):
@@ -150,8 +155,8 @@ def _pad_rays(origins, dirs, tmin, tmax, tile):
     tmin, tmax = tmin.contiguous(), tmax.contiguous()
     if pad:
         origins = torch.cat([origins, origins.new_zeros((pad, 3))])
-        x_axis = dirs.new_tensor([1.0, 0.0, 0.0]).expand(pad, 3)
-        dirs = torch.cat([dirs, x_axis])
+        x_axis = torch.eye(1, 3, dtype=dirs.dtype, device=dirs.device)
+        dirs = torch.cat([dirs, x_axis.expand(pad, 3)])
         tmin = torch.cat([tmin, tmin.new_zeros((pad,))])
         # tmax < tmin: padded lanes never hit and never extend the walk
         tmax = torch.cat([tmax, tmax.new_full((pad,), -1.0)])

@@ -12,13 +12,15 @@ atomic adds on the card is not deterministic.
 
 The loop body is one function over a fixed set of buffers (a `Pool`, to
 which each estimator adds its lanes' state), which it updates in place,
-loop condition included. On a CUDA scene in `brute` mode (`graph_route`:
-fixed shapes, and no host sync inside the body) the first frame of a key
-runs the body once eagerly, captures it as a CUDA graph, and each later
-iteration replays the graph: one host launch in place of the body's
-hundreds. The other modes (`tile`, `bvh` and `walk` sync inside their
-traversal) and the CPU run the same body eagerly. Each estimator keeps its
-pools in a `Cache` of its own; a pool serves one thread at a time.
+loop condition included. On a CUDA scene in `brute` or `walk` mode
+(`graph_route`: fixed shapes, and no host sync inside the body; the walk's
+sort, its K1/K2 launches over each part and its set-up stay on the device)
+the first frame of a key runs the body once eagerly, captures it as a CUDA
+graph, and each later iteration replays the graph: one host launch in
+place of the body's hundreds or thousands. The other modes (`tile`'s K4
+round loop and the `bvh` walk sync on the host) and the CPU run the same
+body eagerly. Each estimator keeps its pools in a `Cache` of its own; a
+pool serves one thread at a time.
 """
 from __future__ import annotations
 
@@ -38,8 +40,10 @@ MAX_POOLS = 4
 
 def graph_route(device, mode: str) -> bool:
     """Whether the pool replays its loop body as a CUDA graph: on a CUDA
-    device in `brute` mode, whose body has fixed shapes and no host sync."""
-    return torch.device(device).type == "cuda" and mode == "brute"
+    device in `brute` (K3) or `walk` (K1/K2) mode, whose body has fixed
+    shapes and no host sync. `tile` and `bvh` sync inside their traversal
+    and stay eager."""
+    return torch.device(device).type == "cuda" and mode in ("brute", "walk")
 
 
 def capture(step, dev) -> tuple:

@@ -1,11 +1,13 @@
 """The pool loop both pool renderers run (render/pool.py), on the CPU: the
-route choice (a CUDA graph only on CUDA scenes in `brute` mode), the
-launch-count helper, and for each of the PT and SPCBPT pools: that it runs
-through the one loop with no route, capture or cache of its own, the eager
-body on the CPU, the graph route's bookkeeping with a stand-in for the
-capture (tests/graph_stand_in.py), films that stay the caller's own, and
-the cache's bound and its release with its owners; then the shared flush
-and regeneration on hand-built lanes."""
+route choice (a CUDA graph only on CUDA scenes in `brute` or `walk` mode),
+the launch-count helper, and for each of the PT and SPCBPT pools: that it
+runs through the one loop with no route, capture or cache of its own, the
+eager body on the CPU, the graph route's bookkeeping with a stand-in for
+the capture (tests/graph_stand_in.py) on a brute-mode and a walk-mode
+scene, a walk-mode iteration that builds no tensor from host data (what a
+capture cannot record), films that stay the caller's own, and the cache's
+bound and its release with its owners; then the shared flush and
+regeneration on hand-built lanes."""
 import ast
 import gc
 import inspect
@@ -15,6 +17,7 @@ import pytest
 import torch
 
 from spcbpt_tpu_torch import kernels
+from spcbpt_tpu_torch.config import CULL_BACKFACE, SCENE_EPSILON
 from spcbpt_tpu_torch.kernels import brute_trace
 from spcbpt_tpu_torch.render import light_trace, lvc, pool, pt_pool
 from spcbpt_tpu_torch.render import spcbpt_pool
@@ -45,8 +48,9 @@ def cornell():
     return cam.uvw()
 
 
-def _scene():
-    ts, _, _ = scene_mod.load_trace_scene(default_scene_path(), "cpu")
+def _scene(mode=None):
+    ts, _, _ = scene_mod.load_trace_scene(default_scene_path(), "cpu",
+                                          mode=mode)
     return ts
 
 
@@ -93,10 +97,10 @@ class _Renderer:
 @pytest.mark.parametrize("device, mode, graph", [
     ("cuda", "brute", True), ("cuda:1", "brute", True),
     ("cpu", "brute", False), ("cuda", "tile", False),
-    ("cuda", "bvh", False), ("cuda", "walk", False), ("cpu", "tile", False),
+    ("cuda", "bvh", False), ("cuda", "walk", True), ("cpu", "tile", False),
     ("cpu", "walk", False),
 ])
-def test_graph_route_only_on_cuda_brute(device, mode, graph):
+def test_graph_route_only_on_cuda_brute_and_walk(device, mode, graph):
     assert pool.graph_route(torch.device(device), mode) is graph
 
 
@@ -171,19 +175,17 @@ def test_cpu_renders_take_the_eager_body(cornell, kind):
     assert p.graph is None and p.launches == {}
 
 
-@pytest.mark.parametrize("kind", KINDS)
-def test_graph_route_counts_captures_replays_and_launches(cornell, kind,
-                                                          graphed,
-                                                          monkeypatch):
+def _check_graph_route(cornell, kind, mode, frames, monkeypatch):
     """Frame 1 of a key: its first iteration the warm-up and capture, every
     later one a replay; later frames (each on its own light frame, for
     SPCBPT): replays alone, one an iteration. The launch counters gain the
-    recorded launches once a replay and none for the capture; the other
-    pool counts nothing. Films and counts equal the eager route's."""
-    render = _Renderer(kind)
+    mode's recorded launches once a replay and none for the capture; the
+    other pool counts nothing. Films and counts equal the eager route's."""
+    render = _Renderer(kind, _scene(mode))
+    assert render.ts.mode == mode
     name = f"{kind}_pool"
     counters, launches, outs = [], [], []
-    for k, (sub, step) in enumerate(FRAMES):
+    for k, (sub, step) in enumerate(frames):
         kernels.reset_launches()
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CPU]):
@@ -201,16 +203,133 @@ def test_graph_route_counts_captures_replays_and_launches(cornell, kind,
                 == later[f"{name}.iterations"] > 1)
     for c, n in zip(counters, launches):
         assert all(k.startswith(name + ".") for k in c), c
-        for kernel, k in RECORDED.items():
+        assert {kernel for kernel, k in n.items() if k} == set(
+            RECORDED[mode])
+        for kernel, k in RECORDED[mode].items():
             assert n[kernel] == k * c[f"{name}.graph_replays"]
 
     monkeypatch.setattr(pool, "graph_route", lambda device, mode: False)
-    eager = _Renderer(kind)
+    eager = _Renderer(kind, render.ts)
     if kind == "spcbpt":
         eager.ss, eager.samplers = render.ss, render.samplers
-    for k, ((sub, step), (f, c)) in enumerate(zip(FRAMES, outs)):
+    for k, ((sub, step), (f, c)) in enumerate(zip(frames, outs)):
         ef, ec = eager(_moved(cornell, step), sub, frame=k)
         assert torch.equal(f, ef) and torch.equal(c, ec)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_graph_route_counts_captures_replays_and_launches(cornell, kind,
+                                                          graphed,
+                                                          monkeypatch):
+    """The graph route's bookkeeping on a brute-mode scene (K3)."""
+    _check_graph_route(cornell, kind, "brute", FRAMES, monkeypatch)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_walk_scene_takes_the_graph_route(cornell, kind, graphed,
+                                          monkeypatch):
+    """The same bookkeeping on a walk-mode scene (K1/K2): one capture, then
+    replays alone, films and counts equal to the eager body's."""
+    _check_graph_route(cornell, kind, "walk", FRAMES[:2], monkeypatch)
+
+
+def _refuse_host_data(monkeypatch) -> None:
+    """torch.as_tensor and Tensor.new_tensor raise when given host data (a
+    number, a list, an array): on the card each is a copy from the host,
+    which blocks the host and which a CUDA graph capture cannot record."""
+    as_tensor, new_tensor = torch.as_tensor, torch.Tensor.new_tensor
+
+    def refuse(data):
+        if not torch.is_tensor(data):
+            raise AssertionError(f"a tensor made from host data {data!r}")
+
+    def strict_as_tensor(data, *args, **kw):
+        refuse(data)
+        return as_tensor(data, *args, **kw)
+
+    def strict_new_tensor(self, data, *args, **kw):
+        refuse(data)
+        return new_tensor(self, data, *args, **kw)
+    monkeypatch.setattr(torch, "as_tensor", strict_as_tensor)
+    monkeypatch.setattr(torch.Tensor, "new_tensor", strict_new_tensor)
+
+
+# lanes of the walk traces below: not a multiple of the walk's padding unit
+WALK_LANES = 200
+
+
+@pytest.mark.parametrize("query", ["closest", "any"])
+def test_walk_trace_set_up_takes_no_host_data(cornell, query, monkeypatch):
+    """A walk-mode trace with number bounds over lanes the walk pads: no
+    tensor made from host data, and the same hits as the unguarded call
+    and as a call with the bounds as lanes."""
+    ts = _scene("walk")
+    assert WALK_LANES % 128
+    gen = torch.Generator().manual_seed(7)
+    eye = torch.as_tensor(np.asarray(cornell[0]), dtype=torch.float32)
+    o = eye + 0.1 * torch.randn((WALK_LANES, 3), generator=gen)
+    d = torch.randn((WALK_LANES, 3), generator=gen)
+    d = d / d.norm(dim=1, keepdim=True)
+    tmax = 1e16 if query == "closest" else 300.0
+
+    def trace(tmin, tmax):
+        if query == "closest":
+            hit = scene_mod.trace_closest(ts, o, d, tmin, tmax,
+                                          CULL_BACKFACE)
+            return hit.t, hit.tri, hit.u, hit.v
+        return (scene_mod.trace_any(ts, o, d, tmin, tmax),)
+    with monkeypatch.context() as m:
+        _refuse_host_data(m)
+        got = trace(SCENE_EPSILON, tmax)
+    lanes = [torch.full((WALK_LANES,), x) for x in (SCENE_EPSILON, tmax)]
+    for want in (trace(SCENE_EPSILON, tmax), trace(*lanes)):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    if query == "closest":
+        assert bool((got[1] >= 0).any()) and bool((got[1] < 0).any())
+    else:
+        assert bool(got[0].any()) and not bool(got[0].all())
+
+
+def _start_pool(kind, ts, ss, sampler, cam_uvw):
+    """A pool of N_POOL lanes on an 8x8 frame, 4 spp, started."""
+    side = 8
+    total = side * side * 4
+    if kind == "pt":
+        p = pt_pool._Pool(N_POOL, side * side, ts.device)
+        pt_pool._start(p, cam_uvw, 0, side, side, total)
+        return p, lambda: pt_pool._iteration(ts, p, side, side, total,
+                                             EYE_DEPTH)
+    p = spcbpt_pool._Pool(N_POOL, side * side, sampler, ts.device)
+    spcbpt_pool._start(p, sampler, cam_uvw, 0, side, side, total)
+    return p, lambda: spcbpt_pool._iteration(ts, ss, p, side, side, total,
+                                             EYE_DEPTH, 3, False, None)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_walk_pool_iteration_takes_no_host_data(cornell, kind, monkeypatch):
+    """One pass of the loop body on a walk-mode scene, over N_POOL lanes
+    (which the walk pads), builds no tensor from host data, and leaves the
+    pool's buffers as the unguarded pass does."""
+    ts = _scene("walk")
+    ss = sampler = None
+    if kind == "spcbpt":
+        ss = classify.synthetic_trained_state(ts, seed=0)
+        sampler = _sampler(ts, ss, 100)
+    assert N_POOL % 128
+    bufs = []
+    for guarded in (True, False):
+        p, step = _start_pool(kind, ts, ss, sampler, cornell)
+        if guarded:
+            with monkeypatch.context() as m:
+                _refuse_host_data(m)
+                step()
+        else:
+            step()
+        bufs.append({k: v.clone() for k, v in vars(p).items()
+                     if torch.is_tensor(v)})
+    assert bufs[0].keys() == bufs[1].keys()
+    assert all(torch.equal(bufs[0][k], bufs[1][k]) for k in bufs[0])
+    assert bool(bufs[0]["alive"].any())
 
 
 @pytest.mark.parametrize("kind", KINDS)
