@@ -20,12 +20,14 @@
 // still counts when its origin lies inside the box, as in the plain
 // version). A row repeatedly takes the (entry, id)-lexicographic next
 // cluster and tests its rays against the cluster's triangles. Closest hit
-// keeps a hit only on a strictly smaller t: the smallest slot at the
-// smallest t within a cluster, the earlier cluster across clusters. Every
-// slot of a cluster is tested against min(best_t, tmax) as it stood when the
-// cluster was taken. A row stops once its next entry is 1e30 or exceeds the
-// largest min(best_t, tmax) of its lanes (closest) or the largest tmax of
-// its unoccluded lanes (any).
+// keeps the least (t, file id) over the hits below tmax: at equal t the
+// triangle with the lower id in the scene file (a slot's fourth word, the
+// bits of its int32 file id), wherever the walk meets it, as a brute force
+// over the file keeps it. A row stops once its next entry is 1e30 or
+// exceeds the largest min(best_t, tmax) of its lanes, widened by
+// kStopSlack of itself (closest: a box's rounded entry may lie an ulp or
+// two past the t of a triangle in it, which may tie the best), or the
+// largest tmax of its unoccluded lanes (any).
 //
 // What bounds it on the card. f32 arithmetic outside the tensor cores, in
 // two terms: the slab tests of the entry phase (every live ray against the
@@ -60,8 +62,8 @@
 //     The 8 lanes of one q read one address, a broadcast, and each slot is
 //     read once per row, from the L2-resident table through the read-only
 //     path. The test has no branch, so four unrolled slots interleave. Two
-//     xor shuffles (8, 16) reduce the four quarters on the key (t, slot). A
-//     lane that is dead or already occluded skips its slots.
+//     xor shuffles (8, 16) reduce the four quarters on the key (t, file
+//     id). A lane that is dead or already occluded skips its slots.
 //   Measured on the card and not kept (ray_walk_variants.py at the root of
 //   the repository rebuilds each form from this source; PERF.md has the
 //   times): staging a cluster's triangles into a per-warp shared buffer with
@@ -82,6 +84,8 @@ constexpr int kWarps = 8;         // rows per block, one warp each
 constexpr int kGroup = 8;         // clusters per group box
 constexpr int kBlock = 32 * kWarps;
 constexpr int kSlots = 128;       // triangle slots per cluster
+constexpr float kStopSlack = 0x1p-16f;  // closest: the stop bound's margin
+constexpr int kNoKey = 0x7fffffff;      // the file id of no triangle
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Ray {
@@ -198,6 +202,13 @@ __device__ __forceinline__ float row_max(float x) {
   for (int m = 1; m < kRow; m <<= 1)
     x = fmaxf(x, __shfl_xor_sync(kFull, x, m));
   return x;
+}
+
+// Closest hit's stop bound: the row's largest min(best_t, tmax), widened by
+// kStopSlack of itself, in the operation order of ray_walk._stop_bound.
+__device__ __forceinline__ float stop_bound(float x) {
+  const float b = row_max(x);
+  return b + fabsf(b) * kStopSlack;
 }
 
 // Phase A: the row's candidate list, the clusters with an entry below 1e30,
@@ -322,7 +333,7 @@ closest_kernel(const float* __restrict__ o, const float* __restrict__ d,
   const int count = build_list(ray, sh, c_total, lane);
 
   float best_t = kBig, best_u = 0.0f, best_v = 0.0f;
-  int best_id = -1;
+  int best_id = -1, best_key = kNoKey;
   float last_e = -kBig;
   int last_c = -1;
   while (true) {  // uniform over the warp
@@ -330,10 +341,12 @@ closest_kernel(const float* __restrict__ o, const float* __restrict__ d,
     int cid;
     next_cluster(sh.le, sh.lc, count, c_total, lane, last_e, last_c, e, cid);
     const float tmax_eff = fminf(best_t, ray.tmx);
-    const float bound = row_max(tmax_eff);
+    const float bound = stop_bound(tmax_eff);
     if (!(e < kBig && e <= bound)) break;
+    // the cluster's least (t, file id) over hits at or below best_t
     float cb = kBig, cu = 0.0f, cv = 0.0f;
-    int cs = kSlots;
+    int cs = kSlots, ck = kNoKey;
+    const float thit = fminf(ray.tmx, kBig);
     const float4* blk = tri_slots + static_cast<size_t>(cid) * kSlots * 3;
     const int cnt = __ldg(tri_count + cid);
     if (tmax_eff > ray.tmn) {
@@ -341,33 +354,39 @@ closest_kernel(const float* __restrict__ o, const float* __restrict__ d,
       for (int s = q; s < cnt; s += 4) {
         float t, u, v;
         const float4* tri = blk + 3 * s;
-        if (mt_hit(ray, __ldg(tri), __ldg(tri + 1), __ldg(tri + 2), cull != 0,
-                   tmax_eff, t, u, v) &&
-            t < cb) {
+        const float4 p0 = __ldg(tri);
+        const int key = __float_as_int(p0.w);
+        if (mt_hit(ray, p0, __ldg(tri + 1), __ldg(tri + 2), cull != 0, thit,
+                   t, u, v) &&
+            t <= best_t && (t < cb || (t == cb && key < ck))) {
           cb = t;
           cs = s;
+          ck = key;
           cu = u;
           cv = v;
         }
       }
     }
-    // the four quarters of a ray: smallest t, then smallest slot
+    // the four quarters of a ray: smallest t, then lowest file id
 #pragma unroll
     for (int m = kRow; m < 32; m <<= 1) {
       const float ot = __shfl_xor_sync(kFull, cb, m);
       const int os = __shfl_xor_sync(kFull, cs, m);
+      const int ok = __shfl_xor_sync(kFull, ck, m);
       const float ou = __shfl_xor_sync(kFull, cu, m);
       const float ov = __shfl_xor_sync(kFull, cv, m);
-      if (ot < cb || (ot == cb && os < cs)) {
+      if (ot < cb || (ot == cb && ok < ck)) {
         cb = ot;
         cs = os;
+        ck = ok;
         cu = ou;
         cv = ov;
       }
     }
-    if (cb < best_t) {
+    if (cb < best_t || (cb == best_t && ck < best_key)) {
       best_t = cb;
       best_id = __ldg(tri_begin + cid) + cs;
+      best_key = ck;
       best_u = cu;
       best_v = cv;
     }

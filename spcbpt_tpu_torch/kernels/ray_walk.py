@@ -113,7 +113,8 @@ def _stream(dev) -> int:
 
 def closest(o, d, tmin, tmax, cmin, cmax, tri_begin, tri_count, tri_slots,
             cull: bool):
-    """K1 on (n,) rays -> (t, tri, u, v); misses keep t=1e30, tri=-1."""
+    """K1 on (n,) rays -> (t, tri, u, v); misses keep t=1e30, tri=-1; at
+    equal t the lower file id (each slot's fourth word)."""
     n, c, dev = _check_inputs(o, d, tmin, tmax, cmin, cmax)
     _check("tri_begin", tri_begin, torch.int32, (c,), dev)
     _check_triangles(tri_count, tri_slots, c, dev)

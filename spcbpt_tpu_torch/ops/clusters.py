@@ -29,7 +29,9 @@ cluster of K triangles is a (16, 4K) matrix and testing R rays one
 (R, 16) x (16, 4K) product.
 
 Triangle ids are tri_begin[cluster] + slot; clusters are contiguous ranges
-of the BVH-reordered triangle array.
+of the BVH-reordered triangle array. The row walk's set keeps each
+triangle's id in the scene file (`tri_file`), by which its closest walks
+order hits of equal t.
 """
 from __future__ import annotations
 
@@ -76,15 +78,20 @@ class ClusterSet:
     tri_count: torch.Tensor  # (C,) int32 triangles of the cluster: the
                              # slots the row-walk kernels test
     tri_slots: torch.Tensor  # (C, 128, 12) triangles slot-major,
-                             # [p0, 0, e1, 0, e2, 0], zero-padded: three
-                             # 16-byte loads per slot; read by the kernels
-                             # and by their plain versions
+                             # [p0, file id, e1, 0, e2, 0], zero-padded:
+                             # three 16-byte loads per slot, the file id
+                             # (tri_file's) as the bits of an int32; read by
+                             # the kernels and by their plain versions
     tri_block: np.ndarray    # host: (C, 16, 128) rows 0..8 = [p0, e1, e2]
                              # xyz per slot, the JAX package's layout; the
                              # list walk (K6) reads it on the device,
                              # through blocks()
+    tri_file: torch.Tensor   # (T,) int32 file-order id of each (reordered)
+                             # triangle: the closest walks' order at equal t
     _blocks: Optional[torch.Tensor] = dataclasses.field(
         default=None, repr=False, compare=False)
+    # arrays of the whole scene's triangles, which a part keeps whole
+    PER_TRIANGLE = ("tri_file",)
 
     @property
     def num_clusters(self) -> int:
@@ -100,23 +107,31 @@ class ClusterSet:
 
     @classmethod
     def from_arrays(cls, cmin, cmax, tri_block, tri_begin, num_tris: int,
-                    device) -> "ClusterSet":
-        """Device cluster set from the host arrays of either package and
-        the scene's triangle count."""
+                    device, file_order=None) -> "ClusterSet":
+        """Device cluster set from the host arrays of either package, the
+        scene's triangle count and the file-order id of each reordered
+        triangle (the BVH's `order`; None: the reordered id, for arrays
+        that keep no file order, such as the JAX package's)."""
         tri_block = np.asarray(tri_block, np.float32)
         c = tri_block.shape[0]
         begin = np.asarray(tri_begin, np.int64)
         count = np.append(begin[1:], num_tris) - begin
+        file = np.asarray(np.arange(num_tris) if file_order is None
+                          else file_order, np.int32)
         slots = np.zeros((c, SLOTS, 3, 4), np.float32)
         slots[..., :3] = tri_block[:, :9, :].transpose(0, 2, 1).reshape(
             c, SLOTS, 3, 3)
+        ids = begin[:, None] + np.arange(SLOTS)
+        key = np.where(ids < (begin + count)[:, None],
+                       file[np.minimum(ids, num_tris - 1)], 0)
+        slots[:, :, 0, 3] = key.astype(np.int32).view(np.float32)
         t = lambda a, dt=torch.float32: torch.tensor(
             np.asarray(a), dtype=dt, device=device)
         return cls(cmin=t(cmin), cmax=t(cmax),
                    tri_begin=t(tri_begin, torch.int32),
                    tri_count=t(count, torch.int32),
                    tri_slots=t(slots.reshape(c, SLOTS, 12)),
-                   tri_block=tri_block)
+                   tri_block=tri_block, tri_file=t(file, torch.int32))
 
 
 @dataclasses.dataclass
@@ -124,7 +139,8 @@ class ClusterParts:
     """A cluster set split into parts: `parts[i]` is the set (a ClusterSet
     of the row walk, or a TileClusterSet of the tile mode) of the whole
     set's clusters bounds[i][0]:bounds[i][1], its arrays views of the whole
-    set's (tri_begin stays the global triangle id). Ranges in BVH order
+    set's (tri_begin stays the global triangle id; a per-triangle array,
+    `PER_TRIANGLE`, is the whole set's). Ranges in BVH order
     are runs of subtrees: each part is spatially coherent."""
     whole: object
     bounds: tuple            # ((first cluster, end), ...) per part
@@ -132,8 +148,10 @@ class ClusterParts:
 
     @classmethod
     def split(cls, whole, bounds) -> "ClusterParts":
+        whole_arrays = getattr(whole, "PER_TRIANGLE", ())
         arrays = [f.name for f in dataclasses.fields(whole) if isinstance(
-            getattr(whole, f.name), (torch.Tensor, np.ndarray))]
+            getattr(whole, f.name), (torch.Tensor, np.ndarray))
+            and f.name not in whole_arrays]
 
         def part(a, b):
             return dataclasses.replace(
@@ -289,7 +307,7 @@ def build_clusters(flat: FlatBVH, p0: np.ndarray, e1: np.ndarray,
     cmin, cmax, tri_block, begin, _ = _pack(flat, p0, e1, e2, max_tris,
                                             with_coeff=False)
     return ClusterSet.from_arrays(cmin, cmax, tri_block, begin, len(p0),
-                                  device)
+                                  device, flat.order)
 
 
 def part_bounds(begin, end, part_max_tris: int,
@@ -332,7 +350,7 @@ def build_cluster_parts(flat: FlatBVH, p0, e1, e2, max_tris: int = SLOTS,
     cmin, cmax, tri_block, begin, _ = _pack(flat, p0, e1, e2, max_tris,
                                             with_coeff=False)
     whole = ClusterSet.from_arrays(cmin, cmax, tri_block, begin, len(p0),
-                                   device)
+                                   device, flat.order)
     end = np.append(begin[1:], len(p0))
     return ClusterParts.split(whole, part_bounds(begin, end, part_max_tris,
                                                  max_clusters))

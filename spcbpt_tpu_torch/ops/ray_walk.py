@@ -14,9 +14,12 @@ The walk itself runs where its tensors live:
   * CPU tensors run the plain version below: the row-union entry table
     `row_entries` in plain torch, then a lock-step torch transcription of
     the Pallas kernels (`_next_cluster`, `_mt_rows3` and the loop bodies of
-    ray_walk.py:98-227) that reproduces their triangle ids and tie-breaks.
-    The card checks the kernels against it (`walk_closest_plain` /
-    `walk_any_plain` run it on any device).
+    ray_walk.py:98-227) that reproduces their triangle ids. At equal t the
+    closest walk keeps the triangle earlier in the scene file
+    (`ClusterSet.tri_file`), as a brute force over the file does, where
+    the Pallas kernels keep the earlier visited cluster's. The card checks
+    the kernels against it (`walk_closest_plain` / `walk_any_plain` run it
+    on any device).
 A large scene's parts (ops/clusters.ClusterParts) are walked by
 `walk_closest_parts` / `walk_any_parts`, as JAX's functions of those
 names: one sort over the boxes of all parts and one padding, then the parts
@@ -35,6 +38,10 @@ from .tile_trace import _as_lanes, _hit, _pad_rays, sort_rays_live, unsort
 
 _BIG = 1e30
 _EPS_DET = 1e-10
+_NO_KEY = 2**31 - 1   # the file id of no triangle
+# closest hit: a row also visits clusters entered this share of its stop
+# bound past it (csrc/ray_walk.cu kStopSlack)
+STOP_SLACK = 2.0 ** -16
 ROW = 8           # rays per row
 LANES = 128       # padding unit: 16 rows, two CUDA blocks of K1/K2
 # calls of the plain route's passes; the kernels' route must make none
@@ -117,6 +124,15 @@ def _mt_rows3(o, d, tris, tmn, tmax_eff, cull):
     return torch.where(hit, t, _BIG), u, v
 
 
+def _stop_bound(lim):
+    """(R, ROW) min(best t, tmax) of each lane -> (R,) the largest cluster
+    entry the row still visits: the largest of them, widened by STOP_SLACK
+    of itself, since a box's rounded entry may lie an ulp or two past the t
+    of a triangle in it, which may tie the best hit."""
+    b = lim.amax(dim=1)
+    return b + b.abs() * STOP_SLACK
+
+
 def _walk_rows_plain(cs: ClusterSet, o, d, tmn, tmx, row_e, cull, any_hit):
     """The row walk of K1 (any_hit=False) or K2 (any_hit=True) over padded
     (N,) rays. Rows run in lock step; a row that stops never restarts (its
@@ -129,6 +145,8 @@ def _walk_rows_plain(cs: ClusterSet, o, d, tmn, tmx, row_e, cull, any_hit):
     best_id = torch.full((r_total, ROW), -1, dtype=torch.int32, device=dev)
     best_u = torch.zeros((r_total, ROW), device=dev)
     best_v = torch.zeros((r_total, ROW), device=dev)
+    best_key = torch.full((r_total, ROW), _NO_KEY, dtype=torch.int32,
+                          device=dev)
     occ = torch.zeros((r_total, ROW), dtype=torch.bool, device=dev)
     last_e = torch.full((r_total,), -_BIG, device=dev)
     last_c = torch.full((r_total,), -1, dtype=torch.int64, device=dev)
@@ -140,8 +158,8 @@ def _walk_rows_plain(cs: ClusterSet, o, d, tmn, tmx, row_e, cull, any_hit):
             tmax_eff = tmx2[rows]
             bound = torch.where(occ[rows], -_BIG, tmax_eff).amax(dim=1)
         else:
-            tmax_eff = torch.minimum(best_t[rows], tmx2[rows])
-            bound = tmax_eff.amax(dim=1)
+            bound = _stop_bound(torch.minimum(best_t[rows], tmx2[rows]))
+            tmax_eff = torch.clamp(tmx2[rows], max=_BIG)
         run = (e < _BIG) & (e <= bound)
         rows, e, cid, tmax_eff = rows[run], e[run], cid[run], tmax_eff[run]
         if not rows.numel():
@@ -152,19 +170,26 @@ def _walk_rows_plain(cs: ClusterSet, o, d, tmn, tmx, row_e, cull, any_hit):
         if any_hit:
             occ[rows] = occ[rows] | (tt < _BIG).any(dim=2)
         else:
+            # the cluster's least (t, file id), kept where it lies below
+            # the best so far
             t_min = torch.amin(tt, dim=2)                     # (R, ROW)
-            bt = best_t[rows]
-            improved = t_min < bt
             at_min = tt == t_min[:, :, None]
-            s_pick = torch.amin(torch.where(at_min, slot, SLOTS), dim=2)
-            pick = at_min & (slot == s_pick[:, :, None])
+            key = cs.tri_slots[cid][:, :, 3].view(torch.int32)  # (R, 128)
+            k_min = torch.amin(torch.where(at_min, key[:, None], _NO_KEY),
+                               dim=2)
+            pick = at_min & (key[:, None] == k_min[:, :, None])
+            s_pick = torch.amin(torch.where(pick, slot, SLOTS), dim=2)
             u_p = torch.where(pick, u, 0.0).sum(dim=2)
             v_p = torch.where(pick, v, 0.0).sum(dim=2)
             tri = (cs.tri_begin[cid][:, None] + s_pick).to(torch.int32)
+            bt, bk = best_t[rows], best_key[rows]
+            improved = (t_min < bt) | ((t_min == bt) & (t_min < _BIG)
+                                       & (k_min < bk))
             best_id[rows] = torch.where(improved, tri, best_id[rows])
             best_u[rows] = torch.where(improved, u_p, best_u[rows])
             best_v[rows] = torch.where(improved, v_p, best_v[rows])
             best_t[rows] = torch.where(improved, t_min, bt)
+            best_key[rows] = torch.where(improved, k_min, bk)
         last_e[rows] = e
         last_c[rows] = cid
     if any_hit:
@@ -205,16 +230,21 @@ def _any_rows(cs, o, d, tmn, tmx):
 def closest_parts_rows(parts: ClusterParts, o, d, tmn, tmx, cull,
                        rows_fn=_closest_rows):
     """Closest hits over the parts in turn on prepared rays: each part's
-    walk takes tmax tightened by the best t so far, and a later part wins
-    only with a strictly smaller t -> (t, tri, u, v)."""
+    walk takes tmax tightened to one ulp past the best t so far, and a
+    later part wins with a smaller t or, at equal t, a lower file id: the
+    whole set's hits -> (t, tri, u, v)."""
     best = None
     for cs in parts.parts:
-        cur = tmx if best is None else torch.minimum(tmx, best[0])
+        cur = tmx if best is None else torch.where(
+            best[0] < tmx, torch.nextafter(best[0], tmx), tmx)
         out = rows_fn(cs, o, d, tmn, cur, cull)
         if best is None:
             best = out
         else:
-            better = out[0] < best[0]
+            key = lambda tri: cs.tri_file[tri.clamp(min=0)]
+            better = (out[0] < best[0]) | (
+                (out[0] == best[0]) & (out[0] < _BIG)
+                & (key(out[1]) < key(best[1])))
             best = tuple(torch.where(better, a, b) for a, b in zip(out, best))
     return best
 

@@ -23,6 +23,7 @@ from ..ops import bsdf as bsdf_mod
 from ..ops import lights as lights_mod
 from ..scene.scene import TraceScene, local_geometry, trace_closest
 from ..train import classify
+from ..utils import profiling
 from ..utils import rng as rng_mod
 from ..utils import vec
 from . import rmis
@@ -59,12 +60,13 @@ def _origin_vertices(ts: TraceScene, ls: lights_mod.LightSample, n: int):
     )
 
 
+@profiling.traced("light_trace.paths")
 def trace_light_paths(ts: TraceScene, ss: classify.SubspaceState,
                       n_paths: int, frame, max_depth: int = 8,
                       seed_salt: int = 0x9E37) -> LightVertices:
     """Trace n_paths light sub-paths on the scene's device; returns
     LightVertices with shape (max_depth+1, n_paths) — slot d holds the
-    depth-d vertex of each path."""
+    depth-d vertex of each path. Recorded as span `light_trace.paths`."""
     dev = ts.device
     lane = torch.arange(n_paths, dtype=torch.int64, device=dev)
     # unsigned 32-bit lane + salt and frame, as the JAX uint32 arithmetic

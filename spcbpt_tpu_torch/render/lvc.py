@@ -26,6 +26,7 @@ from ..config import NUM_SUBSPACE
 from ..ops.cmf import segment_pmf, segment_searchsorted
 from ..train import classify
 from ..train import nn_classifier as nn_mod
+from ..utils import profiling
 from ..utils import rng as rng_mod
 from ..utils import vec
 from .vertex import LightVertices, pack_matrix, reshape_flat
@@ -123,9 +124,11 @@ def table_mode_for(ss) -> str:
 
 def make_builder(ss, table_k: int = 128):
     """Per-frame sampler builder whose presampled table mode matches ss —
-    the common caller pattern (build(light_trace(frame), frame))."""
+    the common caller pattern (build(light_trace(frame), frame)); each
+    build is recorded as span `lvc.build`."""
     mode = table_mode_for(ss)
 
+    @profiling.traced("lvc.build")
     def build(lv, seed=0):
         return build_sampler(lv, table_mode=mode, table_k=table_k,
                              table_seed=seed, ss=ss)

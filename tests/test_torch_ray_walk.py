@@ -108,13 +108,35 @@ def _closest_pair(case, o, d, tmn, tmx, cull, sort_rays):
     return ref, got
 
 
-def _assert_same_hits(ref, got):
-    np.testing.assert_array_equal(got.tri.numpy(), np.asarray(ref.tri))
+def _walk_t(tris, o, d, ids):
+    """t of one ray against triangles `ids` in the plain walk's own
+    arithmetic (1e30 where it misses one)."""
+    slots = np.zeros((1, len(ids), 12), np.float32)
+    for k, a in enumerate(tris):
+        slots[0, :, 4 * k:4 * k + 3] = a[ids]
+    tt, _, _ = trw._mt_rows3(_t(o[None, None]), _t(d[None, None]),
+                             _t(slots), torch.full((1, 1), -1e30),
+                             torch.full((1, 1), 1e30), False)
+    return tt[0, 0].numpy()
+
+
+def _assert_same_hits(ref, got, case, o, d):
+    """The port's hits against JAX's: the same triangle on every lane but
+    at a closest-hit tie, where the port keeps the lower file id
+    (`tri_file`) and JAX the earlier visited cluster's; there both
+    triangles reach the port's t in the walk's own arithmetic."""
+    tri, jtri = got.tri.numpy(), np.asarray(ref.tri)
+    tie = tri != jtri
+    file = case["tcs"].tri_file.numpy()
+    for i in np.nonzero(tie)[0]:
+        t = _walk_t(case["tris"], o[i], d[i], [tri[i], jtri[i]])
+        assert t[0] == t[1] == got.t.numpy()[i], (i, tri[i], jtri[i], t)
+        assert file[tri[i]] < file[jtri[i]], (i, tri[i], jtri[i])
     np.testing.assert_allclose(got.t.numpy(), np.asarray(ref.t), rtol=RTOL)
-    np.testing.assert_allclose(got.u.numpy(), np.asarray(ref.u), rtol=RTOL,
-                               atol=ATOL_UV)
-    np.testing.assert_allclose(got.v.numpy(), np.asarray(ref.v), rtol=RTOL,
-                               atol=ATOL_UV)
+    np.testing.assert_allclose(got.u.numpy()[~tie], np.asarray(ref.u)[~tie],
+                               rtol=RTOL, atol=ATOL_UV)
+    np.testing.assert_allclose(got.v.numpy()[~tie], np.asarray(ref.v)[~tie],
+                               rtol=RTOL, atol=ATOL_UV)
 
 
 @pytest.mark.parametrize("cull", [True, False])
@@ -123,7 +145,7 @@ def test_closest_synthetic_matches_jax(synthetic, cull, sort_rays):
     s = synthetic
     ref, got = _closest_pair(s, s["o"], s["d"], s["tmn"], s["tmx"], cull,
                              sort_rays)
-    _assert_same_hits(ref, got)
+    _assert_same_hits(ref, got, s, s["o"], s["d"])
     assert (got.tri.numpy() >= 0).sum() > 20
     assert (got.tri.numpy()[::7] == -1).all()       # dead lanes never hit
 
@@ -148,7 +170,7 @@ def test_closest_interior_matches_jax(interior_rays, rays, cull, sort_rays):
     o, d, tmx = interior_rays[rays]
     tmn = np.full_like(tmx, 1e-3)
     ref, got = _closest_pair(interior_rays, o, d, tmn, tmx, cull, sort_rays)
-    _assert_same_hits(ref, got)
+    _assert_same_hits(ref, got, interior_rays, o, d)
     assert (got.tri.numpy() >= 0).mean() > 0.5
 
 
@@ -201,7 +223,7 @@ def test_brute_matches_jax(synthetic, cull):
     args = [s["o"], s["d"], *s["tris"], s["tmn"], s["tmx"]]
     ref = jint.brute_force_closest(*map(jnp.asarray, args), cull, chunk=128)
     got = tint.brute_force_closest(*map(_t, args), cull, chunk=128)
-    _assert_same_hits(ref, got)
+    _assert_same_hits(ref, got, s, s["o"], s["d"])
     tseg = np.full_like(s["tmx"], 1.5)
     args[-1] = tseg
     np.testing.assert_array_equal(
@@ -264,13 +286,22 @@ def test_kernel_module_imports_without_nvcc():
 
 def test_tri_slots_repack_keeps_slot_numbering(synthetic):
     """The kernels' slot-major table holds the same triangle in each slot as
-    the JAX package's (C, 16, 128) block."""
+    the JAX package's (C, 16, 128) block, and p0's fourth word the bits of
+    the slot's file id (zero past the cluster's triangles)."""
     cs = synthetic["tcs"]
     blk = cs.tri_block
     slots = cs.tri_slots.numpy().reshape(cs.num_clusters, 128, 3, 4)
     np.testing.assert_array_equal(slots[..., :3].reshape(-1, 128, 9),
                                   blk[:, :9, :].transpose(0, 2, 1))
-    assert (slots[..., 3] == 0).all()
+    assert (slots[:, :, 1:, 3] == 0).all()
+    key = slots[:, :, 0, 3].view(np.int32)
+    begin, count = cs.tri_begin.numpy(), cs.tri_count.numpy()
+    file = cs.tri_file.numpy()
+    assert sorted(file.tolist()) == list(range(len(file)))
+    for c in range(cs.num_clusters):
+        np.testing.assert_array_equal(
+            key[c, :count[c]], file[begin[c]:begin[c] + count[c]])
+        assert (key[c, count[c]:] == 0).all()
 
 
 # ---------------------------------------------------------------------------
@@ -281,6 +312,7 @@ def test_tri_slots_repack_keeps_slot_numbering(synthetic):
 
 _F = np.float32
 _BIG = _F(1e30)
+NO_KEY = 2**31 - 1
 
 
 def _slab_entries(o, d, tmn, tmx, mn, mx):
@@ -349,17 +381,20 @@ def _mt(o, d, tri, tmn, tmax_eff, cull):
     return hit, t, u, v
 
 
-def _quarter_reduce(cb, cs_, cu, cv):
+def _quarter_reduce(cb, ck, cs_, cu, cv):
     """(4, 8) per-quarter bests -> the rays' (8,) picks: two xor exchanges
-    (lane masks 8 and 16) on the key (t, slot), smallest t, then slot."""
+    (lane masks 8 and 16) on the key (t, file id ck), smallest t, then
+    file id; a quarter without a hit (t 1e30) never takes another's."""
     for m in (1, 2):                       # quarter q meets quarter q ^ m
         other = np.arange(4) ^ m
-        ot, os_, ou, ov = cb[other], cs_[other], cu[other], cv[other]
-        take = (ot < cb) | ((ot == cb) & (os_ < cs_))
-        cb, cs_ = np.where(take, ot, cb), np.where(take, os_, cs_)
+        ot, ok, os_ = cb[other], ck[other], cs_[other]
+        ou, ov = cu[other], cv[other]
+        take = (ot < cb) | ((ot == cb) & (ot < _BIG) & (ok < ck))
+        cb, ck = np.where(take, ot, cb), np.where(take, ok, ck)
+        cs_ = np.where(take, os_, cs_)
         cu, cv = np.where(take, ou, cu), np.where(take, ov, cv)
-    assert all((x == x[0]).all() for x in (cb, cs_, cu, cv))
-    return cb[0], cs_[0], cu[0], cv[0]
+    assert all((x == x[0]).all() for x in (cb, ck, cs_, cu, cv))
+    return cb[0], ck[0], cs_[0], cu[0], cv[0]
 
 
 def _kernel_model(cs, o, d, tmn, tmx, cull, any_hit, all_slots=False):
@@ -369,8 +404,10 @@ def _kernel_model(cs, o, d, tmn, tmx, cull, any_hit, all_slots=False):
     o, d, tmn, tmx = (np.asarray(a, _F) for a in (o, d, tmn, tmx))
     slots = cs.tri_slots.numpy()
     begin, count = cs.tri_begin.numpy(), cs.tri_count.numpy()
+    keys = slots[:, :, 3].view(np.int32)    # p0's fourth word: the file id
     n = o.shape[0]
     best_t = np.full(n, _BIG)
+    best_key = np.full(n, NO_KEY, np.int64)
     best_id = np.full(n, -1, np.int32)
     best_u, best_v = np.zeros(n, _F), np.zeros(n, _F)
     occ = np.zeros(n, bool)
@@ -383,14 +420,22 @@ def _kernel_model(cs, o, d, tmn, tmx, cull, any_hit, all_slots=False):
         with np.errstate(all="ignore"):
             while True:
                 e, cid = _successor(lst, last)
-                tmax_eff = tmx[s] if any_hit else np.minimum(best_t[s], tmx[s])
-                bound = np.where(occ[s], -_BIG, tmax_eff).max()
+                if any_hit:
+                    tmax_eff = tmx[s]
+                    bound = np.where(occ[s], -_BIG, tmax_eff).max()
+                    thit = tmax_eff
+                else:
+                    tmax_eff = np.minimum(best_t[s], tmx[s])
+                    b = tmax_eff.max()
+                    bound = b + np.abs(b) * _F(trw.STOP_SLACK)
+                    thit = np.minimum(tmx[s], _BIG)
                 if not (e < _BIG and e <= bound):
                     break
                 seen.append(cid)
                 cnt = 128 if all_slots else count[cid]
                 live = (tmax_eff > tmn[s]) & ~occ[s]
                 cb = np.full((4, 8), _BIG)
+                ck = np.full((4, 8), NO_KEY, np.int64)
                 cs_ = np.full((4, 8), 128)
                 cu, cv = np.zeros((4, 8), _F), np.zeros((4, 8), _F)
                 for q in range(4):
@@ -398,25 +443,34 @@ def _kernel_model(cs, o, d, tmn, tmx, cull, any_hit, all_slots=False):
                     if not len(ids):
                         continue
                     hit, t, u, v = _mt(o[s], d[s], slots[cid, ids], tmn[s],
-                                       tmax_eff, cull and not any_hit)
+                                       thit, cull and not any_hit)
                     hit &= live[:, None] & (t < _BIG)
+                    if not any_hit:
+                        hit &= t <= best_t[s][:, None]
                     tt = np.where(hit, t, _BIG)
-                    k = tt.argmin(axis=1)          # first, so smallest slot
+                    # the least (t, file id) of the quarter's slots
+                    key = keys[cid, ids]
+                    kt = np.where(tt == tt.min(axis=1, keepdims=True),
+                                  key[None], NO_KEY)
+                    k = kt.argmin(axis=1)
                     r = np.arange(8)
                     got = hit.any(axis=1)
                     cb[q] = tt[r, k]
+                    ck[q] = np.where(got, key[k], NO_KEY)
                     cs_[q] = np.where(got, ids[k], 128)
                     cu[q] = np.where(got, u[r, k], 0)
                     cv[q] = np.where(got, v[r, k], 0)
                 if any_hit:
                     occ[s] |= (cb < _BIG).any(axis=0)
                 else:
-                    t_, s_, u_, v_ = _quarter_reduce(cb, cs_, cu, cv)
-                    better = t_ < best_t[s]
+                    t_, k_, s_, u_, v_ = _quarter_reduce(cb, ck, cs_, cu, cv)
+                    better = (t_ < best_t[s]) | (
+                        (t_ == best_t[s]) & (t_ < _BIG) & (k_ < best_key[s]))
                     best_id[s] = np.where(better, begin[cid] + s_, best_id[s])
                     best_u[s] = np.where(better, u_, best_u[s])
                     best_v[s] = np.where(better, v_, best_v[s])
                     best_t[s] = np.where(better, t_, best_t[s])
+                    best_key[s] = np.where(better, k_, best_key[s])
                 last = (e, cid)
         visits.append(seen)
     out = occ.astype(np.int32) if any_hit else (best_t, best_id, best_u,
@@ -502,9 +556,10 @@ def test_kernel_design_interior(interior_rays, rays, cull, any_hit):
 def tied_clusters():
     """Three hand-made clusters. Clusters 0 and 1 share one box (equal row
     entries: the smaller id goes first) and hold the same two triangles, in
-    cluster 1 at other slots and several times (equal t across clusters: the
-    earlier cluster keeps the hit; equal t within a cluster across the four
-    slot quarters: the smallest slot wins). Cluster 2 lies behind them."""
+    cluster 1 at other slots and several times (equal t across clusters and
+    within a cluster across the four slot quarters: the lower file id
+    wins). Cluster 2 lies behind them. No file order is given, so a
+    triangle's file id is its id."""
     near = np.array([0, 0, 1, 1, 0, 0, 0, 1, 0], np.float32)     # z = 1
     far = np.array([0, 0, 2, 1, 0, 0, 0, 1, 0], np.float32)      # z = 2
     block = np.zeros((3, 16, 128), np.float32)
@@ -537,8 +592,8 @@ def test_kernel_design_ties(tied_clusters):
         assert visits[0][0] == 0
     hit = trw.walk_closest(cs, _t(o), _t(d), _t(tmn), _t(tmx), False)
     assert (hit.t.numpy() == 1).all()
-    assert (hit.tri.numpy() == 1).all()      # cluster 0's copy, not cluster 1's
-    # cluster 1 alone: the smallest of the four tied slots
+    assert (hit.tri.numpy() == 1).all()      # cluster 0's copy: file id 1
+    # cluster 1 alone: the lowest file id of the four tied slots
     only1 = tcl.ClusterSet.from_arrays(
         cs.cmin[1:2].numpy(), cs.cmax[1:2].numpy(), cs.tri_block[1:2],
         np.zeros(1, np.int32), 13, "cpu")
@@ -547,20 +602,37 @@ def test_kernel_design_ties(tied_clusters):
     assert (got[1] == 2).all()
     for a, b in zip(got, ref):
         np.testing.assert_array_equal(a, b.numpy())
+    # a file order in which cluster 1's copy at slot 12 (quarter 0, visited
+    # second) comes first in the file: it keeps the hit, on either route
+    order = np.arange(16)
+    order[[1, 14]] = order[[14, 1]]
+    refiled = tcl.ClusterSet.from_arrays(
+        cs.cmin.numpy(), cs.cmax.numpy(), cs.tri_block, cs.tri_begin.numpy(),
+        16, "cpu", order)
+    visits, _ = _assert_model_equals_plain(refiled, o, d, tmn, tmx, False,
+                                           False, sort_rays=False)
+    assert visits[0][:2] == [0, 1]
+    hit = trw.walk_closest(refiled, _t(o), _t(d), _t(tmn), _t(tmx), False)
+    assert (hit.t.numpy() == 1).all() and (hit.tri.numpy() == 14).all()
 
 
 def test_quarter_reduce_picks_smallest_slot_at_smallest_t():
     """The two xor exchanges over the four quarters against a plain argmin,
-    on random keys with many equal t."""
+    on random keys with many equal t: the slot of the lowest file id at the
+    smallest t."""
     rng = np.random.default_rng(4)
     for _ in range(50):
         cb = rng.integers(0, 3, (4, 8)).astype(np.float32)
         cs_ = rng.permuted(np.tile(np.arange(32).reshape(8, 4).T, 1), axis=0)
+        file = rng.permutation(1000)[:32]
+        ck = file[cs_]
         cu = cs_.astype(np.float32) * 0.5
-        t, s, u, v = _quarter_reduce(cb, cs_, cu, cu + 1)
+        t, k, s, u, v = _quarter_reduce(cb, ck, cs_, cu, cu + 1)
         want_t = cb.min(axis=0)
-        want_s = np.where(cb == want_t, cs_, 1 << 20).min(axis=0)
+        want_k = np.where(cb == want_t, ck, 1 << 20).min(axis=0)
+        want_s = np.array([np.nonzero(file == x)[0][0] for x in want_k])
         np.testing.assert_array_equal(t, want_t)
+        np.testing.assert_array_equal(k, want_k)
         np.testing.assert_array_equal(s, want_s)
         np.testing.assert_array_equal(u, want_s * 0.5)
         np.testing.assert_array_equal(v, want_s * 0.5 + 1)

@@ -1,9 +1,10 @@
 """The port's recorder of spans and counters (utils/profiling) at its sites
-in the PT and SPCBPT pools, on a small Cornell frame on the CPU: nothing
-recorded while torch.profiler is off; under it, spans nested under the
-right parents and frames, counters equal to independent counts and
-repeated exactly, on the profiler's clock; and the program's spans in
-device_trace's Chrome trace, the recorder emptied around its block."""
+in the PT and SPCBPT pools and the light pass, on a small Cornell frame on
+the CPU: nothing recorded while torch.profiler is off; under it, spans
+nested under the right parents and frames, counters equal to independent
+counts and repeated exactly, on the profiler's clock; and the program's
+spans in device_trace's Chrome trace, the recorder emptied around its
+block."""
 import json
 import os
 
@@ -93,7 +94,9 @@ def test_spans_nest_and_counters_match_the_loops(cornell, monkeypatch):
     spans, c = got["spans"], got["counters"]
     assert got["frames"] == 2 and got["dropped"] == 0
     tops = [(s.name, s.frame) for s in spans if s.parent == -1]
-    assert tops == [("pt_pool.render", 0), ("spcbpt_pool.render", 1)]
+    # the SPCBPT frame's light pass and sampler build precede its eye pool
+    assert tops == [("pt_pool.render", 0), ("light_trace.paths", 1),
+                    ("lvc.build", 1), ("spcbpt_pool.render", 1)]
     for s in spans:
         assert s.end_ns is not None and s.start_ns <= s.end_ns
         if s.parent >= 0:

@@ -33,7 +33,6 @@ from spcbpt_tpu_torch.kernels import tile_walk as kernels
 from spcbpt_tpu_torch.ops import clusters as tclusters
 from spcbpt_tpu_torch.ops import intersect as tint
 from spcbpt_tpu_torch.ops import pallas_tile
-from spcbpt_tpu_torch.ops import ray_walk as tray_walk
 from spcbpt_tpu_torch.render.common import camera_rays
 from spcbpt_tpu_torch.scene import scene as tscene
 
@@ -370,8 +369,9 @@ def test_closest_parts_break_ties_as_the_whole_set(pallas_interpret, cull):
     pallas_closest_plain takes, on every lane, the triangle JAX's
     pallas_closest (its Pallas walk over the whole set, interpret mode)
     takes, t to T_RTOL, and equals the port's whole-set walk bit for bit;
-    the old merge (a later part wins only with a strictly smaller t:
-    ray_walk.closest_parts_rows) keeps the earlier part's copy instead."""
+    the old merge (each part's tmax the best t so far, a later part
+    winning only with a strictly smaller t) keeps the earlier part's copy
+    instead."""
     jcs, tcs, rays = _tie_case()
     parts = pallas_tile.pallas_closest_plain(tcs, *map(_t, rays), cull,
                                              max_clusters=1)
@@ -390,7 +390,14 @@ def test_closest_parts_break_ties_as_the_whole_set(pallas_interpret, cull):
     split = pallas_tile.split(tcs, 1)
     assert [p.num_clusters for p in split.parts] == [1, 1]
     o, d, tmn, tmx, n, _ = pallas_tile.prepare(tcs, *map(_t, rays), False)
-    old = tray_walk.closest_parts_rows(split, o, d, tmn, tmx, cull,
-                                       pallas_tile.closest_tiles_plain)
+    old = None
+    for cs in split.parts:
+        cur = tmx if old is None else torch.minimum(tmx, old[0])
+        out = pallas_tile.closest_tiles_plain(cs, o, d, tmn, cur, cull)
+        if old is None:
+            old = out
+        else:
+            better = out[0] < old[0]
+            old = tuple(torch.where(better, a, b) for a, b in zip(out, old))
     old_tri = old[1][:n].numpy()
     assert (old_tri[live] == 0).all() and (old_tri[later] != 2).all()
