@@ -210,7 +210,16 @@ Phases, one status line each; any failure raises and exits non-zero:
      WALK_GRAPH_SIZES, graphed against eager: counts torch.equal, films
      within GRAPH_FILM_RTOL, K1/K2 launches equal, one capture and replays
      equal to iterations less it; their ms.
- 31. the SPCBPT eye pool's loop body replayed as a CUDA graph
+ 31. the SPCBPT light pass and its sampler build, each replayed as a CUDA
+     graph (render/light_trace.py, render/lvc.py, pool.Graphed), on
+     Cornell (brute) and the walk-mode scenes: SPCBPT_GRAPH_PATHS paths of
+     depth 16 over the three frames of LIGHT_GRAPH_FRAMES against the
+     eager route, vertices torch.equal, the sampler's integer tables and
+     packed rows torch.equal, `cmf` and `seg_sum` within the bounds of
+     their float sums,
+     one capture then one replay a frame, and a replayed frame with no
+     sync under torch.cuda.set_sync_debug_mode("error"); then the SPCBPT
+     eye pool's loop body replayed as a CUDA graph
      (render/spcbpt_pool.py through the loop of render/pool.py,
      phase_spcbpt_graph): one eager iteration of the body on Cornell
      (brute, a synthetic trained state, a sampler of SPCBPT_GRAPH_PATHS
@@ -254,6 +263,7 @@ and the single round's rows their first form alone as first_form_ms), and
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -414,6 +424,13 @@ GRAPH_EYE_STEP = 0.05    # the second frame's eye, moved along U
 SPCBPT_GRAPH_PATHS = 100_000
 SPCBPT_GRAPH_RTOL = 1e-3
 SPCBPT_GRAPH_ATOL = 1e-5
+# the light pass and its build on the graph route (phase 31): three
+# (light frame, table seed) pairs; the sampler's sums are atomic adds and a
+# float scan, and the presampled draws read them
+LIGHT_GRAPH_FRAMES = ((7919, 0), (7920, 1), (8123, 204))
+LIGHT_GRAPH_RTOL = 1e-5
+LIGHT_GRAPH_CMF_ULPS = 64
+LIGHT_GRAPH_DRAWS = 0.999
 # the walk-mode scenes of phases 30 and 31 (the interior and the kitchen),
 # one frame each at these sizes
 WALK_GRAPH_SIZES = ((64, 64), (1920, 1000))
@@ -3192,22 +3209,134 @@ def _spcbpt_film(gf, ef) -> tuple:
             f"max rel {rel:.3g}, outside the tolerance {int(off.sum())}")
 
 
+def _light_syncs(fn) -> str:
+    """'none', or the first line of the error, when fn() runs under
+    set_sync_debug_mode("error")."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+        return "none"
+    except RuntimeError as e:
+        return str(e).splitlines()[0][:200]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+
+
+def _cmf_off(s, ref) -> dict:
+    """How far sampler s's `seg_sum` and valid `cmf` entries lie from
+    ref's, each as its largest share of its bound: `seg_sum`
+    LIGHT_GRAPH_RTOL relative (atomic adds); a `cmf` entry that plus
+    LIGHT_GRAPH_CMF_ULPS units of 2^-24 of the running sum's total over its
+    segment's sum (the scan's float sum, reassociated, over the segment's
+    share of it)."""
+    n = int(ref.vertex_count)
+    seg = ref.vertices.subspace_id[ref.order[:n]].long()
+    bound = (LIGHT_GRAPH_RTOL * ref.cmf[:n].abs()
+             + LIGHT_GRAPH_CMF_ULPS * 2.0 ** -24 * ref.seg_sum.sum()
+             / ref.seg_sum[seg].clamp(min=1e-30))
+    return {"cmf": ((s.cmf[:n] - ref.cmf[:n]).abs() / bound).max().item(),
+            "seg_sum": ((s.seg_sum - ref.seg_sum).abs()
+                        / (LIGHT_GRAPH_RTOL * ref.seg_sum.abs()).clamp(
+                            min=1e-30)).max().item()}
+
+
+def _light_graph(name: str, ts) -> None:
+    """The light pass and its sampler build of SPCBPT_GRAPH_PATHS paths,
+    depth 16, on the graph route against the eager route, over the three
+    frames of LIGHT_GRAPH_FRAMES under a subspace state of their own (a
+    new key): vertices torch.equal; the sampler's integer tables and packed
+    rows torch.equal, `cmf` and `seg_sum` within their bounds (_cmf_off),
+    the presampled draws equal on LIGHT_GRAPH_DRAWS of them at least; one
+    capture of each on the first frame, one replay each on the later ones;
+    then a replayed frame with no sync; their ms."""
+    from unittest import mock
+
+    from spcbpt_tpu_torch.render import light_trace, lvc, pool
+    from spcbpt_tpu_torch.train import classify
+
+    state = classify.synthetic_trained_state(ts, seed=1)
+
+    def light(build, frame, seed):
+        lv = light_trace.trace_light_paths(ts, state, SPCBPT_GRAPH_PATHS,
+                                           frame, max_depth=16)
+        return lv, build(lv, seed)
+
+    def eager(fn):
+        with mock.patch.object(pool, "graph_route",
+                               lambda device, mode: False):
+            return fn()
+
+    e_build = lvc.make_builder(state)
+    e_syncs = eager(lambda: _light_syncs(
+        lambda: light(e_build, *LIGHT_GRAPH_FRAMES[0])))
+    eager_out, e_ms = [], []
+    for frame, seed in LIGHT_GRAPH_FRAMES:
+        out, ms = eager(lambda: _sync_ms(lambda: light(e_build, frame, seed)))
+        eager_out.append(out)
+        e_ms.append(ms)
+    build = lvc.make_builder(state)
+    for k, ((frame, seed), (elv, es)) in enumerate(
+            zip(LIGHT_GRAPH_FRAMES, eager_out)):
+        ((lv, s), counters), ms = _sync_ms(
+            lambda: _pool_counters(lambda: light(build, frame, seed)))
+        verts = all(torch.equal(getattr(lv, f.name), getattr(elv, f.name))
+                    for f in dataclasses.fields(lv))
+        ints = {f: torch.equal(getattr(s, f), getattr(es, f))
+                for f in ("order", "seg_start", "seg_size", "vertex_count",
+                          "path_count", "packed")}
+        sums = _cmf_off(s, es), _cmf_off(eager(lambda: e_build(elv, seed)),
+                                         es)
+        draws = (s.table_idx == es.table_idx).float().mean().item()
+        want = ({"light_trace.graph_captures": 1, "lvc.graph_captures": 1}
+                if k == 0 else
+                {"light_trace.graph_replays": 1, "lvc.graph_replays": 1})
+        log("spcbpt_graph", f"{name} ({ts.mode}) light pass frame {k} "
+                            f"({frame}): eager {e_ms[k]:.1f} ms, graphed "
+                            f"{ms:.1f} ms under the recorder; vertices "
+                            f"equal {verts}, sampler {ints}, sums against "
+                            f"their bounds {sums[0]} (a second eager build "
+                            f"{sums[1]}), draws equal {draws:.6f}; "
+                            f"{counters}")
+        assert verts and all(ints.values()), ints
+        assert max(sums[0].values()) <= 1.0, sums
+        assert draws >= LIGHT_GRAPH_DRAWS, draws
+        assert counters == want, counters
+    frame, seed = LIGHT_GRAPH_FRAMES[0]
+    syncs = _light_syncs(lambda: light(build, frame, seed))
+    _, ms = _sync_ms(lambda: light(build, frame, seed))
+    log("spcbpt_graph", f"{name} ({ts.mode}) light pass and build under "
+                        f"sync debug 'error': syncs {syncs} replayed, "
+                        f"{e_syncs} eager; a replayed light pass and build "
+                        f"{ms:.1f} ms, the recorder off")
+    assert syncs == "none", syncs
+
+
 def phase_spcbpt_graph(cts, ccam, walk_scenes) -> None:
-    """The SPCBPT eye pool's loop body replayed as a CUDA graph on Cornell
-    (brute) against the same body run eagerly, at GRAPH_SIZES: three
-    frames each, every one with a sampler of its own light frame, a new
-    subframe and a moved eye; then on the walk-mode scenes (name, scene,
-    camera), one frame each at WALK_GRAPH_SIZES."""
+    """The SPCBPT light pass and its sampler build replayed as CUDA graphs
+    against the eager route, on Cornell (brute) and the walk-mode scenes;
+    then the eye pool's loop body replayed as a CUDA graph on Cornell
+    against the same body run eagerly, at GRAPH_SIZES: three frames each,
+    every one with a sampler of its own light frame, a new subframe and a
+    moved eye; then on the walk-mode scenes (name, scene, camera), one
+    frame each at WALK_GRAPH_SIZES."""
     from spcbpt_tpu_torch.render import light_trace, lvc, spcbpt_pool
     from spcbpt_tpu_torch.train import classify
 
     classify.use_fp32_matmul()
+    for name, ts in (("cornell", cts),) + tuple(
+            (name, ts) for name, ts, _ in walk_scenes):
+        _light_graph(name, ts)
     ss = classify.synthetic_trained_state(cts, seed=0)
+    builders = {}
 
     def sampler_of(ts, state, light_frame, paths=SPCBPT_GRAPH_PATHS):
         lv = light_trace.trace_light_paths(ts, state, paths, light_frame,
                                            max_depth=16)
-        return lvc.make_builder(state)(lv, light_frame)
+        if id(state) not in builders:
+            builders[id(state)] = lvc.make_builder(state)
+        return builders[id(state)](lv, light_frame)
 
     syncs = _spcbpt_iteration_syncs(cts, ss, sampler_of(cts, ss, 1), ccam)
     log("spcbpt_graph", f"cornell (brute) SPCBPT iteration under sync debug "

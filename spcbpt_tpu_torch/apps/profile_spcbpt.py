@@ -12,9 +12,11 @@ In one process, after one warm-up frame (kernel build, library init):
      profiled wall, and the kernels that take the most device time;
   3. the same frame with a synchronised timer around each stage
      (profile_pt.stage_breakdown): each stage's exclusive ms. On a CUDA
-     scene in `brute` mode the eye pool replays the loop body the warm-up
-     frame captured (render/spcbpt_pool.py), so the eye pass's stages are
-     not called and its time falls to the rest.
+     scene in `brute` or `walk` mode the eye pool replays the loop body the
+     warm-up frame captured (render/spcbpt_pool.py), and the light pass
+     and its sampler build replay theirs (render/light_trace.py,
+     render/lvc.py): the stages inside them fire only in the capture, and
+     their time falls to the rest.
 Every frame uses the same seeds. Prints one JSON object and writes it to
 `--out`. Needs a CUDA card, except `frame_fn` and STAGES, which the CPU
 tests use.

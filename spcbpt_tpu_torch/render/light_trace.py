@@ -26,7 +26,7 @@ from ..train import classify
 from ..utils import profiling
 from ..utils import rng as rng_mod
 from ..utils import vec
-from . import rmis
+from . import pool, rmis
 from .vertex import LightVertices, map_fields
 
 
@@ -60,18 +60,54 @@ def _origin_vertices(ts: TraceScene, ls: lights_mod.LightSample, n: int):
     )
 
 
+class _Pass(pool.Graphed):
+    """A light pass's buffers on the graph route: the frame index, and the
+    graph of the pass over it with its output buffers."""
+
+    def __init__(self, dev):
+        super().__init__()
+        self.frame = torch.zeros((), dtype=torch.int64, device=dev)
+
+
+# (id(scene), id(state), n_paths, max_depth, seed_salt, device) -> _Pass
+_PASSES = pool.Cache()
+
+
 @profiling.traced("light_trace.paths")
 def trace_light_paths(ts: TraceScene, ss: classify.SubspaceState,
                       n_paths: int, frame, max_depth: int = 8,
                       seed_salt: int = 0x9E37) -> LightVertices:
     """Trace n_paths light sub-paths on the scene's device; returns
-    LightVertices with shape (max_depth+1, n_paths) — slot d holds the
-    depth-d vertex of each path. Recorded as span `light_trace.paths`."""
+    LightVertices with shape (max_depth+1, n_paths), slot d holding the
+    depth-d vertex of each path, the caller's own: no later call writes
+    them. Recorded as span `light_trace.paths`.
+
+    On the pools' graph route (pool.graph_route: a CUDA scene in `brute` or
+    `walk` mode) the pass is one CUDA graph of its key, captured at the
+    key's first call and replayed with the frame index filled into its
+    buffer at each later one; elsewhere the same body runs eagerly."""
+    dev = ts.device
+    # unsigned 32-bit frame, as the JAX uint32 arithmetic
+    frame = int(frame) & 0xFFFFFFFF
+    if not pool.graph_route(dev, ts.mode):
+        return _trace(ts, ss, n_paths, torch.full(
+            (), frame, dtype=torch.int64, device=dev), max_depth, seed_salt)
+    p = _PASSES.get((ts, ss), (n_paths, max_depth, seed_salt, dev),
+                    lambda: _Pass(dev))
+    p.frame.fill_(frame)
+    out = p("light_trace", lambda: vars(_trace(
+        ts, ss, n_paths, p.frame, max_depth, seed_salt)), dev)
+    return LightVertices(**out)
+
+
+def _trace(ts: TraceScene, ss: classify.SubspaceState, n_paths: int,
+           frame, max_depth: int, seed_salt: int) -> LightVertices:
+    """The light pass of trace_light_paths; frame: an int64 scalar on the
+    scene's device holding the uint32 frame index."""
     dev = ts.device
     lane = torch.arange(n_paths, dtype=torch.int64, device=dev)
-    # unsigned 32-bit lane + salt and frame, as the JAX uint32 arithmetic
-    state = rng_mod.seed((lane + seed_salt) & 0xFFFFFFFF,
-                         int(frame) & 0xFFFFFFFF)
+    # unsigned 32-bit lane + salt, as the JAX uint32 arithmetic
+    state = rng_mod.seed((lane + seed_salt) & 0xFFFFFFFF, frame)
 
     ls, state = lights_mod.sample_light(ts, state)
     last = _origin_vertices(ts, ls, n_paths)

@@ -29,7 +29,8 @@ from ..train import nn_classifier as nn_mod
 from ..utils import profiling
 from ..utils import rng as rng_mod
 from ..utils import vec
-from .vertex import LightVertices, pack_matrix, reshape_flat
+from . import pool
+from .vertex import LightVertices, map_fields, pack_matrix, reshape_flat
 
 
 @dataclasses.dataclass
@@ -64,6 +65,9 @@ def build_sampler(lv: LightVertices, table_mode: str = None,
     second-stage mode ("weighted" | "mixture"; "uniform" needs none). It
     MUST match the SubspaceState's second_stage or the MIS rate calibration
     breaks; renderers only use a table whose mode matches.
+
+    table_seed: an int, or an int64 scalar on lv's device holding its
+    table_stream (presample_tables).
 
     ss (optional SubspaceState): when given, the packed matrix also carries
     each vertex's light-side strategy weight (rmis.tracing_weight_light)."""
@@ -126,28 +130,99 @@ def make_builder(ss, table_k: int = 128):
     """Per-frame sampler builder whose presampled table mode matches ss —
     the common caller pattern (build(light_trace(frame), frame)); each
     build is recorded as span `lvc.build`."""
-    mode = table_mode_for(ss)
+    return Builder(ss, table_k)
+
+
+# the sampler's tensors that a build computes (`vertices` is its input)
+SAMPLER_TENSORS = ("order", "cmf", "seg_start", "seg_size", "seg_sum",
+                   "vertex_count", "path_count", "packed", "table_idx",
+                   "table_pmf", "table_pack")
+
+
+def _fields_key(lv: LightVertices) -> tuple:
+    return tuple((tuple(t.shape), t.dtype, t.device)
+                 for t in vars(lv).values())
+
+
+class _Build(pool.Graphed):
+    """A builder's buffers on the graph route: its copy of the light
+    vertices and of the tables' stream index, and the graph of the build
+    over them."""
+
+    def __init__(self, lv: LightVertices):
+        super().__init__()
+        self.key = _fields_key(lv)
+        self.lv = map_fields(torch.empty_like, lv)
+        self.stream = torch.zeros((), dtype=torch.int64,
+                                  device=lv.valid.device)
+
+
+class Builder:
+    """build(lv, seed) -> the LVCSampler of light vertices lv, its tables
+    presampled from seed: build_sampler with ss's table mode and weights.
+
+    On a CUDA device the build is one CUDA graph (pool.Graphed; it traces
+    nothing, so the device alone decides its route, as it does a brute
+    scene's), fixed to the shapes and dtypes of lv's fields: each call
+    copies lv and the stream index into the builder's buffers and replays
+    it, the first call of a key captures it. The sampler returned is the
+    caller's own; its `vertices` are lv flattened."""
+
+    def __init__(self, ss, table_k: int = 128):
+        self.ss, self.table_k = ss, table_k
+        self.mode = table_mode_for(ss)
+        self.graphed = None
+
+    def _build(self, lv, seed) -> LVCSampler:
+        return build_sampler(lv, table_mode=self.mode, table_k=self.table_k,
+                             table_seed=seed, ss=self.ss)
 
     @profiling.traced("lvc.build")
-    def build(lv, seed=0):
-        return build_sampler(lv, table_mode=mode, table_k=table_k,
-                             table_seed=seed, ss=ss)
-    return build
+    def __call__(self, lv: LightVertices, seed=0) -> LVCSampler:
+        dev = lv.valid.device
+        if not pool.graph_route(dev, "brute"):
+            return self._build(lv, seed)
+        g = self.graphed
+        if g is None or g.key != _fields_key(lv):
+            g = self.graphed = _Build(lv)
+        for f in dataclasses.fields(lv):
+            getattr(g.lv, f.name).copy_(getattr(lv, f.name))
+        g.stream.fill_(table_stream(seed))
+
+        def build():
+            s = self._build(g.lv, g.stream)
+            return {f: getattr(s, f) for f in SAMPLER_TENSORS
+                    if getattr(s, f) is not None}
+        return LVCSampler(vertices=reshape_flat(lv), table_mode=self.mode,
+                          has_weight_b=self.ss is not None,
+                          **g("lvc", build, dev))
 
 
-def presample_tables(s: LVCSampler, mode: str, k: int, seed: int = 0):
+
+def table_stream(seed) -> int:
+    """The presampled tables' RNG stream index of a frame's seed: unsigned
+    32-bit seed + salt, as the JAX uint32 arithmetic."""
+    return (int(seed) + 0x7ab1e) & 0xFFFFFFFF
+
+
+def presample_tables(s: LVCSampler, mode: str, k: int, seed=0):
     """Draw K i.i.d. second-stage samples per subspace once per frame and
     record the density each was drawn from. Render-time draws pick a uniform
     slot; since every slot is an i.i.d. draw from the mode's density p and
     the estimator divides by the recorded p(v_slot), E[f/p] equals the
     segment sum (same marginal targeting as the per-draw CMF bisection,
-    cuProg.h:268-288), shared across the frame's eye vertices."""
+    cuProg.h:268-288), shared across the frame's eye vertices.
+
+    seed: an int, or an int64 scalar on the sampler's device holding its
+    table_stream (a builder's on the graph route: no copy from the
+    host)."""
     dev = s.cmf.device
+    if not torch.is_tensor(seed):
+        seed = torch.full((), table_stream(seed), dtype=torch.int64,
+                          device=dev)
     lsub = torch.arange(NUM_SUBSPACE, dtype=torch.int64, device=dev).repeat(k)
-    # unsigned 32-bit seed + salt, as the JAX uint32 arithmetic
     state = rng_mod.seed(torch.arange(lsub.shape[0], dtype=torch.int64,
-                                      device=dev),
-                         (int(seed) + 0x7ab1e) & 0xFFFFFFFF)
+                                      device=dev), seed)
     if mode == "mixture":
         idx, pmf, _, _ = sample_second_stage_mixture(s, lsub, state)
     else:

@@ -20,7 +20,8 @@ graph, and each later iteration replays the graph: one host launch in
 place of the body's hundreds or thousands. The other modes (`tile`'s K4
 round loop and the `bvh` walk sync on the host) and the CPU run the same
 body eagerly. Each estimator keeps its pools in a `Cache` of its own; a
-pool serves one thread at a time.
+pool serves one thread at a time. `Graphed` takes the same route for the
+light pass and its sampler build, each one graph a call.
 """
 from __future__ import annotations
 
@@ -60,6 +61,42 @@ def capture(step, dev) -> tuple:
         with kernels.capture_launches() as launches, torch.cuda.graph(graph):
             step()
     return graph, launches
+
+
+class Graphed:
+    """A function of fixed device buffers run as one CUDA graph, on the
+    graph route of the light pass and of its sampler build
+    (render/light_trace.py, render/lvc.py): the first call runs it once
+    eagerly and captures it, each later call replays the graph. Its
+    result, a dict of tensors, is copied into fixed output buffers, and
+    each call returns a copy of them, the caller's own. The function is
+    passed at every call and not kept: a captured graph holds no Python
+    object, so the buffers' owners can be collected."""
+
+    def __init__(self):
+        self.out = None
+        self.graph = None
+        self.launches = {}
+
+    def __call__(self, name: str, fn, dev) -> dict:
+        """fn() captured or replayed, under the counters `name`.*."""
+        if self.graph is None:
+            def step():
+                got = fn()
+                if self.out is None:
+                    # the warm-up pass gives the buffers their shapes
+                    self.out = {k: torch.empty_like(v)
+                                for k, v in got.items()}
+                for k, v in got.items():
+                    self.out[k].copy_(v)
+            # the warm-up pass is this call; the capture runs nothing
+            self.graph, self.launches = capture(step, dev)
+            profiling.count(f"{name}.graph_captures", 1)
+        else:
+            self.graph.replay()
+            kernels.add_launches(self.launches)
+            profiling.count(f"{name}.graph_replays", 1)
+        return {k: v.clone() for k, v in self.out.items()}
 
 
 def camera(cam_uvw, dev) -> torch.Tensor:

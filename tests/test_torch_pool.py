@@ -26,7 +26,7 @@ from spcbpt_tpu_torch.scene.cornell import default_scene_path
 from spcbpt_tpu_torch.train import classify
 from spcbpt_tpu_torch.utils import profiling
 
-from graph_stand_in import RECORDED, graphed  # noqa: F401 (fixture)
+from graph_stand_in import graphed, refuse_host_data  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -39,6 +39,11 @@ LIGHT_DEPTH = 5
 FRAMES = ((3, 0.0), (7, 0.15), (11, -0.1))
 POOLS = {"pt": pt_pool, "spcbpt": spcbpt_pool}
 KINDS = sorted(POOLS)
+# the launches of one iteration of either pool on a scene of one cluster
+# set (PT: the path's closest hit and NEE's shadow ray; SPCBPT: the eye
+# bounce and the connections' visibility), K3 on brute and K1/K2 on walk
+RECORDED = {"brute": {"brute_closest": 1, "brute_any": 1},
+            "walk": {"walk_closest": 1, "walk_any": 1}}
 
 
 @pytest.fixture(scope="module")
@@ -76,17 +81,21 @@ class _Renderer:
             self.ss = classify.synthetic_trained_state(self.ts, seed=0)
             self.samplers = {}
 
+    def sampler(self, frame: int, ss=None):
+        """The sampler of light frame 100 + frame under ss, built once."""
+        ss = self.ss if ss is None else ss
+        if (id(ss), frame) not in self.samplers:
+            self.samplers[id(ss), frame] = _sampler(self.ts, ss, 100 + frame)
+        return self.samplers[id(ss), frame]
+
     def __call__(self, uvw, sub, side=SIDE, spp=2, frame=0, ss=None, **kw):
         kw = {"n_pool": N_POOL, "max_depth": EYE_DEPTH, **kw}
         if self.kind == "pt":
             return pt_pool.render_pool(self.ts, uvw, side, side, spp, sub,
                                        **kw)
         ss = self.ss if ss is None else ss
-        if (id(ss), frame) not in self.samplers:
-            self.samplers[id(ss), frame] = _sampler(self.ts, ss, 100 + frame)
-        return spcbpt_pool.render_pool(self.ts, ss,
-                                       self.samplers[id(ss), frame], uvw,
-                                       side, side, spp, sub, **kw)
+        return spcbpt_pool.render_pool(self.ts, ss, self.sampler(frame, ss),
+                                       uvw, side, side, spp, sub, **kw)
 
     def pools(self):
         """This scene's cache entries, least recently used first."""
@@ -178,14 +187,17 @@ def test_cpu_renders_take_the_eager_body(cornell, kind):
 def _check_graph_route(cornell, kind, mode, frames, monkeypatch):
     """Frame 1 of a key: its first iteration the warm-up and capture, every
     later one a replay; later frames (each on its own light frame, for
-    SPCBPT): replays alone, one an iteration. The launch counters gain the
-    mode's recorded launches once a replay and none for the capture; the
+    SPCBPT, built beforehand): replays alone, one an iteration. The launch
+    counters gain an iteration's launches for the warm-up pass and each
+    replay, and none for the capture, as the eager route counts them; the
     other pool counts nothing. Films and counts equal the eager route's."""
     render = _Renderer(kind, _scene(mode))
     assert render.ts.mode == mode
     name = f"{kind}_pool"
     counters, launches, outs = [], [], []
     for k, (sub, step) in enumerate(frames):
+        if kind == "spcbpt":
+            render.sampler(k)
         kernels.reset_launches()
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CPU]):
@@ -206,7 +218,7 @@ def _check_graph_route(cornell, kind, mode, frames, monkeypatch):
         assert {kernel for kernel, k in n.items() if k} == set(
             RECORDED[mode])
         for kernel, k in RECORDED[mode].items():
-            assert n[kernel] == k * c[f"{name}.graph_replays"]
+            assert n[kernel] == k * c[f"{name}.iterations"]
 
     monkeypatch.setattr(pool, "graph_route", lambda device, mode: False)
     eager = _Renderer(kind, render.ts)
@@ -231,27 +243,6 @@ def test_walk_scene_takes_the_graph_route(cornell, kind, graphed,
     """The same bookkeeping on a walk-mode scene (K1/K2): one capture, then
     replays alone, films and counts equal to the eager body's."""
     _check_graph_route(cornell, kind, "walk", FRAMES[:2], monkeypatch)
-
-
-def _refuse_host_data(monkeypatch) -> None:
-    """torch.as_tensor and Tensor.new_tensor raise when given host data (a
-    number, a list, an array): on the card each is a copy from the host,
-    which blocks the host and which a CUDA graph capture cannot record."""
-    as_tensor, new_tensor = torch.as_tensor, torch.Tensor.new_tensor
-
-    def refuse(data):
-        if not torch.is_tensor(data):
-            raise AssertionError(f"a tensor made from host data {data!r}")
-
-    def strict_as_tensor(data, *args, **kw):
-        refuse(data)
-        return as_tensor(data, *args, **kw)
-
-    def strict_new_tensor(self, data, *args, **kw):
-        refuse(data)
-        return new_tensor(self, data, *args, **kw)
-    monkeypatch.setattr(torch, "as_tensor", strict_as_tensor)
-    monkeypatch.setattr(torch.Tensor, "new_tensor", strict_new_tensor)
 
 
 # lanes of the walk traces below: not a multiple of the walk's padding unit
@@ -279,7 +270,7 @@ def test_walk_trace_set_up_takes_no_host_data(cornell, query, monkeypatch):
             return hit.t, hit.tri, hit.u, hit.v
         return (scene_mod.trace_any(ts, o, d, tmin, tmax),)
     with monkeypatch.context() as m:
-        _refuse_host_data(m)
+        refuse_host_data(m)
         got = trace(SCENE_EPSILON, tmax)
     lanes = [torch.full((WALK_LANES,), x) for x in (SCENE_EPSILON, tmax)]
     for want in (trace(SCENE_EPSILON, tmax), trace(*lanes)):
@@ -321,7 +312,7 @@ def test_walk_pool_iteration_takes_no_host_data(cornell, kind, monkeypatch):
         p, step = _start_pool(kind, ts, ss, sampler, cornell)
         if guarded:
             with monkeypatch.context() as m:
-                _refuse_host_data(m)
+                refuse_host_data(m)
                 step()
         else:
             step()
